@@ -8,16 +8,26 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
 ``tests/``). Phases, each of which raises on failure:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
-2. build: ``nvcc`` for every kernel source, with ptxas register/spill lines;
+2. build: ``nvcc`` for every kernel source (all in parallel), with ptxas
+   register/spill lines;
 3. kernel parity: each kernel against its plain PyTorch version on the
-   card at the main path's shapes and edge shapes, the ``sens_sketch``
-   shard composition, and bit-identical repeated ``sens_sketch`` runs;
+   card at the main paths' shapes and edge shapes, the ``sens_sketch``
+   shard composition, the ``grouped_matmul`` mask and bf16 promotion, and
+   bit-identical repeated runs of both reducing kernels;
 4. kernel timing: CUDA events around each launch (L2 flushed before each),
    kernel / plain version / one-call library yardstick / computed bound;
-5. golden: the sequential FedPSA and FedBuff runs on the golden world
-   reproduce ``tests/golden/{fedpsa,fedbuff}.json`` on the card;
-6. main path: FedPSA on ``paper-cifar10-cnn`` at full width (d =
-   1,756,426), with exact kernel launch counts.
+5. golden: the FedPSA and FedBuff runs on the golden world reproduce
+   ``tests/golden/{fedpsa,fedbuff}.json`` on the card, on the sequential
+   engine and on the cohort engine with both member kernels;
+6. main path, sequential engine: FedPSA on ``paper-cifar10-cnn`` at full
+   width (d = 1,756,426), with exact kernel launch counts;
+7. main path, cohort engine: the same run with ``engine="cohort",
+   member_kernel="grouped"``, with exact launch counts of all three
+   kernels;
+8. profile: the first 2,000 virtual units of both main paths under
+   ``torch.profiler``: the device's busy share of the wall time and the
+   CUDA kernels by total time (printed; a trace with no device events is
+   reported, not failed).
 
 Then it prints one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a card it exits non-zero
@@ -61,6 +71,12 @@ GOLDEN_SIM = dict(num_clients=8, horizon=6_000.0, eval_every=3_000.0, seed=0)
 GOLDEN_PSA = dict(queue_len=10)
 RTOL, ATOL = 1e-4, 1e-3
 CIFAR_D = 1_756_426
+# The CIFAR CNN's dense layers (fc0: 4096 -> 384, fc1: 384 -> 192) at the
+# batch size 64 of a local step: the grouped_matmul main-path shapes.
+FC_SHAPES = {"fc0": (64, 4096, 384), "fc1": (64, 384, 192)}
+# tests/test_grouped_matmul.py's edge shapes (G, M, K, N)
+GM_EDGE_SHAPES = ((1, 8, 16, 16), (3, 130, 200, 96), (5, 1, 7, 3),
+                  (4, 32, 256, 64))
 
 
 def log(msg: str) -> None:
@@ -194,7 +210,71 @@ def phase_parity(torch, dev):
     if not torch.equal(a, b):
         raise AssertionError("sens_sketch is not bit-identical across runs")
     log(f"[parity] sens_sketch d={n} repeated runs bit-identical")
+    errs["grouped_matmul"] = _parity_grouped(torch, dev, rng)
     return errs
+
+
+def _gm_rel(torch, got, want) -> tuple:
+    """(max |got - want|, that over max |want|)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / (float(want.float().abs().max()) + 1e-30)
+
+
+def _parity_grouped(torch, dev, rng) -> float:
+    """grouped_matmul vs its plain version: the forward, dW and dx products
+    of fc0 and fc1 at G = 4 and 8 (dW and dx through the transposed views
+    the backward passes), the edge shapes, the valid mask, bf16 promotion
+    and bit-identical repeated runs. Tolerance: max|err| <= 1e-5 *
+    max|plain| in f32 (the two sum K terms in different orders)."""
+    from repro_torch.kernels import grouped_matmul as gm
+    worst = 0.0
+
+    def check(what, a, b, valid=None, tol=1e-5):
+        got = gm.grouped_matmul(a, b, valid)
+        want = gm.grouped_matmul_plain(a, b, valid)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"grouped_matmul {what}: {got.dtype}"
+                                 f"{tuple(got.shape)} != {want.dtype}"
+                                 f"{tuple(want.shape)}")
+        err, rel = _gm_rel(torch, got, want)
+        log(f"[parity] grouped_matmul {what} max|err|={err:.3e} "
+            f"rel={rel:.3e} tol={tol:.0e}")
+        if not rel <= tol:
+            raise AssertionError(f"grouped_matmul {what}: rel {rel} > {tol}")
+        return err, got
+
+    for G in (4, 8):
+        for layer, (M, K, N) in FC_SHAPES.items():
+            x = _rand(torch, rng, (G, M, K), dev)
+            w = _rand(torch, rng, (G, K, N), dev)
+            g = _rand(torch, rng, (G, M, N), dev)
+            for what, a, b in (("fwd", x, w), ("dW", x.transpose(1, 2), g),
+                               ("dx", g, w.transpose(1, 2))):
+                err, _ = check(f"{layer} {what} G={G} {tuple(a.shape)}@"
+                               f"{tuple(b.shape)}", a, b)
+                worst = max(worst, err)
+    for G, M, K, N in GM_EDGE_SHAPES:
+        check(f"edge G={G} M={M} K={K} N={N}",
+              _rand(torch, rng, (G, M, K), dev), _rand(torch, rng, (G, K, N), dev))
+    M, K, N = FC_SHAPES["fc0"]
+    x, w = _rand(torch, rng, (4, M, K), dev), _rand(torch, rng, (4, K, N), dev)
+    a, b = gm.grouped_matmul(x, w), gm.grouped_matmul(x, w)
+    if not torch.equal(a, b):
+        raise AssertionError("grouped_matmul is not bit-identical across runs")
+    log("[parity] grouped_matmul fc0 G=4 repeated runs bit-identical")
+    xs, ws = x[:3, :, :512], w[:3, :512, :]
+    check("bf16 x f32 -> f32", xs.bfloat16(), ws)
+    check("f32 x bf16 -> f32", xs, ws.bfloat16())
+    # bf16 output: one rounding to bf16 (8 bits) after the f32 sum
+    check("bf16 x bf16 -> bf16", xs.bfloat16(), ws.bfloat16(), tol=8e-3)
+    x[3] = float("inf")                      # garbage in a masked group
+    valid = torch.tensor([1.0, 0.0, 1.0, 0.0], device=dev)
+    _, got = check("valid=[1,0,1,0] fc0 G=4", x, w, valid)
+    if not (bool((got[1] == 0).all()) and bool((got[3] == 0).all())):
+        raise AssertionError("grouped_matmul: valid == 0 groups not exactly 0")
+    log("[parity] grouped_matmul valid == 0 groups exactly zero")
+    return worst
 
 
 def _time_ms(torch, fn, iters: int, flush) -> float:
@@ -244,11 +324,32 @@ def phase_timing(torch, dev):
                           20, flush),
         library_ms=None,
         bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms else "operations")
+    from repro_torch.kernels import grouped_matmul as gm
+    G, (M, K, N) = 4, FC_SHAPES["fc0"]
+    x, w = _rand(torch, rng, (G, M, K), dev), _rand(torch, rng, (G, K, N), dev)
+    gr = _rand(torch, rng, (G, M, N), dev)
+    for what, a, b in (("fwd", x, w), ("dW", x.transpose(1, 2), gr),
+                       ("dx", gr, w.transpose(1, 2))):
+        g_, m_, k_ = a.shape
+        n_ = b.shape[2]
+        b_ms = 4 * g_ * (m_ * k_ + k_ * n_ + m_ * n_) / HBM_BYTES_PER_S * 1e3
+        f_ms = 2 * g_ * m_ * k_ * n_ / FP32_FLOPS_PER_S * 1e3
+        key = "grouped_matmul" if what == "fwd" else f"grouped_matmul_{what}"
+        out[key] = dict(
+            shape=f"fc0 {what} G={g_} ({m_}x{k_})@({k_}x{n_})",
+            ms=_time_ms(torch, lambda: gm.grouped_matmul(a, b), 200, flush),
+            plain_ms=_time_ms(torch, lambda: gm.grouped_matmul_plain(a, b),
+                              200, flush),
+            library_ms=_time_ms(torch, lambda: torch.bmm(a, b), 200, flush),
+            bound_ms=max(b_ms, f_ms),
+            bound_by="bytes" if b_ms >= f_ms else "operations",
+            blocks=g_ * -(-m_ // 64) * -(-n_ // 64))
     for name, r in out.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f}us"
         log(f"[timing] {name} {r['shape']}: kernel {r['ms'] * 1e3:.1f}us "
             f"plain {r['plain_ms'] * 1e3:.1f}us library {lib} "
-            f"bound {r['bound_ms'] * 1e3:.1f}us ({r['bound_by']})")
+            f"bound {r['bound_ms'] * 1e3:.1f}us ({r['bound_by']})"
+            + (f" blocks={r['blocks']} (132 SMs)" if "blocks" in r else ""))
     return out
 
 
@@ -277,10 +378,13 @@ def phase_golden(torch):
     from repro_torch.federated.simulator import SimConfig, run_algorithm
     from repro_torch.kernels import ops
     cfg, clients, test, calib, params = _golden_world()
-    for name in ("fedpsa", "fedbuff"):
+    runs = [(n, "sequential", "vmap") for n in ("fedpsa", "fedbuff")] + \
+        [(n, "cohort", mk) for n in ("fedpsa", "fedbuff")
+         for mk in ("vmap", "grouped")]
+    for name, engine, mk in runs:
         kw = (dict(psa_cfg=PSAConfig(**GOLDEN_PSA), calib_batch=calib)
               if name == "fedpsa" else {})
-        sim = SimConfig(engine="sequential", device="cuda",
+        sim = SimConfig(engine=engine, member_kernel=mk, device="cuda",
                         record_trajectory=True, **GOLDEN_SIM)
         ops.reset_launch_counts()
         res = run_algorithm(name, cfg, params, clients, test, sim, **kw)
@@ -299,27 +403,44 @@ def phase_golden(torch):
                                    golden["final"]["final_accuracy"], atol=2e-3)
         np.testing.assert_allclose(res.aulc, golden["final"]["aulc"], atol=2e-3)
         need = ("buffer_agg", "sens_sketch") if name == "fedpsa" else ("buffer_agg",)
+        if mk == "grouped":
+            need += ("grouped_matmul",)
+        elif counts["grouped_matmul"] != 0:
+            raise AssertionError(f"golden {name} {engine}/{mk}: "
+                                 f"grouped_matmul launched")
         for k in need:
             if counts[k] == 0:
-                raise AssertionError(f"golden {name}: {k} never launched")
+                raise AssertionError(f"golden {name} {engine}/{mk}: {k} "
+                                     f"never launched")
+        if res.engine != engine:
+            raise AssertionError(f"golden {name}: ran {res.engine}")
         rel = float(np.max(np.abs(got - want) / (np.abs(want) + ATOL / RTOL)))
-        log(f"[golden] {name}: {len(got)} digests match (max rel {rel:.2e}), "
+        log(f"[golden] {name} {engine}/{mk}: {len(got)} digests match "
+            f"(max rel {rel:.2e}), cohorts={res.cohorts} "
             f"versions={res.versions} dispatches={res.dispatches} "
             f"final={res.final_accuracy:.4f} aulc={res.aulc:.4f} "
             f"launches={counts}")
+
+
+def _main_world(torch):
+    from repro_torch.launch.train import build_task
+    from repro_torch.models.model import init_params
+    cfg, clients, test, calib = build_task("paper-cifar10-cnn", 10_000,
+                                           alpha=0.1, num_clients=50, seed=0)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    return cfg, clients, test, calib, params
+
+
+MAIN_SIM = dict(num_clients=50, concurrency=0.2, horizon=6_000,
+                eval_every=2_000, seed=0, device="cuda")
 
 
 def phase_main(torch):
     from repro_torch.core.psa import PSAConfig
     from repro_torch.federated.simulator import SimConfig, run_algorithm
     from repro_torch.kernels import ops
-    from repro_torch.launch.train import build_task
-    from repro_torch.models.model import init_params
-    cfg, clients, test, calib = build_task("paper-cifar10-cnn", 10_000,
-                                           alpha=0.1, num_clients=50, seed=0)
-    params = init_params(torch.Generator().manual_seed(0), cfg, "cuda")
-    sim = SimConfig(engine="sequential", num_clients=50, concurrency=0.2,
-                    horizon=6_000, eval_every=2_000, seed=0, device="cuda")
+    cfg, clients, test, calib, params = _main_world(torch)
+    sim = SimConfig(engine="sequential", **MAIN_SIM)
     psa = PSAConfig()
     captured = {}
 
@@ -356,6 +477,112 @@ def phase_main(torch):
     return counts
 
 
+def phase_main_cohort(torch):
+    """The sequential main path's run on the cohort engine with the grouped
+    member kernel. The engine that ``_drain_cohort`` builds is captured to
+    read its local-step counter: each step launches grouped_matmul 9 times
+    on the CNN (3 dense forwards, 3 dW, 3 dx — fc0's input depends on the
+    conv weights)."""
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated import simulator
+    from repro_torch.kernels import ops
+    cfg, clients, test, calib, params = _main_world(torch)
+    sim = simulator.SimConfig(engine="cohort", member_kernel="grouped",
+                              record_trajectory=True, **MAIN_SIM)
+    engines = []
+    make = simulator._make_cohort_engine
+
+    def capture(*a, **kw):
+        engines.append(make(*a, **kw))
+        return engines[-1]
+
+    simulator._make_cohort_engine = capture
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = simulator.run_algorithm("fedpsa", cfg, params, clients, test,
+                                      sim, psa_cfg=PSAConfig(),
+                                      calib_batch=calib)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        simulator._make_cohort_engine = make
+    (engine,) = engines
+    want = {"sens_sketch": 10 * (res.dispatches + res.versions + 1),
+            "buffer_agg": res.versions,
+            "grouped_matmul": 9 * engine.steps_run}
+    if counts != want:
+        raise AssertionError(f"cohort main path launches {counts} != {want}")
+    if res.versions < 1 or res.engine != "cohort" or res.cohorts < 1:
+        raise AssertionError(f"cohort main path did not run: {res.engine} "
+                             f"versions={res.versions} cohorts={res.cohorts}")
+    dig = np.asarray(res.digests)
+    if dig.shape != (res.dispatches, 2) or not np.isfinite(dig).all():
+        raise AssertionError(f"cohort main path digests {dig.shape} not finite")
+    if not (0.0 <= res.final_accuracy <= 1.0 and math.isfinite(res.aulc)):
+        raise AssertionError(f"bad accuracy {res.final_accuracy} / {res.aulc}")
+    log(f"[main-cohort] paper-cifar10-cnn fedpsa cohort/grouped d={CIFAR_D} "
+        f"receives={res.dispatches} versions={res.versions} "
+        f"cohorts={res.cohorts} members/wave={res.dispatches / res.cohorts:.2f} "
+        f"local_steps={engine.steps_run} "
+        f"steps/wave={engine.steps_run / res.cohorts:.1f} "
+        f"final={res.final_accuracy:.4f} aulc={res.aulc:.4f} "
+        f"wall={wall:.2f}s s/receive={wall / max(res.dispatches, 1):.4f} "
+        f"max_mem={torch.cuda.max_memory_allocated() / 2**20:.1f}MiB "
+        f"launches={counts}")
+    return counts
+
+
+def _profile_run(torch, engine: str) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated.simulator import SimConfig, run_algorithm
+    cfg, clients, test, calib, params = _main_world(torch)
+    sim = SimConfig(engine=engine, member_kernel="grouped",
+                    **{**MAIN_SIM, "horizon": 2_000})
+    torch.cuda.synchronize()
+    # device activity only: host-op events would multiply the trace's
+    # post-processing time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run_algorithm("fedpsa", cfg, params, clients, test, sim,
+                            psa_cfg=PSAConfig(), calib_batch=calib)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):            # union of the device intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    log(f"[profile] {engine}: horizon 2000, receives={res.dispatches} "
+        f"wall={wall:.2f}s (profiled) device busy={busy / 1e6:.3f}s "
+        f"({100 * busy / 1e6 / wall:.1f}% of wall), "
+        f"{sum(n for n, _ in by_name.values())} device events")
+    if not spans:
+        log(f"[profile] {engine}: the trace holds no device events")
+        return
+    total = sum(us for _, us in by_name.values())
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        log(f"[profile]   {100 * us / total:5.1f}% {us / 1e3:9.1f}ms "
+            f"{n:7d}x {name[:90]}")
+
+
+def phase_profile(torch):
+    for engine in ("sequential", "cohort"):
+        _profile_run(torch, engine)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -372,18 +599,24 @@ def main() -> int:
     errs = phase_parity(torch, dev)
     timing = phase_timing(torch, dev)
     phase_golden(torch)
-    launches = phase_main(torch)
+    by_path = {"sequential": phase_main(torch),
+               "cohort": phase_main_cohort(torch)}
+    phase_profile(torch)
     sources = {"buffer_agg": ("src/repro_torch/csrc/buffer_agg.cu",
                               "src/repro/kernels/buffer_agg.py:38",
                               "1e-6 * (1 + max|plain|) * L"),
                "sens_sketch": ("src/repro_torch/csrc/sens_sketch.cu",
                                "src/repro/kernels/sens_sketch.py:69",
-                               "1e-5 * sum|s| / sqrt(k) + 1e-7")}
+                               "1e-5 * sum|s| / sqrt(k) + 1e-7"),
+               "grouped_matmul": ("src/repro_torch/csrc/grouped_matmul.cu",
+                                  "src/repro/kernels/grouped_matmul.py:55",
+                                  "1e-5 * max|plain| (f32)")}
     kernels = []
     for k, (src, rep, tol) in sources.items():
         r = timing[k]
         kernels.append({"name": k, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[k],
+                        "replaces": rep, "launches": by_path["cohort"][k],
+                        "launches_by_path": {p: c[k] for p, c in by_path.items()},
                         "max_abs_err": errs[k], "tolerance": tol, "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -87,14 +87,20 @@ class FlatSpec:
     def __hash__(self):
         return hash(self._sig())
 
-    def flatten(self, tree) -> torch.Tensor:
-        """Tree -> contiguous (d,) f32 vector (a fresh tensor)."""
+    def flatten(self, tree, members: bool = False) -> torch.Tensor:
+        """Tree -> contiguous (d,) f32 vector (a fresh tensor); with
+        ``members``, a tree of (B, *shape) leaves -> (B, d)."""
+        if members:
+            return torch.cat([l.float().reshape(l.shape[0], -1)
+                              for l in tree_leaves(tree)], dim=1)
         return torch.cat([l.float().reshape(-1) for l in tree_leaves(tree)])
 
     def unflatten(self, vec: torch.Tensor):
         """(d,) vector -> tree of views into ``vec`` with the template's
-        shapes. Views, not copies: callers never write into them."""
-        leaves = [vec[o:o + n].view(s) for o, n, s in
+        shapes; a (B, d) stack -> tree of (B, *shape) views. Views, not
+        copies: callers never write into them."""
+        lead = tuple(vec.shape[:-1])
+        leaves = [vec[..., o:o + n].view(lead + s) for o, n, s in
                   zip(self.offsets, self.sizes, self.shapes)]
         out: dict = {}
         for path, leaf in zip(self._paths, leaves):

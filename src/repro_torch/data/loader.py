@@ -3,13 +3,15 @@
 ``epoch_batch_indices`` is a copy of the reference's one shuffle routine,
 so the port visits exactly the batches the reference's per-client loop
 would (same ``RandomState`` stream, same drop-last rule).
+``StackedClients`` is the cohort engine's padded all-clients slab.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Iterator, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.data.synthetic import SyntheticClassification
 
@@ -45,3 +47,41 @@ class ClientDataset:
                                        batch_size, seed):
             yield {"x": self.data.x[idx].astype(np.float32),
                    "y": self.data.y[idx].astype(np.int32)}
+
+
+@dataclass
+class StackedClients:
+    """All clients' data as one padded slab (the cohort engine's layout),
+    the reference's ``repro.data.loader.StackedClients`` for image data.
+
+    ``x[c, :sizes[c]]`` are client ``c``'s real samples; rows beyond that
+    are zero padding. Padding never reaches a loss term: the batch
+    schedules index only real rows, and ragged batch tails are masked
+    inside the engine's loss. x (C, n_max, ...) float32, y (C, n_max)
+    int32.
+    """
+    x: np.ndarray
+    y: np.ndarray
+    sizes: np.ndarray    # (C,) int32 true per-client sample counts
+
+    @classmethod
+    def from_datasets(cls, datasets: Sequence[ClientDataset]
+                      ) -> "StackedClients":
+        d0 = datasets[0].data
+        if np.issubdtype(d0.x.dtype, np.integer):
+            raise NotImplementedError(
+                "token datasets are not ported to repro_torch (ROADMAP.md "
+                "Queue 1 item 10)")
+        sizes = np.asarray([len(d) for d in datasets], np.int32)
+        C, n_max = len(datasets), int(sizes.max())
+        x = np.zeros((C, n_max) + d0.x.shape[1:], np.float32)
+        y = np.zeros((C, n_max) + d0.y.shape[1:], np.int32)
+        for c, d in enumerate(datasets):
+            x[c, :sizes[c]] = d.data.x
+            y[c, :sizes[c]] = d.data.y
+        return cls(x=x, y=y, sizes=sizes)
+
+    def to_device(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The slab as device tensors: x float32, y int64 (gather index)."""
+        return (torch.as_tensor(self.x, device=device),
+                torch.as_tensor(self.y.astype(np.int64), device=device))

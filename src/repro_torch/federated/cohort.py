@@ -1,0 +1,180 @@
+"""Cohort client engine: a wave of clients trains as one batch of members.
+
+The port of the reference's ``repro.federated.cohort.CohortEngine`` (the
+monolithic data slab on one device). All clients whose completions drain
+together train at once: every parameter and activation carries a leading
+member axis B (the reference's ``vmap`` axis, written out), and a Python
+loop over the local SGD steps replaces the reference's ``lax.scan``. Each
+step gathers the members' batches from the device slab, takes one autograd
+pass over the sum of the member losses (members are independent, so each
+member's gradient is exact) and moves every member by its own learning
+rate. The member-batched dense products go through
+``models.member_math.member_dot`` in the engine's ``member_kernel`` mode:
+``"grouped"`` runs them through the ``grouped_matmul`` kernel, forward and
+backward.
+
+Batch schedules come from the same ``epoch_batch_indices`` stream as the
+sequential client, padded to a fixed ``(num_steps, bs_pad)`` frame: ragged
+batch tails are masked inside the loss (``registry.masked_batch``), and a
+padded step has learning rate 0, so it is an exact no-op. The engine ends a
+wave after the last step on which any member has a non-zero learning rate;
+the steps it skips are such no-ops. Wave sizes pad up to the ``bucket_size``
+grid with zero-parameter members on client 0's data at learning rate 0,
+as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common.tree import (FlatSpec, tree_leaves, tree_sq_norm,
+                                     tree_sub, tree_unflatten_like)
+from repro_torch.data.loader import StackedClients, epoch_batch_indices
+from repro_torch.federated.client import _head
+from repro_torch.models import member_math, registry
+from repro_torch.models.config import ModelConfig
+
+
+def bucket_size(B: int, data_kind: str = "tokens") -> int:
+    """Pad a wave of B members up to the family's bucket grid: multiples
+    of 4 for ``image`` data; {4, 6, 8, 12, 16, 24, ...} (powers of two and
+    1.5x powers of two) for ``tokens``. The reference's grid, which bounds
+    its compiled-program count; the port keeps it so that waves, padding
+    and launch shapes match the reference's."""
+    if data_kind == "image":
+        return -(-B // 4) * 4
+    if B <= 4:
+        return 4
+    p = 1 << (B - 1).bit_length()          # next power of two >= B
+    return 3 * p // 4 if 3 * p // 4 >= B else p
+
+
+class CohortEngine:
+    """Local training for a whole wave of members on one device.
+
+    Built once per run (model, stacked data, epochs, batch size, prox,
+    align, member kernel); ``cohort_update`` then trains one wave.
+    ``steps_run`` counts the local steps the engine executed, over all
+    waves.
+    """
+
+    def __init__(self, cfg: ModelConfig, stacked: StackedClients,
+                 spec: FlatSpec, *, local_epochs: int = 5,
+                 batch_size: int = 64, prox: float = 0.0, align: float = 0.0,
+                 member_kernel: str = "vmap", device="cpu"):
+        fam = registry.get_family(cfg)
+        if member_kernel not in member_math.MODES:
+            raise ValueError(f"member_kernel must be one of "
+                             f"{member_math.MODES}, got {member_kernel!r}")
+        self._fam = fam
+        self._data_kind = fam.data_kind
+        self.cfg = cfg
+        self.spec = spec
+        self.local_epochs = int(local_epochs)
+        self.batch_size = int(batch_size)
+        self.prox = float(prox)
+        self.align = float(align)
+        self.member_kernel = member_kernel
+        self.device = torch.device(device)
+        self.sizes = np.asarray(stacked.sizes, np.int64)
+        self.x, self.y = stacked.to_device(self.device)
+        # per-client steps under the drop-last rule; waves run in the
+        # global max frame and mask the tail
+        bs_c = np.minimum(self.batch_size, self.sizes)
+        self.steps_per_client = (self.local_epochs
+                                 * (self.sizes // bs_c)).astype(int)
+        self.num_steps = int(self.steps_per_client.max())
+        self.bs_pad = int(bs_c.max())
+        self.steps_run = 0
+
+    def _schedules(self, cids: np.ndarray, seeds: np.ndarray):
+        """Batch schedules for a cohort, padded to the engine's fixed
+        (num_steps, bs_pad) frame. Returns (idx, valid f32 masks, counts =
+        per-step valid totals clamped to >= 1, nvalid per-step raw totals
+        for lr gating)."""
+        B = len(cids)
+        idx = np.zeros((B, self.num_steps, self.bs_pad), np.int64)
+        valid = np.zeros((B, self.num_steps, self.bs_pad), np.float32)
+        nvalid = np.zeros((B, self.num_steps), np.float32)
+        for i, (c, s) in enumerate(zip(cids, seeds)):
+            sched = epoch_batch_indices(int(self.sizes[c]), self.local_epochs,
+                                        self.batch_size, int(s))
+            st, bs = sched.shape
+            idx[i, :st, :bs] = sched
+            valid[i, :st, :bs] = 1.0
+            nvalid[i, :st] = bs
+        counts = np.maximum(nvalid, 1.0)
+        return idx, valid, counts, nvalid
+
+    def cohort_update(self, params_stack: torch.Tensor, cids: Sequence[int],
+                      lrs: Sequence[float], seeds: Sequence[int]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Train the cohort; returns (deltas, new_params), both (B, d).
+
+        ``params_stack`` (B, d) holds each member's dispatch snapshot (its
+        anchor for prox/align); ``lrs``/``seeds`` are per-member, what the
+        sequential loop would have used for that dispatch."""
+        B = int(params_stack.shape[0])
+        if B < 1:
+            raise ValueError("cohort_update needs at least one member")
+        cids = np.asarray(cids, np.int64)
+        idx, valid, counts, nvalid = self._schedules(cids, np.asarray(seeds))
+        # per-(member, step) learning rate: the member's lr on real steps,
+        # 0 on padded steps (making them exact no-ops)
+        lr_steps = (np.asarray(lrs, np.float64)[:, None]
+                    * (nvalid > 0.0)).astype(np.float32)
+        Bp = bucket_size(B, self._data_kind)
+        if Bp > B:
+            pad = Bp - B
+
+            def padded(a, fill=0):
+                return np.concatenate(
+                    [a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+
+            params_stack = torch.cat([params_stack, params_stack.new_zeros(
+                (pad, params_stack.shape[1]))])
+            cids, idx, valid, lr_steps = map(padded,
+                                             (cids, idx, valid, lr_steps))
+            counts = padded(counts, 1)
+        live = np.flatnonzero((lr_steps > 0.0).any(axis=0))
+        n_steps = int(live[-1]) + 1 if live.size else 0
+        w = self._train(params_stack, cids, idx, valid, counts, lr_steps,
+                        n_steps)
+        return (w - params_stack)[:B], w[:B]
+
+    def _train(self, params_stack, cids, idx, valid, counts, lr_steps,
+               n_steps: int) -> torch.Tensor:
+        """Run local steps 0 .. n_steps-1 of the padded wave; (Bp, d)."""
+        dev = self.device
+        fam, cfg = self._fam, self.cfg
+        anchor = self.spec.unflatten(params_stack)
+        cid_t = torch.as_tensor(cids, device=dev)[:, None]
+        idx_t = torch.as_tensor(idx, device=dev)
+        valid_t = torch.as_tensor(valid, device=dev)
+        counts_t = torch.as_tensor(counts, device=dev)
+        lr_t = torch.as_tensor(lr_steps, device=dev)
+        leaves = tree_leaves(anchor)
+        with member_math.routing(self.member_kernel):
+            for s in range(n_steps):
+                bi = idx_t[:, s]
+                batch = fam.masked_batch(self.x[cid_t, bi], self.y[cid_t, bi],
+                                         valid_t[:, s], counts_t[:, s])
+                req = [l.detach().requires_grad_(True) for l in leaves]
+                p = tree_unflatten_like(anchor, req)
+                loss = torch.sum(fam.client_loss(p, batch, cfg, members=True))
+                if self.prox > 0.0:
+                    loss = loss + 0.5 * self.prox * tree_sq_norm(
+                        tree_sub(p, anchor))
+                if self.align > 0.0:
+                    loss = loss + 0.5 * self.align * tree_sq_norm(
+                        tree_sub(_head(p), _head(anchor)))
+                grads = torch.autograd.grad(loss, req)
+                lr = lr_t[:, s]
+                with torch.no_grad():
+                    leaves = [l - lr.view((-1,) + (1,) * (l.dim() - 1)) * g
+                              for l, g in zip(leaves, grads)]
+                self.steps_run += 1
+        return self.spec.flatten(tree_unflatten_like(anchor, leaves),
+                                 members=True)

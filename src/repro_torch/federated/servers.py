@@ -4,6 +4,7 @@
 reference's ``repro.federated.servers.PolicyServer`` does:
 
     receive(delta, client_params, meta) -> bool   # True if global updated
+    receive_many(deltas, client_params, ...)      # B in-order receives
     params                                        # current global tree
     flat_params                                   # current global (d,) vector
     version                                       # number of global updates
@@ -18,6 +19,8 @@ is still the same values after later receives.
 from __future__ import annotations
 
 from typing import Callable, List, Optional
+
+import numpy as np
 
 from repro_torch.common.tree import FlatSpec
 from repro_torch.core import psa as psa_lib
@@ -72,6 +75,34 @@ class PolicyServer:
         if entry is not None:
             self.log.append(entry)
         return updated
+
+    def receive_many(self, deltas, client_params, client_ids, data_sizes,
+                     v_dispatch, sketches=None):
+        """Batched ingest for the cohort engine: B completions, ordered by
+        completion time, as stacked flat ``(B, d)`` rows. An in-order loop
+        of ``receive``, staleness resolved per arrival from the running
+        version and ``v_dispatch`` (the version each client was dispatched
+        at). Returns ``(updated (B,) bool, taus, snapshots)``:
+        ``snapshots[i]`` is the flat global vector after arrival i — what a
+        completion-triggered re-dispatch at that instant trains from. The
+        B rows are the versions' own tensors, never written in place, so
+        they need no copy."""
+        if self.needs_sketch and sketches is None:
+            raise KeyError(f"{self.name} requires behavioral sketches")
+        B = int(deltas.shape[0])
+        updated = np.zeros((B,), bool)
+        taus: List[int] = []
+        snapshots = []
+        for i in range(B):
+            tau = self.version - int(v_dispatch[i])
+            meta = {"tau": tau, "client_id": int(client_ids[i]),
+                    "data_size": float(data_sizes[i])}
+            if sketches is not None:
+                meta["sketch"] = sketches[i]
+            updated[i] = self.receive(deltas[i], client_params[i], meta)
+            taus.append(tau)
+            snapshots.append(self.flat_params)
+        return updated, taus, snapshots
 
 
 def make_server(name: str, params, *, num_clients: int = 50,

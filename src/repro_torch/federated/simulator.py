@@ -1,19 +1,26 @@
 """Event-driven virtual-time AFL simulator (FLGO-style: 86,400 units/day).
 
-The port of the reference's ``repro.federated.simulator`` sequential
-engine: ``concurrency`` clients train at all times; on each completion the
-server ingests the update, a new client is dispatched with the current
-global model, and the learning curve is sampled on a fixed virtual-time
-grid. The event timeline, latency and dispatch streams are the reference's
-(their numpy copies in this package), so a run makes the same dispatches
-in the same order as the reference's ``engine="sequential"`` oracle.
+The port of the reference's ``repro.federated.simulator``:
+``concurrency`` clients train at all times; on each completion the server
+ingests the update, a new client is dispatched with the current global
+model, and the learning curve is sampled on a fixed virtual-time grid. The
+event timeline, latency and dispatch streams are the reference's (their
+numpy copies in this package), so a run makes the same dispatches in the
+same order as the reference.
 
-Runs on ``SimConfig.device`` — the CUDA card by default, where the FedPSA
-kernels (``sens_sketch``, ``buffer_agg``) launch; ``device="cpu"`` runs
-their plain versions. Paths that are not ported yet (the cohort engine,
-sharded meshes, streaming shards, checkpoints, the grouped member kernel,
-sweeps, synchronous FedAvg) raise ``NotImplementedError`` naming
-ROADMAP.md; none of them falls back to another path.
+Two engines, as in the reference: ``engine="sequential"`` (the oracle: one
+``client.local_update`` per completion) and ``engine="cohort"`` (the
+default: each wave of completions trains as one batch of members in
+``federated.cohort.CohortEngine``, and its receives are ingested with
+``PolicyServer.receive_many``), which reproduces the oracle's receive
+order, versions and eval times.
+
+Runs on ``SimConfig.device`` — the CUDA card by default, where the kernels
+(``sens_sketch``, ``buffer_agg``, and ``grouped_matmul`` under
+``member_kernel="grouped"``) launch; ``device="cpu"`` runs their plain
+versions. Paths that are not ported yet (sharded meshes, streaming shards,
+checkpoints, sweeps, synchronous FedAvg) raise ``NotImplementedError``
+naming ROADMAP.md; none of them falls back to another path.
 """
 from __future__ import annotations
 
@@ -23,11 +30,12 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.common.tree import tree_map
+from repro_torch.common.tree import FlatSpec, tree_map
 from repro_torch.core import psa as psa_lib
-from repro_torch.data.loader import ClientDataset
+from repro_torch.data.loader import ClientDataset, StackedClients
 from repro_torch.federated import client as client_lib
 from repro_torch.federated import servers as servers_lib
+from repro_torch.federated.cohort import CohortEngine
 from repro_torch.federated.scheduler import (Dispatcher, make_scheduler,
                                              make_streams)
 from repro_torch.federated.timeline import Timeline
@@ -60,10 +68,13 @@ class SimConfig:
     timeline_seed: Optional[int] = None
     eval_batches: int = 8
     eval_batch_size: int = 512
-    # The reference's default engine. Only "sequential" is ported; "cohort"
-    # raises (ROADMAP.md Queue 1 item 4).
-    engine: str = "cohort"
-    member_kernel: str = "vmap"        # "grouped" is not ported
+    engine: str = "cohort"             # "cohort" (batched) | "sequential"
+    max_cohort: int = 256              # cap on one wave's device batch
+    # Member-math routing inside the cohort engine (models.member_math):
+    # "vmap" runs the member-batched dense products as plain matmuls;
+    # "grouped" runs them through the grouped_matmul kernel, forward and
+    # backward.
+    member_kernel: str = "vmap"        # "vmap" | "grouped"
     shard_size: int = 0                # > 0 (streaming slabs) is not ported
     checkpoint_dir: Optional[str] = None  # checkpoints are not ported
     mesh: Optional[object] = None      # the sharded server is not ported
@@ -82,6 +93,7 @@ class SimResult:
     dispatches: int = 0
     launched: int = 0                 # total dispatch calls (incl. in flight)
     dropped: int = 0                  # dispatches lost to client unavailability
+    cohorts: int = 0                  # device batches the cohort engine ran
     engine: str = ""
     server_log: List[dict] = field(default_factory=list)
     receive_log: List[dict] = field(default_factory=list)
@@ -107,11 +119,6 @@ def _unported(what: str, item: str):
 
 
 def _check_ported(sim: SimConfig) -> None:
-    if sim.engine not in ENGINES:
-        raise ValueError(f"unknown engine {sim.engine!r}; known: {ENGINES}")
-    if sim.engine == "cohort":
-        raise _unported("engine='cohort'", "Queue 1 item 4 (pass "
-                        "engine='sequential')")
     if sim.mesh is not None:
         raise _unported("SimConfig.mesh (the sharded server)", "Queue 1 item 9")
     if sim.shard_size > 0:
@@ -120,9 +127,17 @@ def _check_ported(sim: SimConfig) -> None:
     if sim.checkpoint_dir:
         raise _unported("SimConfig.checkpoint_dir (checkpoint/resume)",
                         "Queue 1 item 6")
-    if sim.member_kernel != "vmap":
-        raise _unported(f"member_kernel={sim.member_kernel!r}",
-                        "Queue 1 item 5")
+
+
+def _resolve_engine(sim: SimConfig, cfg: ModelConfig) -> str:
+    """Validate ``sim.engine`` for ``cfg``. A family the registry does not
+    hold raises; the port never falls back to another engine."""
+    if sim.engine not in ENGINES:
+        raise ValueError(f"unknown engine {sim.engine!r}; known: {ENGINES}")
+    if sim.engine == "cohort" and not registry.is_registered(cfg.family):
+        raise _unported(f"engine='cohort' for model family {cfg.family!r}",
+                        "Queue 1 item 10")
+    return sim.engine
 
 
 def setup_device(name: str) -> torch.device:
@@ -178,6 +193,16 @@ def make_sketch_fn(cfg: ModelConfig, calib_batch: dict,
     return fn
 
 
+def make_sketch_fn_flat(sketch_fn: Callable, spec: FlatSpec) -> Callable:
+    """(B, d) flat client models -> (B, k) sketches: the per-tree
+    ``sketch_fn`` on each row in turn (one ``sens_sketch`` launch per leaf
+    and row)."""
+    def fn(w_stack):
+        return torch.stack([sketch_fn(spec.unflatten(row)) for row in w_stack])
+
+    return fn
+
+
 # Trajectory digest: one (||w||_2, probe·w) pair per applied receive — a
 # 2-float fingerprint of the global vector, compared against the
 # reference's checked-in golden streams within float tolerance.
@@ -204,6 +229,8 @@ def run_async(server_name: str, cfg: ModelConfig, init_params,
               receive_hook: Optional[Callable] = None) -> SimResult:
     """Run one asynchronous algorithm to the virtual-time horizon."""
     _check_ported(sim)
+    engine = _resolve_engine(sim, cfg)
+    batched = engine == "cohort"
     device = setup_device(sim.device)
     params = tree_map(lambda x: torch.as_tensor(x, dtype=torch.float32,
                                                 device=device), init_params)
@@ -221,17 +248,23 @@ def run_async(server_name: str, cfg: ModelConfig, init_params,
     digest_fn = (make_digest_fn(server.policy.spec.size)
                  if sim.record_trajectory else None)
     evaluate = _build_eval(cfg, test_ds, sim, device)
-    result = SimResult(engine="sequential")
+    result = SimResult(engine=engine)
     concurrency = max(1, int(round(sim.concurrency * sim.num_clients)))
     timeline = Timeline()
     data_sizes = np.array([len(d) for d in client_datasets], np.float64)
     dispatcher = Dispatcher(sim, streams, scheduler, timeline, server,
-                            result, batched=False, data_sizes=data_sizes)
+                            result, batched=batched, data_sizes=data_sizes)
     dispatcher.dispatch_many(np.zeros(concurrency))
-    t = _drain_sequential(server, cfg, client_datasets, sim,
-                          dispatcher.dispatch, timeline, evaluate, result,
+    if batched:
+        t = _drain_cohort(server, cfg, client_datasets, sim,
+                          dispatcher.dispatch_many, timeline, evaluate, result,
                           data_sizes, server.client_align, sketch_fn,
-                          receive_hook, digest_fn)
+                          receive_hook, digest_fn, device)
+    else:
+        t = _drain_sequential(server, cfg, client_datasets, sim,
+                              dispatcher.dispatch, timeline, evaluate, result,
+                              data_sizes, server.client_align, sketch_fn,
+                              receive_hook, digest_fn)
     result.final_accuracy = evaluate(server.params)
     result.times.append(min(t, sim.horizon))
     result.accuracies.append(result.final_accuracy)
@@ -281,6 +314,156 @@ def _drain_sequential(server, cfg, client_datasets, sim: SimConfig, dispatch,
         result.dispatches += 1
         result.receive_log.append({"t": t, "tau": meta["tau"], "client": ev.cid})
         dispatch(t)
+    return t
+
+
+def _make_cohort_engine(cfg, client_datasets, spec, sim: SimConfig, device,
+                        *, prox: float = 0.0, align: float = 0.0):
+    """The wave-training engine over the monolithic data slab, placed on
+    the run's device once."""
+    stacked = StackedClients.from_datasets(client_datasets)
+    return CohortEngine(cfg, stacked, spec, local_epochs=sim.local_epochs,
+                        batch_size=sim.batch_size, prox=prox, align=align,
+                        member_kernel=sim.member_kernel, device=device)
+
+
+def _gather_snapshots(snaps) -> torch.Tensor:
+    """Stack dispatch snapshots into (B, d). Entries are (d,) global
+    vectors or ``(rows, i)`` references into a previous flush's
+    ``receive_many`` snapshot list."""
+    return torch.stack([s[0][s[1]] if isinstance(s, tuple) else s
+                        for s in snaps])
+
+
+def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
+                  dispatch_many, timeline, evaluate, result: SimResult,
+                  data_sizes, align, sketch_fn, receive_hook, digest_fn,
+                  device) -> float:
+    """Batched drain: train completion waves as single device batches.
+
+    A wave is the maximal timeline prefix with ``t_done < t_first +
+    latency_lo`` (capped at ``sim.max_cohort``). Any dispatch issued while
+    the wave is being received completes no earlier than ``t_first +
+    latency_lo`` — and at an equal timestamp sorts after the wave by
+    ``seq`` — so training the wave up front observes exactly the
+    snapshots, learning rates and seeds the sequential engine would have
+    used.
+    """
+    spec = server.policy.spec
+    engine = _make_cohort_engine(cfg, client_datasets, spec, sim, device,
+                                 align=align)
+    sketch_flat = (make_sketch_fn_flat(sketch_fn, spec)
+                   if server.needs_sketch else None)
+
+    next_eval = 0.0
+    t = 0.0
+    while timeline and t < sim.horizon:
+        first = timeline.pop()
+        if first.t_done > sim.horizon:
+            t = first.t_done       # mirror the sequential pop-then-break
+            break
+        bound = first.t_done + sim.latency_lo
+        wave = [first]
+        t_over = None
+        while (timeline and timeline.head_t() < bound
+               and len(wave) < sim.max_cohort):
+            ev = timeline.pop()
+            if ev.t_done > sim.horizon:
+                t_over = ev.t_done  # discarded, like the sequential break
+                break
+            wave.append(ev)
+
+        ok_events = [ev for ev in wave if ev.ok]
+        deltas = w_stack = sketches = None
+        if ok_events:
+            d0 = result.dispatches
+            snapshots = _gather_snapshots([ev.snapshot for ev in ok_events])
+            cids = [ev.cid for ev in ok_events]
+            lrs = [sim.lr * (sim.lr_decay ** (d0 + r))
+                   for r in range(len(ok_events))]
+            seeds = [sim.seed * 100003 + (d0 + r)
+                     for r in range(len(ok_events))]
+            deltas, w_stack = engine.cohort_update(snapshots, cids, lrs, seeds)
+            if sketch_flat is not None:
+                sketches = sketch_flat(w_stack)
+            result.cohorts += 1
+
+        # Receives are deferred into ``pending`` and flushed as one batched
+        # ingest (``receive_many``) — early only when an eval boundary needs
+        # the intermediate global model, or per event when a receive_hook
+        # must observe pre-receive server state. Replacement dispatches
+        # happen inside the flush, each snapshotting the global vector as
+        # of *its* event, so RNG order and snapshots match the sequential
+        # engine exactly.
+        pending = []
+        next_row = 0
+
+        def flush():
+            nonlocal next_row
+            if not pending:
+                return
+            ok = [ev for ev in pending if ev.ok]
+            r0, r1 = next_row, next_row + len(ok)
+            cur = server.flat_params   # pre-flush vector, for leading dropouts
+            snaps = None
+            upd = np.zeros((0,), bool)
+            if ok:
+                if receive_hook is not None:
+                    ev = ok[0]
+                    meta = {"tau": server.version - ev.version,
+                            "client_id": ev.cid,
+                            "data_size": float(data_sizes[ev.cid])}
+                    if sketches is not None:
+                        meta["sketch"] = sketches[r0]
+                    receive_hook(server, spec.unflatten(w_stack[r0]),
+                                 spec.unflatten(deltas[r0]), meta, ev.t_done)
+                upd, taus, snaps = server.receive_many(
+                    deltas[r0:r1], w_stack[r0:r1], [ev.cid for ev in ok],
+                    [float(data_sizes[ev.cid]) for ev in ok],
+                    [ev.version for ev in ok],
+                    None if sketches is None else sketches[r0:r1])
+                if digest_fn is not None:
+                    rows = torch.stack(snaps).cpu().numpy()
+                    result.digests.extend(digest_fn(rows).tolist())
+                for ev, tau in zip(ok, taus):
+                    result.receive_log.append(
+                        {"t": ev.t_done, "tau": tau, "client": ev.cid})
+                result.dispatches += len(ok)
+                next_row = r1
+            vcur = server.version - int(np.sum(upd))  # version pre-flush
+            oi = 0
+            # replacement dispatches as one timeline run; each snapshots
+            # the global vector as of *its* event (snaps rows)
+            ts_, snaps_, vers_ = [], [], []
+            for ev in pending:
+                if ev.ok:
+                    cur = (snaps, oi)
+                    vcur += int(upd[oi])
+                    oi += 1
+                else:
+                    result.dropped += 1
+                ts_.append(ev.t_done)
+                snaps_.append(cur)
+                vers_.append(vcur)
+            dispatch_many(ts_, snaps_, vers_)
+            pending.clear()
+
+        for ev in wave:
+            t = ev.t_done
+            if next_eval <= t:
+                flush()
+                while next_eval <= t:
+                    acc = evaluate(server.params)
+                    result.times.append(next_eval)
+                    result.accuracies.append(acc)
+                    next_eval += sim.eval_every
+            pending.append(ev)
+            if receive_hook is not None:
+                flush()
+        flush()
+        if t_over is not None:
+            t = t_over
+            break
     return t
 
 

@@ -1,0 +1,100 @@
+"""Grouped member GEMM: ``lhs (G, M, K) @ rhs (G, K, N) -> (G, M, N)``.
+
+Replaces the Pallas TPU kernel ``repro/kernels/grouped_matmul.py``
+(``grouped_matmul_pallas``). The cohort engine's ``member_kernel="grouped"``
+routes every member-batched dense product of a wave through it
+(``models/member_math.py``), forward and backward. On a CUDA tensor the
+wrapper launches the hand-written kernel ``csrc/grouped_matmul.cu``; on a
+CPU tensor it runs the plain version below. It never falls back from one
+to the other.
+
+Contract (the reference's, oracle ``repro/kernels/ref.py``
+``grouped_matmul_ref``): f32 accumulation; float32 or bfloat16 inputs,
+output in the promoted dtype (bf16 x f32 -> f32); an optional per-group
+``valid`` mask, and a group with ``valid == 0`` comes back exactly zero.
+The kernel reads both operands through their strides, so transposed views
+cost no copy.
+
+Bound on the H100 at the main path's fc0 shape: FP32 operations on the
+CUDA cores (parity runs without TF32); see the source for the design.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIG = {"grouped_matmul": [_P, _P, _P, _P, _I, _I, _I, _I,
+                           _L, _L, _L, _L, _L, _L, _I, _I, _P]}
+_DTYPES = (torch.float32, torch.bfloat16)
+MAX_G = 65535
+
+
+def _check(lhs: torch.Tensor, rhs: torch.Tensor, valid) -> None:
+    if lhs.dim() != 3 or rhs.dim() != 3 or lhs.shape[0] != rhs.shape[0] \
+            or lhs.shape[2] != rhs.shape[1]:
+        raise ValueError(f"grouped_matmul: shapes lhs{tuple(lhs.shape)} "
+                         f"rhs{tuple(rhs.shape)} do not match (G, M, K), "
+                         f"(G, K, N)")
+    for what, x in (("lhs", lhs), ("rhs", rhs)):
+        if x.dtype not in _DTYPES:
+            raise TypeError(f"grouped_matmul: {what} must be float32 or "
+                            f"bfloat16, got {x.dtype}")
+    if rhs.device != lhs.device:
+        raise ValueError("grouped_matmul: all inputs must be on one device")
+    if valid is not None and (valid.shape != (lhs.shape[0],)
+                              or valid.device != lhs.device):
+        raise ValueError(f"grouped_matmul: valid must be ({lhs.shape[0]},) "
+                         f"on {lhs.device}, got {tuple(valid.shape)} on "
+                         f"{valid.device}")
+
+
+def grouped_matmul_plain(lhs: torch.Tensor, rhs: torch.Tensor,
+                         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The function in eager torch: one f32 product per group, then the
+    mask (``valid == 0`` groups exactly zero), cast to the promoted dtype."""
+    out = torch.stack([torch.matmul(lhs[g].float(), rhs[g].float())
+                       for g in range(lhs.shape[0])])
+    if valid is not None:
+        v = valid.float()[:, None, None]
+        out = torch.where(v == 0, torch.zeros_like(out), out * v)
+    return out.to(torch.promote_types(lhs.dtype, rhs.dtype))
+
+
+def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """lhs (G, M, K) @ rhs (G, K, N) -> fresh contiguous (G, M, N)."""
+    _check(lhs, rhs, valid)
+    dev = lhs.device
+    if dev.type == "cpu":
+        return grouped_matmul_plain(lhs, rhs, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"grouped_matmul: unsupported device {dev}")
+    G, M, K = lhs.shape
+    N = rhs.shape[2]
+    if G > MAX_G or -(-M // 64) > MAX_G:
+        raise ValueError(f"grouped_matmul: G={G} or M={M} exceeds the grid")
+    out = torch.empty((G, M, N), device=dev,
+                      dtype=torch.promote_types(lhs.dtype, rhs.dtype))
+    if out.numel() == 0:
+        return out
+    v = None if valid is None else valid.to(torch.float32).contiguous()
+    lib = _build.load("grouped_matmul", _SIG)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.grouped_matmul(
+        lhs.data_ptr(), rhs.data_ptr(), None if v is None else v.data_ptr(),
+        out.data_ptr(), G, M, K, N, *lhs.stride(), *rhs.stride(),
+        int(lhs.dtype == torch.bfloat16), int(rhs.dtype == torch.bfloat16),
+        stream)
+    _build.check(err, "grouped_matmul")
+    grouped_matmul.launches += 1
+    return out
+
+
+grouped_matmul.launches = 0

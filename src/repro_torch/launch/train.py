@@ -8,8 +8,9 @@ synthetic stand-in datasets, on the CUDA card by default (``--device
 cpu`` runs the kernels' plain versions), and writes the learning curve and
 summary JSON under ``--out``. Initial weights come from a
 ``torch.Generator`` seeded with ``--seed``. Ported: ``fedpsa`` and
-``fedbuff`` on the sequential engine and the paper's image models; the
-rest raises ``NotImplementedError`` naming ROADMAP.md.
+``fedbuff`` on the cohort engine (the default, as in the reference) and
+the sequential engine, on the paper's image models; the rest raises
+``NotImplementedError`` naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -64,9 +65,8 @@ def main():
     ap.add_argument("--concurrency", type=float, default=0.2)
     ap.add_argument("--horizon", type=float, default=86_400)
     ap.add_argument("--samples", type=int, default=10_000)
-    ap.add_argument("--engine", default="sequential",
-                    choices=["cohort", "sequential"],
-                    help="'cohort' is not ported yet and raises")
+    ap.add_argument("--engine", default="cohort",
+                    choices=["cohort", "sequential"])
     ap.add_argument("--latency", default="uniform",
                     choices=["uniform", "longtail", "lognormal"])
     ap.add_argument("--lat-lo", type=float, default=10)

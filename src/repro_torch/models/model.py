@@ -6,6 +6,14 @@ dense weights — so a tree converted from the reference
 permutes for torch's NCHW convolution and permutes back to NHWC before
 flattening, because ``fc0.w`` was laid out against the reference's NHWC
 flatten order.
+
+The cohort engine trains a wave of B members at once through the
+member-batched forwards (``members=True``): every parameter carries a
+leading member axis, ``(B, *shape)``, and so does the data, ``(B, n,
+...)``. The dense layers go through ``member_math.member_dot``, which
+routes a member-batched product to the grouped kernel or to a plain
+matmul; per-member convolutions are one grouped ``F.conv2d`` (``groups =
+B``) over the members' channels side by side, ``(n, B*C, H, W)``.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.member_math import member_dot
 
 
 def _dense_init(gen: torch.Generator, shape, std: float, device) -> torch.Tensor:
@@ -70,18 +79,26 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cpu") -> dict:
         f"family {cfg.family!r} is not ported (ROADMAP.md Queue 1 item 10)")
 
 
-def _dense_stack(params, x, n: int):
+def _dense_stack(params, x, n: int, members: bool = False):
     for i in range(n):
         p = params[f"fc{i}"]
-        x = x @ p["w"] + p["b"]
+        if members:
+            x = member_dot(x, p["w"], x_members=True, w_members=True) \
+                + p["b"][:, None, :]
+        else:
+            x = member_dot(x, p["w"]) + p["b"]
         if i < n - 1:
             x = torch.relu(x)
     return x
 
 
-def cnn_forward(params, x, cfg: ModelConfig):
-    """x: (B, H, W, C) f32 -> logits (B, num_classes). 'SAME' convolution
-    (odd kernel: padding k // 2), VALID 2x2 max-pool, NHWC flatten."""
+def cnn_forward(params, x, cfg: ModelConfig, members: bool = False):
+    """x: (n, H, W, C) f32 -> logits (n, num_classes); with ``members``,
+    params (B, *shape) and x (B, n, H, W, C) -> (B, n, num_classes).
+    'SAME' convolution (odd kernel: padding k // 2), VALID 2x2 max-pool,
+    NHWC flatten (per member)."""
+    if members:
+        return _cnn_forward_members(params, x, cfg)
     x = x.permute(0, 3, 1, 2)
     for i in range(len(cfg.cnn_channels)):
         p = params[f"conv{i}"]
@@ -92,8 +109,25 @@ def cnn_forward(params, x, cfg: ModelConfig):
     return _dense_stack(params, x, len(cfg.mlp_hidden) + 1)
 
 
-def mlp_forward(params, x, cfg: ModelConfig):
-    return _dense_stack(params, x, len(cfg.mlp_hidden) + 1)
+def _cnn_forward_members(params, x, cfg: ModelConfig):
+    B, n = x.shape[:2]
+    # members' images side by side as channel groups: (n, B*C, H, W)
+    x = x.permute(1, 0, 4, 2, 3).reshape(n, -1, x.shape[2], x.shape[3])
+    k = cfg.cnn_kernel
+    for i in range(len(cfg.cnn_channels)):
+        p = params[f"conv{i}"]
+        _, _, _, c_in, c_out = p["w"].shape
+        w = p["w"].permute(0, 4, 3, 1, 2).reshape(B * c_out, c_in, k, k)
+        x = F.conv2d(x, w, padding=k // 2, groups=B)
+        x = torch.relu(x + p["b"].reshape(-1)[:, None, None])
+        x = F.max_pool2d(x, 2, 2)
+    h, w_ = x.shape[2], x.shape[3]
+    x = x.reshape(n, B, -1, h, w_).permute(1, 0, 3, 4, 2).reshape(B, n, -1)
+    return _dense_stack(params, x, len(cfg.mlp_hidden) + 1, members=True)
+
+
+def mlp_forward(params, x, cfg: ModelConfig, members: bool = False):
+    return _dense_stack(params, x, len(cfg.mlp_hidden) + 1, members)
 
 
 def _mean_xent(logits, y):
@@ -111,11 +145,11 @@ def mlp_loss(params, batch, cfg: ModelConfig):
     return _mean_xent(mlp_forward(params, batch["x"], cfg), batch["y"])
 
 
-def forward(params, x, cfg: ModelConfig):
+def forward(params, x, cfg: ModelConfig, members: bool = False):
     if cfg.family == "cnn":
-        return cnn_forward(params, x, cfg)
+        return cnn_forward(params, x, cfg, members)
     if cfg.family == "mlp":
-        return mlp_forward(params, x, cfg)
+        return mlp_forward(params, x, cfg, members)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported (ROADMAP.md Queue 1 item 10)")
 

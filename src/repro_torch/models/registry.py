@@ -1,9 +1,16 @@
 """Model-family registry of the port: the paper's image families.
 
 One ``ModelFamily`` entry per family holds the callables the client
-runtime and the simulator's evaluation loop share (the reference's
-``repro.models.registry`` image entries, without the cohort engine's
-``masked_batch``, which arrives with the cohort port).
+runtime, the cohort engine and the simulator's evaluation loop share (the
+reference's ``repro.models.registry`` image entries).
+
+``client_loss(params, batch, cfg, members=False)`` is the local-SGD loss.
+Without ``batch["sample_weight"]`` it is the plain mean cross-entropy,
+bit-identical to the sequential client's loss. With it (the cohort
+engine's ``masked_batch``) it is ``sum((lse - gold) * vm) / cnt``, so
+masked rows are exact no-ops; with ``members=True`` the params and the
+batch carry a leading member axis and the result is the (B,) vector of
+per-member losses.
 """
 from __future__ import annotations
 
@@ -18,7 +25,9 @@ from repro_torch.models.config import ModelConfig
 
 class ModelFamily(NamedTuple):
     name: str                 # registry key == ModelConfig.family
-    client_loss: Callable     # (params, batch, cfg) -> scalar
+    data_kind: str            # "image" (the only kind ported)
+    client_loss: Callable     # (params, batch, cfg, members=False) -> loss
+    masked_batch: Callable    # (xb, yb, vm, cnt) -> batch dict
     batch_fn: Callable        # (x, y, device) -> batch dict (host -> device)
     eval_accuracy: Callable   # (params, batch, cfg) -> scalar
 
@@ -28,10 +37,34 @@ def _batch_fn(x, y, device) -> dict:
             "y": torch.as_tensor(np.asarray(y, np.int64), device=device)}
 
 
+def _masked_batch(xb, yb, vm, cnt) -> dict:
+    return {"x": xb, "y": yb, "sample_weight": vm, "weight_total": cnt}
+
+
+def _image_entry(name: str, mean_loss: Callable) -> ModelFamily:
+    def client_loss(params, batch, cfg, members: bool = False):
+        vm = batch.get("sample_weight")
+        if vm is None:
+            # unmasked path: bit-identical to the sequential per-batch loss
+            return mean_loss(params, batch, cfg)
+        logits = model_lib.forward(params, batch["x"], cfg, members).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, batch["y"].long()[..., None])[..., 0]
+        return torch.sum((lse - gold) * vm, dim=-1) / batch["weight_total"]
+
+    return ModelFamily(name=name, data_kind="image", client_loss=client_loss,
+                       masked_batch=_masked_batch, batch_fn=_batch_fn,
+                       eval_accuracy=model_lib.accuracy)
+
+
 _REGISTRY = {
-    "cnn": ModelFamily("cnn", model_lib.cnn_loss, _batch_fn, model_lib.accuracy),
-    "mlp": ModelFamily("mlp", model_lib.mlp_loss, _batch_fn, model_lib.accuracy),
+    "cnn": _image_entry("cnn", model_lib.cnn_loss),
+    "mlp": _image_entry("mlp", model_lib.mlp_loss),
 }
+
+
+def is_registered(family: str) -> bool:
+    return family in _REGISTRY
 
 
 def get_family(family) -> ModelFamily:

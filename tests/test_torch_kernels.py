@@ -19,9 +19,11 @@ from repro.core import sketch as rsk
 from repro.kernels import ops as rops
 from repro.kernels import ref
 from repro.kernels.buffer_agg import buffer_agg_pallas
+from repro.kernels.grouped_matmul import grouped_matmul_pallas
 from repro.kernels.sens_sketch import sens_sketch_pallas
 from repro_torch.core import sketch as tsk
 from repro_torch.kernels import buffer_agg as tba
+from repro_torch.kernels import grouped_matmul as tgm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import sens_sketch as tss
 
@@ -160,7 +162,72 @@ def test_buffer_agg_writes_a_fresh_output():
     assert torch.equal(out, before + 2.0)
 
 
-@pytest.mark.parametrize("bad", ["shape", "dtype", "k", "device_mix"])
+def _rel_err(got, want):
+    """max |got - want| / max |want|: the reference suite's relative
+    measure (the two sides accumulate K terms in different orders)."""
+    want = np.asarray(want, np.float64)
+    return float(np.max(np.abs(np.asarray(got, np.float64) - want))
+                 / (np.max(np.abs(want)) + 1e-9))
+
+
+def _gm_inputs(G, M, K, N, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(G, M, K).astype(np.float32),
+            rng.randn(G, K, N).astype(np.float32))
+
+
+# the four shapes of tests/test_grouped_matmul.py::test_kernel_vs_ref
+GM_SHAPES = [(1, 8, 16, 16), (3, 130, 200, 96), (5, 1, 7, 3), (4, 32, 256, 64)]
+
+
+@pytest.mark.parametrize("G,M,K,N", GM_SHAPES)
+def test_grouped_matmul_plain_matches_reference(G, M, K, N):
+    a, b = _gm_inputs(G, M, K, N, G * 1000 + K)
+    got = tgm.grouped_matmul(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.shape == (G, M, N) and got.dtype == torch.float32
+    want_pallas = grouped_matmul_pallas(jnp.asarray(a), jnp.asarray(b),
+                                        interpret=True)
+    want_ref = ref.grouped_matmul_ref(jnp.asarray(a), jnp.asarray(b))
+    assert _rel_err(got.numpy(), want_pallas) < 1e-5
+    assert _rel_err(got.numpy(), want_ref) < 1e-5
+    # the transposed views the backward passes give the same values
+    bt = torch.from_numpy(np.ascontiguousarray(b.transpose(0, 2, 1)))
+    assert _rel_err(tgm.grouped_matmul(torch.from_numpy(a),
+                                       bt.transpose(1, 2)).numpy(),
+                    got.numpy()) < 1e-6
+
+
+def test_grouped_matmul_valid_zero_groups_are_exact_zeros():
+    a, b = _gm_inputs(4, 16, 64, 32, 0)
+    a[3] = np.inf                         # garbage in a masked slot
+    valid = np.array([1.0, 0.0, 1.0, 0.0], np.float32)
+    got = tgm.grouped_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                             torch.from_numpy(valid)).numpy()
+    want = np.asarray(grouped_matmul_pallas(jnp.asarray(a), jnp.asarray(b),
+                                            valid=jnp.asarray(valid),
+                                            interpret=True))
+    np.testing.assert_array_equal(got[1], 0.0)
+    np.testing.assert_array_equal(got[3], 0.0)
+    for g in (0, 2):
+        assert _rel_err(got[g], want[g]) < 1e-5
+
+
+@pytest.mark.parametrize("dtypes", [("bfloat16", "float32"),
+                                    ("float32", "bfloat16"),
+                                    ("bfloat16", "bfloat16")])
+def test_grouped_matmul_dtype_promotion(dtypes):
+    a, b = _gm_inputs(2, 8, 16, 8, 3)
+    (ja, ta), (jb, tb) = _pair(a, dtypes[0]), _pair(b, dtypes[1])
+    got = tgm.grouped_matmul(ta, tb)
+    want = grouped_matmul_pallas(ja, jb, interpret=True)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    assert _rel_err(got.float().numpy(), np.asarray(want, np.float32)) < 5e-3
+    assert _rel_err(got.float().numpy(),
+                    np.asarray(ref.grouped_matmul_ref(ja, jb), np.float32)) < 5e-3
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "k", "device_mix",
+                                 "gm_shape", "gm_dtype", "gm_valid"])
 def test_wrappers_reject_bad_inputs(bad):
     x = torch.ones(8)
     with pytest.raises((ValueError, TypeError)):
@@ -170,8 +237,16 @@ def test_wrappers_reject_bad_inputs(bad):
             tss.sens_sketch(x.double(), x.double(), x.double())
         elif bad == "k":
             tss.sens_sketch(x, x, x, k=8)
-        else:
+        elif bad == "device_mix":
             tba.buffer_agg(torch.ones(1), x, torch.ones(1, 8, device="meta"))
+        elif bad == "gm_shape":
+            tgm.grouped_matmul(torch.ones(2, 3, 4), torch.ones(2, 5, 6))
+        elif bad == "gm_dtype":
+            tgm.grouped_matmul(torch.ones(2, 3, 4, dtype=torch.float64),
+                               torch.ones(2, 4, 6, dtype=torch.float64))
+        else:
+            tgm.grouped_matmul(torch.ones(2, 3, 4), torch.ones(2, 4, 6),
+                               torch.ones(3))
 
 
 @pytest.mark.gpu
@@ -199,3 +274,34 @@ def test_cuda_kernels_match_plain_on_card():
             want = tss.sens_sketch_plain(*T, k=k, seed=9)
             assert float((got - want).abs().max()) <= _sketch_tol(theta, g, f, k)
             assert torch.equal(got, tss.sens_sketch(*T, k=k, seed=9))
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_cuda_matches_plain_on_card():
+    """The grouped kernel against its plain version on the card at the
+    main path's fc0 shapes (forward, dW and dx through transposed views)
+    and the edge shapes; valid-zero groups exactly zero; bf16 promotion;
+    repeated runs bit-identical (fixed K order, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(1)
+    T = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    x, w = T(rng.randn(4, 64, 4096).astype(np.float32)), \
+        T(rng.randn(4, 4096, 384).astype(np.float32))
+    g = T(rng.randn(4, 64, 384).astype(np.float32))
+    cases = [(x, w), (x.transpose(1, 2), g), (g, w.transpose(1, 2))]
+    cases += [tuple(T(v) for v in _gm_inputs(*s, 7)) for s in GM_SHAPES]
+    for a, b in cases:
+        got = tgm.grouped_matmul(a, b)
+        assert _rel_err(got.cpu().numpy(),
+                        tgm.grouped_matmul_plain(a, b).cpu().numpy()) < 1e-5
+        assert torch.equal(got, tgm.grouped_matmul(a, b))
+    valid = T(np.array([1.0, 0.0, 1.0, 0.0], np.float32))
+    got = tgm.grouped_matmul(x, w, valid)
+    assert bool((got[1] == 0).all()) and bool((got[3] == 0).all())
+    out = tgm.grouped_matmul(x[:, :8, :64].bfloat16(), w[:, :64, :8])
+    assert out.dtype == torch.float32
+    assert _rel_err(out.cpu().numpy(), tgm.grouped_matmul_plain(
+        x[:, :8, :64].bfloat16(), w[:, :64, :8]).cpu().numpy()) < 1e-5

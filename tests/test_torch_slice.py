@@ -6,8 +6,9 @@
   digests of ``tests/golden/{fedpsa,fedbuff}.json`` on the CPU;
 * the committed initial-weights fixture (what ``chip_smoke.py`` runs the
   goldens from, since it imports no JAX) is the reference's init;
-* unported paths raise, a CUDA request without a card raises, and the port
-  imports neither ``jax`` nor ``repro``.
+* unported paths raise, a CUDA request without a card raises, the CLI
+  defaults to the reference's cohort engine, and the port imports neither
+  ``jax`` nor ``repro``.
 """
 import ast
 import dataclasses
@@ -235,9 +236,9 @@ def test_cuda_without_a_card_raises(torch_world, monkeypatch):
                       SimConfig(engine="sequential", **SIM))
 
 
-@pytest.mark.parametrize("case", ["cohort", "mesh", "shard_size", "checkpoint",
-                                  "grouped", "fedavg", "fedasync", "sweep",
-                                  "token_arch"])
+@pytest.mark.parametrize("case", ["mesh", "shard_size", "shard_size_cohort",
+                                  "checkpoint", "fedavg", "fedasync", "sweep",
+                                  "token_arch", "cohort_family"])
 def test_unported_paths_raise(torch_world, case):
     cfg, clients, test, calib = torch_world
     sim = SimConfig(engine="sequential", device="cpu", **SIM)
@@ -250,13 +251,17 @@ def test_unported_paths_raise(torch_world, case):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_sweep("fedbuff", cfg, None, clients, test, sim, None)
         return
-    sim = {"cohort": dataclasses.replace(sim, engine="cohort"),
-           "mesh": dataclasses.replace(sim, mesh=object()),
+    sim = {"mesh": dataclasses.replace(sim, mesh=object()),
            "shard_size": dataclasses.replace(sim, shard_size=3),
-           "checkpoint": dataclasses.replace(sim, checkpoint_dir="ckpt"),
-           "grouped": dataclasses.replace(sim, member_kernel="grouped")}.get(case, sim)
+           "shard_size_cohort": dataclasses.replace(sim, shard_size=3,
+                                                    engine="cohort"),
+           "checkpoint": dataclasses.replace(sim, checkpoint_dir="ckpt")
+           }.get(case, sim)
     if case in ("fedavg", "fedasync"):
         name = case
+    if case == "cohort_family":  # a family the port's registry lacks
+        cfg = dataclasses.replace(cfg, family="dense")
+        sim = dataclasses.replace(sim, engine="cohort")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_algorithm(name, cfg, load_npz_params(FIXTURE), clients, test, sim)
 
@@ -289,5 +294,5 @@ def test_cli_default_engine_runs(tmp_path, monkeypatch, capsys):
     train.main()
     (path,) = tmp_path.glob("*.json")
     rec = json.load(open(path))
-    assert rec["engine"] == "sequential" and rec["versions"] >= 1
+    assert rec["engine"] == "cohort" and rec["versions"] >= 1
     assert "final=" in capsys.readouterr().out
