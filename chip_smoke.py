@@ -9,11 +9,13 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: ``nvcc`` for every kernel source (all in parallel), with ptxas
-   register/spill lines;
+   register/shared-memory/spill lines;
 3. kernel parity: each kernel against its plain PyTorch version on the
    card at the main paths' shapes and edge shapes, the ``sens_sketch``
-   shard composition, the ``grouped_matmul`` mask and bf16 promotion, and
-   bit-identical repeated runs of both reducing kernels;
+   shard composition, the ``grouped_matmul`` mask and bf16 promotion,
+   ``flash_attention`` in f32 and bf16 at the serve shape, the reference
+   tests' shapes and Sq != Sk, and bit-identical repeated runs of the
+   reducing kernels;
 4. kernel timing: CUDA events around each launch (L2 flushed before each),
    kernel / plain version / one-call library yardstick / computed bound;
 5. golden: the FedPSA and FedBuff runs on the golden world reproduce
@@ -24,10 +26,17 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
 7. main path, cohort engine: the same run with ``engine="cohort",
    member_kernel="grouped"``, with exact launch counts of all three
    kernels;
-8. profile: the first 2,000 virtual units of both main paths under
-   ``torch.profiler``: the device's busy share of the wall time and the
-   CUDA kernels by total time (printed; a trace with no device events is
-   reported, not failed).
+8. profile: the first 2,000 virtual units of both main paths, and one
+   serve prefill plus decode, under ``torch.profiler``: the device's busy
+   share of the wall time and the CUDA kernels by total time (printed; a
+   trace with no device events is reported, not failed); it runs last,
+   after phase 9, so that no profiler session precedes a timed run;
+9. serve main path: ``phi4-mini-3.8b`` at full width (32 layers, bf16,
+   random init on the card) through ``repro_torch.launch.serve`` with
+   B = 8, prompt 2,048 and 32 generated tokens: ``flash_attention``
+   launched exactly 32 times per prefill and 0 times per decode step,
+   decode's logits at position S against a prefill of S + 1 tokens, the
+   prefill's seconds, decode tokens/s and peak device memory.
 
 Then it prints one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a card it exits non-zero
@@ -77,6 +86,28 @@ FC_SHAPES = {"fc0": (64, 4096, 384), "fc1": (64, 384, 192)}
 # tests/test_grouped_matmul.py's edge shapes (G, M, K, N)
 GM_EDGE_SHAPES = ((1, 8, 16, 16), (3, 130, 200, 96), (5, 1, 7, 3),
                   (4, 32, 256, 64))
+# flash_attention: the serve path's prefill shape (phi4-mini-3.8b, B = 8,
+# prompt 2,048) as (B, Sq, Sk, H, Hkv, hd, causal), then
+# tests/test_flash_attention.py's shapes and a top-left causal Sq != Sk
+FA_SERVE = (8, 2048, 2048, 24, 8, 128, True)
+FA_EDGE_SHAPES = ((2, 64, 64, 4, 2, 16, True), (1, 128, 128, 8, 8, 32, True),
+                  (2, 64, 64, 4, 1, 16, False), (1, 100, 100, 2, 2, 8, True),
+                  (1, 33, 33, 4, 2, 64, False), (2, 40, 72, 6, 2, 32, True),
+                  (2, 72, 40, 6, 2, 128, True))
+# bf16 tensor-core peak of one H100 SXM (NVIDIA data sheet, dense): the
+# card's rate for flash_attention's bf16 operands (a bf16 x bf16 product is
+# exact in f32, so the matrix unit with f32 accumulation does the same work)
+BF16_TC_FLOPS_PER_S = 989e12
+# flash_attention in bf16 against its plain version, elementwise:
+# |kernel - plain| <= FA_BF16_RTOL * |plain| + FA_BF16_ATOL. Both round the
+# same f32 value (up to summation order, ~1e-6 relative) to bf16 once, so
+# they differ by at most one bf16 ulp, which is <= 2^-7 * |plain|; the atol
+# covers f32 cancellation near zero (~1e-7 * max|v|).
+FA_BF16_RTOL, FA_BF16_ATOL = 2.0 ** -7, 1e-4
+SERVE = dict(arch="phi4-mini-3.8b", batch=8, prompt=2048, gen=32, seed=0)
+# decode logits at position S vs the last logits of a prefill of S + 1
+# tokens, in bf16 through 32 layers: max |diff| <= SERVE_TOL * max |prefill|
+SERVE_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -103,11 +134,27 @@ def phase_build():
     for name, rep in report.items():
         log(f"[build] {name}.cu nvcc {rep['seconds']:.2f}s"
             f"{' (cached)' if rep['cached'] else ''}")
+        entry = ""
         for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"[build]   {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = _kernel_name(line.split("'")[1])
+            elif "registers" in line or "spill" in line or "error" in line:
+                log(f"[build]   {entry}: {line.strip()}")
     log(f"[build] all sources in {wall:.2f}s (parallel)")
     _sass_mix(_build, "sens_sketch", "sens_sketch_partialILi16E", rows=16)
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name[template args]`` of a mangled kernel in an anonymous
+    namespace (``_ZN.._GLOBAL__N__<hash>_<n>_<file>_cu_<hash><len><name>I..E``)."""
+    import re
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if m is None:
+        return mangled[:48]
+    rest = mangled[m.end():]
+    name, args = rest[:int(m.group(1))], rest[int(m.group(1)):]
+    end = args.find("EEv")
+    return f"{name}[{args[1:end + 1]}]" if args.startswith("I") and end > 0 else name
 
 
 def _sass_mix(_build, lib: str, func: str, rows: int) -> None:
@@ -211,6 +258,8 @@ def phase_parity(torch, dev):
         raise AssertionError("sens_sketch is not bit-identical across runs")
     log(f"[parity] sens_sketch d={n} repeated runs bit-identical")
     errs["grouped_matmul"] = _parity_grouped(torch, dev, rng)
+    (errs["flash_attention"], errs["flash_attention_bf16"],
+     errs["flash_attention_bf16_share"]) = _parity_flash(torch, dev, rng)
     return errs
 
 
@@ -275,6 +324,60 @@ def _parity_grouped(torch, dev, rng) -> float:
         raise AssertionError("grouped_matmul: valid == 0 groups not exactly 0")
     log("[parity] grouped_matmul valid == 0 groups exactly zero")
     return worst
+
+
+def _parity_flash(torch, dev, rng) -> tuple:
+    """flash_attention vs its plain version (materialised f32 softmax) at
+    the serve shape and the edge shapes, f32 and bf16, and bit-identical
+    repeated runs at the serve shape. Tolerances: f32 max|err| <= 2e-5 *
+    max(1, max|plain|) (online vs materialised softmax, rounding only);
+    bf16 elementwise within one output rounding (FA_BF16_RTOL/ATOL).
+    Returns the worst f32 and bf16 max|err| and the worst bf16 element's
+    share of its limit."""
+    from repro_torch.kernels import flash_attention as fa
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_share = 0.0
+    for B, Sq, Sk, H, Hkv, hd, causal in (FA_SERVE,) + FA_EDGE_SHAPES:
+        q = _rand(torch, rng, (B, Sq, H, hd), dev)
+        k = _rand(torch, rng, (B, Sk, Hkv, hd), dev)
+        v = _rand(torch, rng, (B, Sk, Hkv, hd), dev)
+        for dt in (torch.float32, torch.bfloat16):
+            a, b, c = q.to(dt), k.to(dt), v.to(dt)
+            got = fa.flash_attention(a, b, c, causal=causal)
+            want = fa.flash_attention_plain(a, b, c, causal=causal)
+            torch.cuda.synchronize()
+            if got.dtype != dt or got.shape != want.shape:
+                raise AssertionError(f"flash_attention {dt}: {got.dtype}"
+                                     f"{tuple(got.shape)}")
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if dt == torch.float32:
+                tol = 2e-5 * max(1.0, float(want.float().abs().max()))
+                share = err / tol
+                what = f"tol={tol:.3e}"
+            else:
+                lim = FA_BF16_RTOL * want.float().abs() + FA_BF16_ATOL
+                share = float((diff / lim).max())
+                worst_share = max(worst_share, share)
+                what = (f"limit 2^-7*|plain|+{FA_BF16_ATOL:g}, worst element at "
+                        f"{share:.3f} of it")
+            log(f"[parity] flash_attention B={B} Sq={Sq} Sk={Sk} H={H} "
+                f"Hkv={Hkv} hd={hd} causal={causal} {str(dt)[6:]} "
+                f"max|err|={err:.3e} {what}")
+            if not share <= 1.0:
+                raise AssertionError(f"flash_attention {(B, Sq, Sk, H, Hkv, hd)}"
+                                     f" {dt}: max|err| {err}, {share} of limit")
+            del diff
+            worst[dt] = max(worst[dt], err)
+            if (B, Sq, Sk, H, Hkv, hd, causal) == FA_SERVE:
+                if not torch.equal(got, fa.flash_attention(a, b, c,
+                                                           causal=causal)):
+                    raise AssertionError("flash_attention is not bit-identical"
+                                         " across runs")
+                log(f"[parity] flash_attention serve shape {str(dt)[6:]} "
+                    f"repeated runs bit-identical")
+            del got, want
+    return worst[torch.float32], worst[torch.bfloat16], worst_share
 
 
 def _time_ms(torch, fn, iters: int, flush) -> float:
@@ -344,6 +447,7 @@ def phase_timing(torch, dev):
             bound_ms=max(b_ms, f_ms),
             bound_by="bytes" if b_ms >= f_ms else "operations",
             blocks=g_ * -(-m_ // 64) * -(-n_ // 64))
+    out["flash_attention"] = _time_flash(torch, dev, rng, flush)
     for name, r in out.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f}us"
         log(f"[timing] {name} {r['shape']}: kernel {r['ms'] * 1e3:.1f}us "
@@ -351,6 +455,51 @@ def phase_timing(torch, dev):
             f"bound {r['bound_ms'] * 1e3:.1f}us ({r['bound_by']})"
             + (f" blocks={r['blocks']} (132 SMs)" if "blocks" in r else ""))
     return out
+
+
+def _causal_pairs(Sq: int, Sk: int) -> int:
+    """Unmasked (query, key) pairs of top-left causal attention."""
+    return sum(min(i + 1, Sk) for i in range(Sq))
+
+
+def _time_flash(torch, dev, rng, flush) -> dict:
+    """flash_attention at the serve shape in bf16 (the serve path's dtype):
+    kernel, plain version, and F.scaled_dot_product_attention (causal, GQA;
+    a yardstick the port never calls) on the same inputs. Bound: the larger
+    of the unmasked pairs x 4 hd FLOP at the bf16 tensor-core peak (the
+    card's rate for bf16 operands) and q, k, v, o moved once; the bound at
+    the FP32 CUDA-core peak, the pipe this kernel runs on, is printed beside
+    it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, H, Hkv, hd, causal = FA_SERVE
+    dt = torch.bfloat16
+    q = _rand(torch, rng, (B, Sq, H, hd), dev).to(dt)
+    k = _rand(torch, rng, (B, Sk, Hkv, hd), dev).to(dt)
+    v = _rand(torch, rng, (B, Sk, Hkv, hd), dev).to(dt)
+    flops = B * H * _causal_pairs(Sq, Sk) * 4 * hd
+    bytes_ = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    o_ms = flops / BF16_TC_FLOPS_PER_S * 1e3
+    b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    r = dict(
+        shape=f"B={B} S={Sq} H={H} Hkv={Hkv} hd={hd} causal bf16",
+        ms=_time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal),
+                    20, flush),
+        plain_ms=_time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal=causal), 10, flush),
+        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush),
+        bound_ms=max(o_ms, b_ms), bound_by="operations" if o_ms >= b_ms else "bytes",
+        flops=flops, bytes=bytes_,
+        fp32_bound_ms=flops / FP32_FLOPS_PER_S * 1e3)
+    log(f"[timing] flash_attention: {flops:.4e} FLOP (unmasked pairs x 4 hd), "
+        f"{bytes_ / 1e6:.1f} MB; bound {o_ms * 1e3:.1f}us at the bf16 "
+        f"tensor-core peak, {b_ms * 1e3:.1f}us by bytes; kernel at "
+        f"{100 * r['bound_ms'] / r['ms']:.2f}% of its bound (FP32 CUDA-core "
+        f"bound {r['fp32_bound_ms'] * 1e3:.1f}us, kernel at "
+        f"{100 * r['fp32_bound_ms'] / r['ms']:.1f}% of that)")
+    return r
 
 
 def _golden_world():
@@ -513,7 +662,7 @@ def phase_main_cohort(torch):
     (engine,) = engines
     want = {"sens_sketch": 10 * (res.dispatches + res.versions + 1),
             "buffer_agg": res.versions,
-            "grouped_matmul": 9 * engine.steps_run}
+            "grouped_matmul": 9 * engine.steps_run, "flash_attention": 0}
     if counts != want:
         raise AssertionError(f"cohort main path launches {counts} != {want}")
     if res.versions < 1 or res.engine != "cohort" or res.cohorts < 1:
@@ -537,7 +686,6 @@ def phase_main_cohort(torch):
 
 
 def _profile_run(torch, engine: str) -> None:
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.psa import PSAConfig
     from repro_torch.federated.simulator import SimConfig, run_algorithm
@@ -553,6 +701,14 @@ def _profile_run(torch, engine: str) -> None:
                             psa_cfg=PSAConfig(), calib_batch=calib)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    _device_busy(torch, prof, f"{engine}: horizon 2000, receives="
+                 f"{res.dispatches}", wall)
+
+
+def _device_busy(torch, prof, what: str, wall: float, top: int = 12) -> None:
+    """Print the union of the trace's device intervals as a share of
+    ``wall`` and the CUDA kernels by total time."""
+    from torch.autograd import DeviceType
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -565,15 +721,14 @@ def _profile_run(torch, engine: str) -> None:
         if b > end:
             busy += b - max(a, end)
             end = b
-    log(f"[profile] {engine}: horizon 2000, receives={res.dispatches} "
-        f"wall={wall:.2f}s (profiled) device busy={busy / 1e6:.3f}s "
-        f"({100 * busy / 1e6 / wall:.1f}% of wall), "
+    log(f"[profile] {what}: wall={wall:.3f}s (profiled) device "
+        f"busy={busy / 1e6:.3f}s ({100 * busy / 1e6 / wall:.1f}% of wall), "
         f"{sum(n for n, _ in by_name.values())} device events")
     if not spans:
-        log(f"[profile] {engine}: the trace holds no device events")
+        log(f"[profile] {what}: the trace holds no device events")
         return
     total = sum(us for _, us in by_name.values())
-    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"[profile]   {100 * us / total:5.1f}% {us / 1e3:9.1f}ms "
             f"{n:7d}x {name[:90]}")
 
@@ -583,6 +738,150 @@ def phase_profile(torch):
         _profile_run(torch, engine)
 
 
+def _serve_world(torch, dev):
+    """phi4-mini-3.8b at full width, random init on the card, and SERVE's
+    prompts plus one more token each (for the decode check)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(SERVE["arch"])
+    gen = torch.Generator(device=dev).manual_seed(SERVE["seed"])
+    params = M.init_params(gen, cfg, dev)
+    toks = torch.randint(0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt"] + 1),
+                         generator=torch.Generator().manual_seed(SERVE["seed"]))
+    return cfg, params, toks.to(dev)
+
+
+def phase_serve_checks(torch, dev):
+    """On the serve world, outside the counted main path: flash_attention
+    launches per prefill (one per layer) and per decode step (none); decode's
+    logits at position S against the last logits of a prefill of S + 1
+    tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    cfg, params, toks = _serve_world(torch, dev)
+    S, V = SERVE["prompt"], cfg.vocab_size
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        cache, _ = M.prefill(params, {"tokens": toks[:, :S]}, cfg, max_len=S + 1)
+        per_prefill = ops.launch_counts()
+        ops.reset_launch_counts()
+        _, dec = M.decode_step(params, cache, toks[:, S:], S, cfg)
+        per_decode = ops.launch_counts()
+        del cache
+        _, pre = M.prefill(params, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    want_pre = {k: (cfg.num_layers if k == "flash_attention" else 0)
+                for k in per_prefill}
+    if per_prefill != want_pre or any(per_decode.values()):
+        raise AssertionError(f"serve launches per prefill {per_prefill} (want "
+                             f"{want_pre}), per decode step {per_decode}")
+    dec, pre = dec[:, 0, :V].float(), pre[:, :V].float()
+    if not (bool(torch.isfinite(dec).all()) and bool(torch.isfinite(pre).all())):
+        raise AssertionError("serve logits are not finite")
+    err, big = float((dec - pre).abs().max()), float(pre.abs().max())
+    agree = float((dec.argmax(-1) == pre.argmax(-1)).float().mean())
+    log(f"[serve] launches per prefill {per_prefill}, per decode step "
+        f"{per_decode}")
+    log(f"[serve] decode logits at position {S} vs prefill of {S + 1} tokens: "
+        f"max|diff|={err:.4e} max|prefill|={big:.4e} tol={SERVE_TOL * big:.4e} "
+        f"greedy agreement {agree:.3f}")
+    if not err <= SERVE_TOL * big:
+        raise AssertionError(f"serve decode vs prefill: {err} > "
+                             f"{SERVE_TOL} * {big}")
+    return {"decode_vs_prefill_max_abs": err, "prefill_max_abs": big,
+            "greedy_agreement": agree}
+
+
+def phase_profile_serve(torch, dev):
+    """Phase 8 for the serve path: the prefill and then 7 decode steps, each
+    under its own profiler session (device activity), and 7 decode steps
+    timed unprofiled before and after those sessions."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    cfg, params, toks = _serve_world(torch, dev)
+    S, n = SERVE["prompt"], 7
+
+    def prefill():
+        cache, lg = M.prefill(params, {"tokens": toks[:, :S]}, cfg,
+                              max_len=S + n)
+        return cache, torch.argmax(lg, -1)[:, None]
+
+    def decode(cache, tok):
+        for i in range(n):
+            cache, lg = M.decode_step(params, cache, tok, S + i, cfg)
+            tok = torch.argmax(lg[:, 0], -1)[:, None]
+        torch.cuda.synchronize()
+
+    def timed_decode() -> float:
+        cache, tok = prefill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(cache, tok)
+        return (time.perf_counter() - t0) / n
+
+    with torch.no_grad():
+        before = timed_decode()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cache, tok = prefill()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _device_busy(torch, prof, f"serve prefill B={SERVE['batch']} S={S}", wall)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode(cache, tok)
+            wall = time.perf_counter() - t0
+        _device_busy(torch, prof, f"serve decode, {n} steps at B="
+                     f"{SERVE['batch']} (events per step = device events / "
+                     f"{n})", wall)
+        after = timed_decode()
+    log(f"[profile] serve decode unprofiled: {1e3 * before:.2f} ms/step before "
+        f"the profiler sessions, {1e3 * after:.2f} ms/step after them")
+
+
+def phase_serve(torch, dev, smi: str):
+    """The serve main path as a user runs it: ``python -m
+    repro_torch.launch.serve --arch phi4-mini-3.8b --batch 8 --prompt-len
+    2048 --gen 32`` (its ``main``), with the kernel counts set to 0 just
+    before and read just after. One prefill: flash_attention once per
+    layer; decode steps launch none."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = get_config(SERVE["arch"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", SERVE["arch"], "--batch", str(SERVE["batch"]),
+                      "--prompt-len", str(SERVE["prompt"]),
+                      "--gen", str(SERVE["gen"]), "--seed", str(SERVE["seed"]),
+                      "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {k: (cfg.num_layers if k == "flash_attention" else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"serve main path launches {counts} != {want}")
+    tok = res["tokens"]
+    if tuple(tok.shape) != (SERVE["batch"], SERVE["gen"]) or \
+            int(tok.min()) < 0 or int(tok.max()) >= cfg.vocab_size:
+        raise AssertionError(f"serve tokens {tuple(tok.shape)} out of range")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve] {cfg.name} B={SERVE['batch']} prompt={SERVE['prompt']} "
+        f"gen={SERVE['gen']}: prefill {res['prefill_s']:.4f}s "
+        f"({SERVE['batch'] * SERVE['prompt'] / res['prefill_s']:.0f} tok/s), "
+        f"{res['decode_steps']} decode steps {res['decode_s']:.4f}s "
+        f"({res['decode_tok_s']:.1f} tok/s, "
+        f"{1e3 * res['decode_s'] / res['decode_steps']:.2f} ms/step), "
+        f"wall incl. init {wall:.2f}s, peak device memory "
+        f"{peak / 2**30:.2f} GiB, launches={counts} on {smi}")
+    return counts, {"prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+                    "decode_tok_s": res["decode_tok_s"], "peak_bytes": peak}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -590,6 +889,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch.federated.simulator  # noqa: F401  (fail before any output)
+    import repro_torch.launch.serve  # noqa: F401
     name, count, smi = phase_device(torch)
     dev = torch.device("cuda")
     # full float32 throughout (cuDNN's TF32 default would move the convs)
@@ -601,7 +901,12 @@ def main() -> int:
     phase_golden(torch)
     by_path = {"sequential": phase_main(torch),
                "cohort": phase_main_cohort(torch)}
+    # the timed serve runs come before any profiler session, so no profiler
+    # state is live while they run
+    serve_check = phase_serve_checks(torch, dev)
+    serve_counts, serve_stats = phase_serve(torch, dev, smi)
     phase_profile(torch)
+    phase_profile_serve(torch, dev)
     sources = {"buffer_agg": ("src/repro_torch/csrc/buffer_agg.cu",
                               "src/repro/kernels/buffer_agg.py:38",
                               "1e-6 * (1 + max|plain|) * L"),
@@ -621,6 +926,22 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": r["shape"]})
+    r = timing["flash_attention"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:74",
+        "launches": serve_counts["flash_attention"],
+        "launches_by_path": {"serve": serve_counts["flash_attention"]},
+        "max_abs_err": errs["flash_attention"],
+        "max_abs_err_bf16": errs["flash_attention_bf16"],
+        "bf16_worst_share_of_limit": errs["flash_attention_bf16_share"],
+        "tolerance": "f32 2e-5 * max(1, max|plain|); bf16 elementwise "
+                     "2^-7 * |plain| + 1e-4",
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "fp32_bound_ms": r["fp32_bound_ms"], "shape": r["shape"]})
+    log(json.dumps({"serve": {**serve_stats, **serve_check}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,20 +1,27 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-Only the paper's image models are ported; every other id of the reference
-registry (the LM families) raises, naming ROADMAP.md.
+The paper's image models and the dense LM ``phi4-mini-3.8b`` are ported;
+as in the reference, ``<id>-smoke`` is ``get_config(<id>).reduced()``.
+Every other id of the reference registry (the other LM families) raises,
+naming ROADMAP.md.
 """
 from __future__ import annotations
 
-from repro_torch.configs.paper_models import CONFIGS
+from repro_torch.configs import phi4_mini_38b
+from repro_torch.configs.paper_models import CONFIGS as _PAPER
 from repro_torch.models.config import ModelConfig
+
+CONFIGS = {**_PAPER, phi4_mini_38b.CONFIG.name: phi4_mini_38b.CONFIG}
 
 
 def get_config(arch: str) -> ModelConfig:
+    if arch not in CONFIGS and arch.endswith("-smoke"):
+        return get_config(arch[: -len("-smoke")]).reduced()
     if arch not in CONFIGS:
         raise NotImplementedError(
             f"arch {arch!r} is not ported to repro_torch (ported: "
-            f"{sorted(CONFIGS)}); the LM families are ROADMAP.md Queue 1 "
-            f"item 10")
+            f"{sorted(CONFIGS)} and their -smoke variants); the other LM "
+            f"families are ROADMAP.md Queue 1 item 10")
     return CONFIGS[arch]
 
 

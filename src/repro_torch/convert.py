@@ -2,7 +2,9 @@
 
 The reference's parameters (``jax.numpy`` arrays, or numpy arrays from
 them) keep their keys and layouts in the port, so conversion is a leafwise
-copy into float32 tensors on ``device``.
+copy onto ``device``: bfloat16 leaves (ml_dtypes' ``bfloat16``, the LM
+configs' param dtype) arrive as ``torch.bfloat16`` bit for bit, and every
+other leaf as float32 (the image models' dtype).
 """
 from __future__ import annotations
 
@@ -14,15 +16,19 @@ def params_from_numpy(tree, device="cpu") -> dict:
     """Reference params tree (arrays) -> the port's tree of tensors."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return torch.tensor(np.asarray(tree, np.float32), device=device)
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        bits = torch.tensor(np.ascontiguousarray(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(np.asarray(a, np.float32), device=device)
 
 
 def params_to_numpy(tree) -> dict:
-    """The port's tree -> numpy float32 arrays (the inverse, for tests and
-    fixtures)."""
+    """The port's tree -> numpy float32 arrays (for tests and fixtures;
+    bfloat16 widens exactly)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy().astype(np.float32)
+    return tree.detach().cpu().float().numpy()
 
 
 def load_npz_params(path, device="cpu") -> dict:

@@ -30,6 +30,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.common.device import setup_device
 from repro_torch.common.tree import FlatSpec, tree_map
 from repro_torch.core import psa as psa_lib
 from repro_torch.data.loader import ClientDataset, StackedClients
@@ -138,25 +139,6 @@ def _resolve_engine(sim: SimConfig, cfg: ModelConfig) -> str:
         raise _unported(f"engine='cohort' for model family {cfg.family!r}",
                         "Queue 1 item 10")
     return sim.engine
-
-
-def setup_device(name: str) -> torch.device:
-    """Resolve ``SimConfig.device``. A CUDA request without a card raises:
-    the port never moves a run to the CPU on its own."""
-    dev = torch.device(name)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device={name!r} was requested but torch sees no CUDA "
-                f"device; pass device='cpu' to run the plain CPU path")
-        # cuDNN runs float32 convolutions in TF32 by default (about three
-        # decimal digits), which pushes the CNN convs outside the golden
-        # tolerance; parity runs in full float32.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
-    return dev
 
 
 def _build_eval(cfg: ModelConfig, test_ds, sim: SimConfig, device):

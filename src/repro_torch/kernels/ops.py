@@ -14,11 +14,12 @@ import torch
 from repro_torch.common.tree import tree_leaves
 from repro_torch.core.sketch import DEFAULT_K, leaf_seed_host
 from repro_torch.kernels.buffer_agg import buffer_agg
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.grouped_matmul import grouped_matmul
 from repro_torch.kernels.sens_sketch import sens_sketch
 
-KERNELS = {"buffer_agg": buffer_agg, "grouped_matmul": grouped_matmul,
-           "sens_sketch": sens_sketch}
+KERNELS = {"buffer_agg": buffer_agg, "flash_attention": flash_attention,
+           "grouped_matmul": grouped_matmul, "sens_sketch": sens_sketch}
 
 
 def sketch_tree_fused(params, grads, fisher, *, k: int = DEFAULT_K,

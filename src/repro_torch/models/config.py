@@ -1,21 +1,108 @@
-"""Model configuration for the paper's image families (cnn / mlp).
+"""Model configuration: the paper's image families and the dense LM.
 
 The reference ``repro.models.config.ModelConfig`` covers every architecture
-family; the port carries only the fields the paper models read. Frozen, so
-a config hashes and can key caches.
+family; the port carries the fields its ported paths read: the image models
+(cnn / mlp) and the dense decoder LM (prefill and decode). A dense model is
+described, as in the reference, by a *superblock pattern*: ``block_pattern``
+gives the sequence mixer per layer inside one superblock and ``ffn_pattern``
+the feed-forward kind; the pattern tiles to ``num_layers``. The MoE, SSM and
+frontend fields of the reference, and its attention-chunking and remat knobs,
+come with the slices that read them (ROADMAP.md Queue 1 item 10). Frozen,
+so a config hashes and can key caches.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                                  # "cnn" | "mlp"
+    family: str                                  # "cnn" | "mlp" | "dense"
+    # LM fields (the reference's; zero for the image families)
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: Optional[int] = None
+    causal: bool = True
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    block_pattern: Tuple[str, ...] = ("attn",)
+    ffn_pattern: Tuple[str, ...] = ("dense",)
+    sliding_window: Optional[int] = None
+    long_context_window: Optional[int] = 8192
+    frontend: Optional[str] = None               # None | "audio" | "vision"
+    pad_vocab_to: int = 128
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    ffn_act: str = "swiglu"                      # swiglu | gelu | relu | relu2
+    tie_embeddings: bool = False
+    # image fields (the paper's own models)
     cnn_channels: Tuple[int, ...] = ()
     cnn_kernel: int = 5
     mlp_hidden: Tuple[int, ...] = ()
     input_hw: Tuple[int, int, int] = (0, 0, 0)   # H, W, C for cnn; (features,) via H
     num_classes: int = 10
+
+    def __post_init__(self):
+        if self.head_dim is None and self.num_heads > 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        assert self.num_layers % len(self.block_pattern) == 0, (
+            f"{self.name}: num_layers {self.num_layers} must tile block_pattern "
+            f"of length {len(self.block_pattern)}")
+        assert len(self.block_pattern) == len(self.ffn_pattern)
+
+    @property
+    def num_superblocks(self) -> int:
+        return self.num_layers // len(self.block_pattern)
+
+    @property
+    def vocab_padded(self) -> int:
+        m = self.pad_vocab_to
+        return -(-self.vocab_size // m) * m if self.vocab_size else 0
+
+    def for_long_context(self) -> "ModelConfig":
+        """The 500k-decode variant: sliding-window attention on every
+        attention layer."""
+        if self.long_context_window is None:
+            return self
+        return dataclasses.replace(self, sliding_window=self.long_context_window)
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant, the reference's rule for the fields carried
+        here: <= 2 superblocks, d_model <= 256, <= 4 heads, f32. The image
+        families have no smoke variant."""
+        if self.family in ("cnn", "mlp"):
+            raise NotImplementedError(
+                f"{self.name}: the image models have no -smoke variant; "
+                f"reduced() is for the LM families (ROADMAP.md Queue 1 item 10)")
+        if len(self.block_pattern) > 1:
+            bp = (self.block_pattern[0], self.block_pattern[-1])
+            fp = (self.ffn_pattern[0], self.ffn_pattern[-1])
+        else:
+            bp, fp = self.block_pattern, self.ffn_pattern
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.num_heads, 4)
+        n_kv = min(self.num_kv_heads, n_heads)
+        while n_heads % n_kv:       # keep the GQA ratio valid
+            n_kv -= 1
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            block_pattern=bp,
+            ffn_pattern=fp,
+            num_layers=2 * len(bp) if len(bp) == 1 else len(bp),
+            d_model=d_model,
+            num_heads=n_heads,
+            num_kv_heads=max(1, n_kv),
+            head_dim=d_model // n_heads,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            dtype="float32",
+            param_dtype="float32",
+        )

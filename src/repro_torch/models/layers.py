@@ -1,0 +1,245 @@
+"""Shared LM layers: norms, RoPE, GQA attention with its KV cache, FFNs,
+embeddings. The port of the reference's ``repro.models.layers`` for the
+dense decoder's prefill and decode.
+
+Every layer is a pair ``init_*(gen, cfg, ...) -> params`` and
+``apply(params, x, ...) -> y`` over plain dicts of tensors, with the
+reference's layouts: ``wq (D, H, hd)``, ``wk``/``wv (D, Hkv, hd)``,
+``wo (H, hd, D)``, ``(in, out)`` FFN weights, vocab tables padded to
+``cfg.vocab_padded``. Full-sequence attention (prefill) goes through the
+``flash_attention`` kernel, which computes the reference's
+``chunked_attention`` with no window and no query offset; given a cache,
+``attention_forward`` also fills it, where the reference has a separate
+``attention_fill_cache``. Decode attention
+is plain torch in f32, as the reference computes it in jnp outside any
+kernel. The reference's sharding ``rules`` have no counterpart on one
+device and are dropped.
+
+Initial weights come from a ``torch.Generator``: the reference's law
+(truncated normal at +-2 std, fan-in scale), not its threefry draws
+(convert the reference's tree for parity).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.member_math import member_dot
+
+NEG_INF = -1e30
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def param_dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def dense_init(gen: Optional[torch.Generator], shape, dtype, device,
+               scale: Optional[float] = None, lead=()) -> torch.Tensor:
+    """Truncated-normal (+-2 std) fan-in init of one ``shape`` leaf, drawn
+    in f32 on ``gen``'s device and cast to ``dtype`` on ``device``. ``lead``
+    prepends stacked axes (the superblock axis) that share the leaf's scale.
+    On the ``meta`` device nothing is drawn (``gen`` may be None)."""
+    full = tuple(lead) + tuple(shape)
+    if torch.device(device).type == "meta":
+        return torch.empty(full, dtype=dtype, device="meta")
+    std = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    t = torch.empty(full, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (t * std).to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, dtype, device, lead=()) -> dict:
+    return {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-5):
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (interleaved pairs 0::2 / 1::2)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (exps / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., S, H, hd); positions broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    angles = positions[..., :, None, None].float() * freqs  # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x32 = x.float()
+    x1, x2 = x32[..., 0::2], x32[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention: prefill through the flash kernel, decode against the cache
+# ---------------------------------------------------------------------------
+
+def init_attention(gen, cfg: ModelConfig, device, lead=()) -> dict:
+    pd = param_dtype_of(cfg)
+    D, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": dense_init(gen, (D, H, hd), pd, device, lead=lead),
+        "wk": dense_init(gen, (D, Hkv, hd), pd, device, lead=lead),
+        "wv": dense_init(gen, (D, Hkv, hd), pd, device, lead=lead),
+        "wo": dense_init(gen, (H, hd, D), pd, device,
+                         scale=1.0 / math.sqrt(H * hd), lead=lead),
+    }
+
+
+def attention_forward(params, x, cfg: ModelConfig, positions=None,
+                      cache=None):
+    """Full-sequence attention over x (B, S, D) through the flash kernel.
+    With ``cache`` (prefill), token ``i``'s roped k and v also go to slot
+    ``i`` of ``cache``, written in place; its tail slots stay zero until
+    decode."""
+    S = x.shape[1]
+    if cache is not None and cache["k"].shape[1] < S:
+        raise NotImplementedError(
+            f"a KV cache shorter than the prompt ({cache['k'].shape[1]} < {S}:"
+            f" a sliding-window ring) is not ported (ROADMAP.md Queue 1 item 10)")
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q = member_dot(x, params["wq"].to(x.dtype))
+    k = member_dot(x, params["wk"].to(x.dtype))
+    v = member_dot(x, params["wv"].to(x.dtype))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if cache is not None:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+    out = flash_attention(q, k, v, causal=cfg.causal)
+    return member_dot(out, params["wo"].to(x.dtype), ncon=2)
+
+
+def attention_cache_size(cfg: ModelConfig, max_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
+                         device, lead=()) -> dict:
+    C = attention_cache_size(cfg, max_len)
+    shape = tuple(lead) + (batch, C, cfg.num_kv_heads, cfg.head_dim)
+    dt = dtype_of(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def decode_attention(q, k_cache, v_cache, valid: int):
+    """One query token against a (ring-buffer) KV cache, f32 math.
+    q (B, 1, H, hd); caches (B, C, Hkv, hd); the first ``valid`` slots are
+    real tokens (softmax is permutation-invariant, so slot order does not
+    matter)."""
+    B, C, Hkv, hd = k_cache.shape
+    H = q.shape[2]
+    qr = q.reshape(B, Hkv, H // Hkv, hd).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qr, k_cache.float()) / math.sqrt(hd)
+    live = torch.arange(C, device=q.device) < valid
+    s = torch.where(live, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def attention_decode(params, cache, x, pos: int, cfg: ModelConfig):
+    """One-token decode. x: (B, 1, D); ``pos`` the token's position (a host
+    int, the same for the batch). Writes k and v into ring slot
+    ``pos % C`` of ``cache`` in place (the reference returns an updated
+    copy) and returns (cache, y)."""
+    C = cache["k"].shape[1]
+    posb = torch.full((x.shape[0], 1), pos, device=x.device)
+    q = member_dot(x, params["wq"].to(x.dtype))
+    k = member_dot(x, params["wk"].to(x.dtype))
+    v = member_dot(x, params["wv"].to(x.dtype))
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k = apply_rope(k, posb, cfg.rope_theta)
+    slot = pos % C
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    out = decode_attention(q, cache["k"], cache["v"], min(pos + 1, C))
+    return cache, member_dot(out, params["wo"].to(x.dtype), ncon=2)
+
+
+# ---------------------------------------------------------------------------
+# Dense feed-forward (SwiGLU / GELU / ReLU / squared ReLU)
+# ---------------------------------------------------------------------------
+
+def init_ffn(gen, cfg: ModelConfig, device, lead=()) -> dict:
+    pd = param_dtype_of(cfg)
+    D, Fd = cfg.d_model, cfg.d_ff
+    p = {"w_in": dense_init(gen, (D, Fd), pd, device, lead=lead),
+         "w_out": dense_init(gen, (Fd, D), pd, device, lead=lead)}
+    if cfg.ffn_act == "swiglu":
+        p["w_gate"] = dense_init(gen, (D, Fd), pd, device, lead=lead)
+    return p
+
+
+def ffn_forward(params, x, cfg: ModelConfig):
+    h = member_dot(x, params["w_in"].to(x.dtype))
+    if cfg.ffn_act == "swiglu":
+        h = F.silu(member_dot(x, params["w_gate"].to(x.dtype))) * h
+    elif cfg.ffn_act == "gelu":
+        h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+    elif cfg.ffn_act == "relu2":            # squared ReLU
+        h = torch.square(torch.relu(h))
+    else:
+        h = torch.relu(h)
+    return member_dot(h, params["w_out"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding (tables padded to cfg.vocab_padded)
+# ---------------------------------------------------------------------------
+
+def init_embed(gen, cfg: ModelConfig, device) -> dict:
+    """Pad rows (columns of ``unembed``) stay zero: never indexed, and their
+    logits are masked (``mask_vocab_pad``)."""
+    pd = param_dtype_of(cfg)
+    V, Vp, D = cfg.vocab_size, cfg.vocab_padded, cfg.d_model
+    tok = dense_init(gen, (V, D), pd, device, scale=1.0)
+    un = dense_init(gen, (D, V), pd, device)
+    return {"tok": F.pad(tok, (0, 0, 0, Vp - V)),
+            "unembed": F.pad(un, (0, Vp - V))}
+
+
+def mask_vocab_pad(logits, cfg: ModelConfig):
+    """-1e30 in the padded vocab columns."""
+    if logits.shape[-1] == cfg.vocab_size:
+        return logits
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(col < cfg.vocab_size, logits,
+                       torch.full((), NEG_INF, dtype=logits.dtype,
+                                  device=logits.device))
+
+
+def embed_tokens(params, tokens, cfg: ModelConfig):
+    return params["tok"][tokens].to(dtype_of(cfg))
+
+
+def unembed(params, x, cfg: ModelConfig):
+    logits = member_dot(x, params["unembed"].to(x.dtype))
+    return mask_vocab_pad(logits, cfg)

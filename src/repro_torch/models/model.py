@@ -14,14 +14,29 @@ leading member axis, ``(B, *shape)``, and so does the data, ``(B, n,
 routes a member-batched product to the grouped kernel or to a plain
 matmul; per-member convolutions are one grouped ``F.conv2d`` (``groups =
 B``) over the members' channels side by side, ``(n, B*C, H, W)``.
+
+The dense decoder LM (``family == "dense"``) keeps the reference's
+stacked-superblock layout: ``params["blocks"]["p{i}"]`` leaves carry a
+leading ``num_superblocks`` axis, and a Python loop over superblocks
+indexes them as views (no per-layer copies), where the reference scans.
+Two layer loops share the parameters: the full-sequence one
+(``backbone_forward``; ``forward_logits`` returns every position's logits,
+``prefill`` also fills the KV cache and returns the last position's) and
+``decode_step`` (one token against the cache). The
+cache is stacked like the blocks, ``(nsb, B, C, Hkv, hd)``, and written in
+place. Configurations the port does not cover (other families, a sliding
+window, tied embeddings, a frontend) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.tree import tree_map
+from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.member_math import member_dot
 
@@ -70,13 +85,17 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device="cpu") -> dict:
     }
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig, device="cpu") -> dict:
+def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
+                device="cpu") -> dict:
+    """Initial weights from ``gen``. The LM draws on ``gen``'s device (a
+    CUDA generator keeps a full-width init on the card) and needs no
+    generator on the ``meta`` device."""
     if cfg.family == "cnn":
         return init_cnn(gen, cfg, device)
     if cfg.family == "mlp":
         return init_mlp(gen, cfg, device)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported (ROADMAP.md Queue 1 item 10)")
+    check_lm(cfg)
+    return init_lm(gen, cfg, device)
 
 
 def _dense_stack(params, x, n: int, members: bool = False):
@@ -164,3 +183,120 @@ def predict(params, x, cfg: ModelConfig):
 
 def accuracy(params, batch, cfg: ModelConfig) -> torch.Tensor:
     return torch.mean((predict(params, batch["x"], cfg) == batch["y"]).float())
+
+
+# ---------------------------------------------------------------------------
+# The dense decoder LM: init, full-sequence forward, prefill, decode
+# ---------------------------------------------------------------------------
+
+def check_lm(cfg: ModelConfig) -> None:
+    """Raise for an LM configuration the port does not cover."""
+    why = None
+    if cfg.family != "dense":
+        why = f"family {cfg.family!r}"
+    elif set(cfg.block_pattern) != {"attn"} or set(cfg.ffn_pattern) != {"dense"}:
+        why = f"block pattern {cfg.block_pattern} / {cfg.ffn_pattern}"
+    elif cfg.sliding_window is not None:
+        why = f"sliding_window={cfg.sliding_window}"
+    elif cfg.tie_embeddings:
+        why = "tie_embeddings"
+    elif cfg.frontend is not None:
+        why = f"frontend {cfg.frontend!r}"
+    if why is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {why} is not ported (ROADMAP.md Queue 1 item 10)")
+
+
+def init_lm(gen, cfg: ModelConfig, device="cpu") -> dict:
+    pd = layers.param_dtype_of(cfg)
+    D, lead = cfg.d_model, (cfg.num_superblocks,)
+    blocks = {f"p{i}": {
+        "norm1": layers.init_rmsnorm(D, pd, device, lead),
+        "mixer": layers.init_attention(gen, cfg, device, lead),
+        "norm2": layers.init_rmsnorm(D, pd, device, lead),
+        "ffn": layers.init_ffn(gen, cfg, device, lead),
+    } for i in range(len(cfg.block_pattern))}
+    return {"blocks": blocks,
+            "final_norm": layers.init_rmsnorm(D, pd, device),
+            "embed": layers.init_embed(gen, cfg, device)}
+
+
+def _superblock(stacked, i: int):
+    """Superblock ``i`` of a stacked tree (params or cache): views."""
+    return tree_map(lambda a: a[i], stacked)
+
+
+def superblock_forward(params, x, cfg: ModelConfig, positions, cache=None):
+    """One superblock over x (B, S, D). With ``cache`` (this superblock's
+    views of the stacked cache), each attention layer also fills it."""
+    for i in range(len(cfg.block_pattern)):
+        pp = params[f"p{i}"]
+        h = layers.rmsnorm(pp["norm1"], x, cfg.norm_eps)
+        x = x + layers.attention_forward(
+            pp["mixer"], h, cfg, positions,
+            None if cache is None else cache[f"p{i}"])
+        h = layers.rmsnorm(pp["norm2"], x, cfg.norm_eps)
+        x = x + layers.ffn_forward(pp["ffn"], h, cfg)
+    return x
+
+
+def backbone_forward(params, x, cfg: ModelConfig, cache=None):
+    """All superblocks and the final norm over x (B, S, D) at positions
+    0..S-1; with ``cache`` (from ``init_cache``) fills it."""
+    check_lm(cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for s in range(cfg.num_superblocks):
+        x = superblock_forward(_superblock(params["blocks"], s), x, cfg,
+                               positions,
+                               None if cache is None else _superblock(cache, s))
+    return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def forward_logits(params, batch: dict, cfg: ModelConfig):
+    """Full logits (B, S, vocab_padded), pad columns masked."""
+    x = layers.embed_tokens(params["embed"], batch["tokens"], cfg)
+    return layers.unembed(params["embed"], backbone_forward(params, x, cfg), cfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu") -> dict:
+    """Zeroed KV caches, stacked ``(nsb, B, C, Hkv, hd)`` per position."""
+    check_lm(cfg)
+    return {f"p{i}": layers.init_attention_cache(
+        cfg, batch, max_len, device, lead=(cfg.num_superblocks,))
+        for i in range(len(cfg.block_pattern))}
+
+
+def prefill(params, batch: dict, cfg: ModelConfig,
+            max_len: Optional[int] = None):
+    """Full-sequence prefill: the forward of ``forward_logits`` filling the
+    cache. Returns (cache, last-position logits (B, V)), the cache sized for
+    ``max_len`` (>= S; defaults to S)."""
+    x = layers.embed_tokens(params["embed"], batch["tokens"], cfg)
+    B, S = x.shape[:2]
+    cache = init_cache(cfg, B, max(max_len or S, S), x.device)
+    hidden = backbone_forward(params, x, cfg, cache)
+    return cache, layers.unembed(params["embed"], hidden[:, -1], cfg)
+
+
+def superblock_decode(params, cache, x, pos: int, cfg: ModelConfig):
+    """One superblock for one token; writes its ``cache`` views."""
+    for i in range(len(cfg.block_pattern)):
+        pp = params[f"p{i}"]
+        h = layers.rmsnorm(pp["norm1"], x, cfg.norm_eps)
+        _, y = layers.attention_decode(pp["mixer"], cache[f"p{i}"], h, pos, cfg)
+        x = x + y
+        h = layers.rmsnorm(pp["norm2"], x, cfg.norm_eps)
+        x = x + layers.ffn_forward(pp["ffn"], h, cfg)
+    return cache, x
+
+
+def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig):
+    """One-token decode. tokens: (B, 1); ``pos`` the tokens' position.
+    Updates ``cache`` in place; returns (cache, logits (B, 1, V))."""
+    check_lm(cfg)
+    x = layers.embed_tokens(params["embed"], tokens, cfg)
+    for s in range(cfg.num_superblocks):
+        _, x = superblock_decode(_superblock(params["blocks"], s),
+                                 _superblock(cache, s), x, pos, cfg)
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return cache, layers.unembed(params["embed"], x, cfg)

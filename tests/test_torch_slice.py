@@ -280,6 +280,10 @@ def test_port_imports_neither_jax_nor_reference():
     for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    scanned = {os.path.relpath(f, ROOT).replace(os.sep, "/") for f in files}
+    for mod in ("models/layers.py", "kernels/flash_attention.py",
+                "launch/serve.py", "configs/phi4_mini_38b.py"):
+        assert f"src/repro_torch/{mod}" in scanned, mod
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
