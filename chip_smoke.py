@@ -12,12 +12,17 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    register/shared-memory/spill lines;
 3. kernel parity: each kernel against its plain PyTorch version on the
    card at the main paths' shapes and edge shapes, the ``sens_sketch``
-   shard composition, the ``grouped_matmul`` mask and bf16 promotion,
-   ``flash_attention`` in f32 and bf16 at the serve shape, the reference
-   tests' shapes and Sq != Sk, and bit-identical repeated runs of the
-   reducing kernels;
+   shard composition, the ``grouped_matmul`` mask (also through its
+   split-K second pass) and bf16 promotion, ``flash_attention`` in f32
+   (CUDA-core kernel) and bf16 (tensor-core kernel, with the worst
+   element's share of its limit) at the serve shape, the reference tests'
+   shapes and Sq != Sk, and bit-identical repeated runs of the reducing
+   kernels;
 4. kernel timing: CUDA events around each launch (L2 flushed before each),
-   kernel / plain version / one-call library yardstick / computed bound;
+   kernel / plain version / one-call library yardstick / computed bound,
+   the kernel's share of its bound and its ratio to the library call, and
+   for the two kernels redesigned for Hopper their registers and shared
+   memory (ptxas) and ``grouped_matmul``'s split count and blocks;
 5. golden: the FedPSA and FedBuff runs on the golden world reproduce
    ``tests/golden/{fedpsa,fedbuff}.json`` on the card, on the sequential
    engine and on the cohort engine with both member kernels;
@@ -98,12 +103,6 @@ FA_EDGE_SHAPES = ((2, 64, 64, 4, 2, 16, True), (1, 128, 128, 8, 8, 32, True),
 # card's rate for flash_attention's bf16 operands (a bf16 x bf16 product is
 # exact in f32, so the matrix unit with f32 accumulation does the same work)
 BF16_TC_FLOPS_PER_S = 989e12
-# flash_attention in bf16 against its plain version, elementwise:
-# |kernel - plain| <= FA_BF16_RTOL * |plain| + FA_BF16_ATOL. Both round the
-# same f32 value (up to summation order, ~1e-6 relative) to bf16 once, so
-# they differ by at most one bf16 ulp, which is <= 2^-7 * |plain|; the atol
-# covers f32 cancellation near zero (~1e-7 * max|v|).
-FA_BF16_RTOL, FA_BF16_ATOL = 2.0 ** -7, 1e-4
 SERVE = dict(arch="phi4-mini-3.8b", batch=8, prompt=2048, gen=32, seed=0)
 # decode logits at position S vs the last logits of a prefill of S + 1
 # tokens, in bf16 through 32 layers: max |diff| <= SERVE_TOL * max |prefill|
@@ -273,7 +272,8 @@ def _parity_grouped(torch, dev, rng) -> float:
     """grouped_matmul vs its plain version: the forward, dW and dx products
     of fc0 and fc1 at G = 4 and 8 (dW and dx through the transposed views
     the backward passes), the edge shapes, the valid mask, bf16 promotion
-    and bit-identical repeated runs. Tolerance: max|err| <= 1e-5 *
+    (the fc0 forward through the split-K second pass), a long K split ten
+    ways, and bit-identical repeated runs. Tolerance: max|err| <= 1e-5 *
     max|plain| in f32 (the two sum K terms in different orders)."""
     from repro_torch.kernels import grouped_matmul as gm
     worst = 0.0
@@ -303,8 +303,9 @@ def _parity_grouped(torch, dev, rng) -> float:
                 err, _ = check(f"{layer} {what} G={G} {tuple(a.shape)}@"
                                f"{tuple(b.shape)}", a, b)
                 worst = max(worst, err)
-    for G, M, K, N in GM_EDGE_SHAPES:
-        check(f"edge G={G} M={M} K={K} N={N}",
+    for G, M, K, N in GM_EDGE_SHAPES + ((3, 40, 5000, 72),):
+        S, depth = gm.split_k(G, M, N, K)
+        check(f"edge G={G} M={M} K={K} N={N} split {S}x{depth}",
               _rand(torch, rng, (G, M, K), dev), _rand(torch, rng, (G, K, N), dev))
     M, K, N = FC_SHAPES["fc0"]
     x, w = _rand(torch, rng, (4, M, K), dev), _rand(torch, rng, (4, K, N), dev)
@@ -319,10 +320,15 @@ def _parity_grouped(torch, dev, rng) -> float:
     check("bf16 x bf16 -> bf16", xs.bfloat16(), ws.bfloat16(), tol=8e-3)
     x[3] = float("inf")                      # garbage in a masked group
     valid = torch.tensor([1.0, 0.0, 1.0, 0.0], device=dev)
-    _, got = check("valid=[1,0,1,0] fc0 G=4", x, w, valid)
+    S = gm.split_k(4, M, N, K)[0]
+    _, got = check(f"valid=[1,0,1,0] fc0 G=4 split {S}", x, w, valid)
     if not (bool((got[1] == 0).all()) and bool((got[3] == 0).all())):
         raise AssertionError("grouped_matmul: valid == 0 groups not exactly 0")
-    log("[parity] grouped_matmul valid == 0 groups exactly zero")
+    if not torch.equal(got, gm.grouped_matmul(x, w, valid)):
+        raise AssertionError("grouped_matmul masked split-K is not "
+                             "bit-identical across runs")
+    log(f"[parity] grouped_matmul valid == 0 groups exactly zero through "
+        f"the {S}-way split's second pass; repeated runs bit-identical")
     return worst
 
 
@@ -331,7 +337,8 @@ def _parity_flash(torch, dev, rng) -> tuple:
     the serve shape and the edge shapes, f32 and bf16, and bit-identical
     repeated runs at the serve shape. Tolerances: f32 max|err| <= 2e-5 *
     max(1, max|plain|) (online vs materialised softmax, rounding only);
-    bf16 elementwise within one output rounding (FA_BF16_RTOL/ATOL).
+    bf16 elementwise within the kernel module's ``bf16_limit`` (p rounded
+    to bf16 before PV, then one output rounding; derived there).
     Returns the worst f32 and bf16 max|err| and the worst bf16 element's
     share of its limit."""
     from repro_torch.kernels import flash_attention as fa
@@ -356,10 +363,9 @@ def _parity_flash(torch, dev, rng) -> tuple:
                 share = err / tol
                 what = f"tol={tol:.3e}"
             else:
-                lim = FA_BF16_RTOL * want.float().abs() + FA_BF16_ATOL
-                share = float((diff / lim).max())
+                share = float((diff / fa.bf16_limit(want, c)).max())
                 worst_share = max(worst_share, share)
-                what = (f"limit 2^-7*|plain|+{FA_BF16_ATOL:g}, worst element at "
+                what = (f"limit {fa.BF16_LIMIT}, worst element at "
                         f"{share:.3f} of it")
             log(f"[parity] flash_attention B={B} Sq={Sq} Sk={Sk} H={H} "
                 f"Hkv={Hkv} hd={hd} causal={causal} {str(dt)[6:]} "
@@ -438,6 +444,11 @@ def phase_timing(torch, dev):
         b_ms = 4 * g_ * (m_ * k_ + k_ * n_ + m_ * n_) / HBM_BYTES_PER_S * 1e3
         f_ms = 2 * g_ * m_ * k_ * n_ / FP32_FLOPS_PER_S * 1e3
         key = "grouped_matmul" if what == "fwd" else f"grouped_matmul_{what}"
+        S, depth = gm.split_k(g_, m_, n_, k_)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        # pass-1 instantiation: <lhs k-contiguous, rhs k-contiguous, out>
+        inst = (f"grouped_matmul_kernelILb{int(a.stride(2) == 1)}"
+                f"ELb{int(b.stride(1) == 1 and b.stride(2) != 1)}EfE")
         out[key] = dict(
             shape=f"fc0 {what} G={g_} ({m_}x{k_})@({k_}x{n_})",
             ms=_time_ms(torch, lambda: gm.grouped_matmul(a, b), 200, flush),
@@ -446,15 +457,37 @@ def phase_timing(torch, dev):
             library_ms=_time_ms(torch, lambda: torch.bmm(a, b), 200, flush),
             bound_ms=max(b_ms, f_ms),
             bound_by="bytes" if b_ms >= f_ms else "operations",
-            blocks=g_ * -(-m_ // 64) * -(-n_ // 64))
+            design=(f"split {S} x {depth} deep, "
+                    f"{gm.pass1_blocks(g_, m_, n_, k_)} blocks for {sms} "
+                    f"SMs{', + pass 2' if S > 1 else ''}; "
+                    f"{_ptxas('grouped_matmul', inst)}"))
     out["flash_attention"] = _time_flash(torch, dev, rng, flush)
     for name, r in out.items():
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f}us"
+        lib = "none" if r["library_ms"] is None else (
+            f"{r['library_ms'] * 1e3:.1f}us (kernel at "
+            f"{r['ms'] / r['library_ms']:.2f}x its time)")
         log(f"[timing] {name} {r['shape']}: kernel {r['ms'] * 1e3:.1f}us "
             f"plain {r['plain_ms'] * 1e3:.1f}us library {lib} "
-            f"bound {r['bound_ms'] * 1e3:.1f}us ({r['bound_by']})"
-            + (f" blocks={r['blocks']} (132 SMs)" if "blocks" in r else ""))
+            f"bound {r['bound_ms'] * 1e3:.1f}us ({r['bound_by']}; kernel at "
+            f"{100 * r['bound_ms'] / r['ms']:.2f}% of it)"
+            + (f"; {r['design']}" if "design" in r else ""))
     return out
+
+
+def _ptxas(lib: str, needle: str) -> str:
+    """Registers, static shared memory and spills that ptxas reported for
+    the kernel instantiation of ``lib`` whose mangled name holds
+    ``needle``."""
+    from repro_torch.kernels import _build
+    found, info = False, []
+    for line in _build.REPORT[lib]["log"].splitlines():
+        if "Compiling entry function" in line:
+            if found:
+                break
+            found = needle in line
+        elif found and ("registers" in line or "spill" in line):
+            info.append(line.split(":", 1)[-1].strip())
+    return "ptxas: " + "; ".join(info) if info else f"ptxas: {needle} not found"
 
 
 def _causal_pairs(Sq: int, Sk: int) -> int:
@@ -463,13 +496,11 @@ def _causal_pairs(Sq: int, Sk: int) -> int:
 
 
 def _time_flash(torch, dev, rng, flush) -> dict:
-    """flash_attention at the serve shape in bf16 (the serve path's dtype):
-    kernel, plain version, and F.scaled_dot_product_attention (causal, GQA;
-    a yardstick the port never calls) on the same inputs. Bound: the larger
-    of the unmasked pairs x 4 hd FLOP at the bf16 tensor-core peak (the
-    card's rate for bf16 operands) and q, k, v, o moved once; the bound at
-    the FP32 CUDA-core peak, the pipe this kernel runs on, is printed beside
-    it."""
+    """flash_attention at the serve shape in bf16 (the serve path's dtype,
+    so the tensor-core kernel): kernel, plain version, and
+    F.scaled_dot_product_attention (causal, GQA; a yardstick the port never
+    calls) on the same inputs. Bound: the larger of the unmasked pairs x 4
+    hd FLOP at the bf16 tensor-core peak and q, k, v, o moved once."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     B, Sq, Sk, H, Hkv, hd, causal = FA_SERVE
@@ -491,14 +522,16 @@ def _time_flash(torch, dev, rng, flush) -> dict:
         library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush),
         bound_ms=max(o_ms, b_ms), bound_by="operations" if o_ms >= b_ms else "bytes",
-        flops=flops, bytes=bytes_,
-        fp32_bound_ms=flops / FP32_FLOPS_PER_S * 1e3)
+        flops=flops, bytes=bytes_)
+    # read from the runtime after the launches above set the attribute
+    at = fa.tc_attributes(hd)
+    r["design"] = (f"{at['max_dynamic_smem_bytes']} bytes dynamic smem, "
+                   f"{at['registers']} registers, {at['local_bytes']} bytes "
+                   f"local a thread (cudaFuncGetAttributes); "
+                   f"{_ptxas('flash_attention', 'flash_attention_tcILi128E')}")
     log(f"[timing] flash_attention: {flops:.4e} FLOP (unmasked pairs x 4 hd), "
         f"{bytes_ / 1e6:.1f} MB; bound {o_ms * 1e3:.1f}us at the bf16 "
-        f"tensor-core peak, {b_ms * 1e3:.1f}us by bytes; kernel at "
-        f"{100 * r['bound_ms'] / r['ms']:.2f}% of its bound (FP32 CUDA-core "
-        f"bound {r['fp32_bound_ms'] * 1e3:.1f}us, kernel at "
-        f"{100 * r['fp32_bound_ms'] / r['ms']:.1f}% of that)")
+        f"tensor-core peak, {b_ms * 1e3:.1f}us by bytes")
     return r
 
 
@@ -705,9 +738,17 @@ def _profile_run(torch, engine: str) -> None:
                  f"{res.dispatches}", wall)
 
 
+# the port's kernels in a trace, by name (grouped_matmul's split-K second
+# pass is splitk_reduce)
+PORT_KERNELS = {"grouped_matmul": ("grouped_matmul_kernel", "splitk_reduce"),
+                "flash_attention": ("flash_attention",),
+                "sens_sketch": ("sens_sketch",), "buffer_agg": ("buffer_agg",)}
+
+
 def _device_busy(torch, prof, what: str, wall: float, top: int = 12) -> None:
     """Print the union of the trace's device intervals as a share of
-    ``wall`` and the CUDA kernels by total time."""
+    ``wall``, the CUDA kernels by total time, and each of the port's
+    kernels' share of device time (all its instantiations)."""
     from torch.autograd import DeviceType
     spans, by_name = [], {}
     for e in prof.events():
@@ -731,6 +772,14 @@ def _device_busy(torch, prof, what: str, wall: float, top: int = 12) -> None:
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"[profile]   {100 * us / total:5.1f}% {us / 1e3:9.1f}ms "
             f"{n:7d}x {name[:90]}")
+    for kernel, needles in PORT_KERNELS.items():
+        hits = [(n, us) for name, (n, us) in by_name.items()
+                if any(x in name for x in needles)]
+        if hits:
+            us = sum(u for _, u in hits)
+            log(f"[profile]   port kernel {kernel}: {100 * us / total:.1f}% of "
+                f"device time, {us / 1e3:.1f}ms over "
+                f"{sum(n for n, _ in hits)} launches")
 
 
 def phase_profile(torch):
@@ -925,7 +974,9 @@ def main() -> int:
                         "max_abs_err": errs[k], "tolerance": tol, "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "shape": r["shape"]})
+                        "shape": r["shape"], **({"design": r["design"]}
+                                                if "design" in r else {})})
+    from repro_torch.kernels import flash_attention as fa
     r = timing["flash_attention"]
     kernels.append({
         "name": "flash_attention", "route": "cuda",
@@ -936,11 +987,11 @@ def main() -> int:
         "max_abs_err": errs["flash_attention"],
         "max_abs_err_bf16": errs["flash_attention_bf16"],
         "bf16_worst_share_of_limit": errs["flash_attention_bf16_share"],
-        "tolerance": "f32 2e-5 * max(1, max|plain|); bf16 elementwise "
-                     "2^-7 * |plain| + 1e-4",
+        "tolerance": f"f32 2e-5 * max(1, max|plain|); bf16 elementwise "
+                     f"{fa.BF16_LIMIT}",
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "fp32_bound_ms": r["fp32_bound_ms"], "shape": r["shape"]})
+        "shape": r["shape"], "design": r["design"]})
     log(json.dumps({"serve": {**serve_stats, **serve_check}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,43 +1,81 @@
 // Flash attention forward on Hopper: online-softmax GQA attention, causal
 // (top-left: key j is seen by query i iff j <= i) or bidirectional.
 // q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd) with H % Hkv == 0 -> out
-// (B, Sq, H, hd) in q's dtype (f32 or bf16); all softmax and PV math in f32.
+// (B, Sq, H, hd) in q's dtype (f32 or bf16); softmax math in f32.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention -> _flash_kernel). The port's models/layers.py
 // attention_forward calls it once per attention layer of a prefill.
+// Two kernels, chosen by the inputs' dtype (a dispatch, not a fallback):
 //
-// Bound: at the serve shape (B = 8, S = 2048, H = 24, Hkv = 8, hd = 128,
-// causal) the unmasked (query, key) pairs need 4 hd FLOP each (QK^T and PV),
-// 2.06e11 FLOP, against 268 MB of q, k, v and o. The serve path's operands
-// are bf16, whose card rate is the tensor cores' (989 TFLOP/s; a bf16 x bf16
-// product is exact in f32): a 0.21 ms operation bound, against 80 us for
-// HBM. This kernel runs both products in IEEE fp32 on the CUDA cores, as the
-// reference's kernel does, so its own pipe caps it at about 3.1 ms
-// (67 TFLOP/s): a tensor-core path is the next step (ROADMAP.md).
+// bf16 (the serve path): flash_attention_tc, on the tensor cores.
+//   Bound: at the serve shape (B = 8, S = 2048, H = 24, Hkv = 8, hd = 128,
+//   causal) the unmasked (query, key) pairs need 4 hd FLOP each (QK^T and
+//   PV), 2.06e11 FLOP at the bf16 tensor-core peak (989 TFLOP/s): 0.2086
+//   ms, against 80 us for the 268 MB of q, k, v and o. The old design (the
+//   f32 kernel below, run on bf16) issued about 100 instructions per key per
+//   lane for 64 FMAs and sat at 1.4% of that bound; here both products are
+//   wgmma instructions (one m64n64k16 does 64 x 64 x 16 multiply-adds for a
+//   warpgroup), so the CUDA cores only run the softmax on the accumulator.
+//   Design: one block per (b, h, 128-query tile), grid (q tiles, H, B) with
+//   the q-tile index reversed so long causal tiles start first; 256 threads,
+//   two consumer warpgroups of 64 query rows. The Q tile is loaded once and
+//   64-key K and V tiles stream through a 2-stage shared-memory ring, all
+//   with 16-byte cp.async.cg (zero-fill past the ragged Sk and hd edges;
+//   hd is padded with zeros to its bucket, 64/128/256, which is exact),
+//   tile t+1 in flight while tile t is computed. Shared tiles use the
+//   128-byte swizzle that wgmma's descriptors read: hd in blocks of 64
+//   elements, each block rows x 128 bytes, 16-byte chunk c of row r at c ^ (r
+//   % 8). S = Q K^T: wgmma m64n64k16 bf16 x bf16 -> f32, both operands from
+//   shared memory (K-major). Online softmax on the accumulator fragment, in
+//   f32 and base 2 (scores scaled by log2(e) / sqrt(hd), 2^x by ex2.approx
+//   on the special-function unit, subnormal p flushed to 0): a thread owns rows
+//   r and r + 8 of its warp's 16, and 16 columns of each; masked scores are
+//   -1e30 (only the diagonal and ragged tiles test the mask); row max by two
+//   xor-shuffles over the four lanes of a row; corr = exp2(m - m_new); l is
+//   the f32 sum of p (each lane's share, summed over the four lanes at the
+//   end); the output is acc / max(l, 1e-30). O += P V: wgmma with A = p
+//   rounded to bf16 from registers (the f32 S fragment is the register-A
+//   fragment) and B = the V tile (MN-major, transpose bit set), one n64
+//   instruction per 64-wide hd block. Causal K tiles wholly above a
+//   warpgroup's rows are skipped (tile 0 holds key 0, which every query sees,
+//   so m is finite after it and a skipped tile would add p = 0 with corr =
+//   1). Inputs are read through their strides: the cp.async path needs unit
+//   hd stride and 16-byte-aligned rows, and any other layout takes an
+//   element-wise loader into the same tiles. No atomics and a fixed key
+//   order: repeated runs give identical bits.
+//   The issue-rate limit: the softmax is ~10 instructions per score on the
+//   CUDA cores while the tensor cores do the products, and the K/V copies
+//   cost a few adds per 16-byte chunk (load_kv fixes each thread's chunk
+//   column once). Two blocks (four warpgroups) share an SM at hd <= 128, so
+//   one warpgroup's softmax overlaps another's wgmma.
+//   ptxas -v (sm_90a, bucket 128, the serve shape): 128 registers (the cap
+//   of __launch_bounds__(256, 2)), 12 bytes spilled; 99,328 bytes of
+//   dynamic shared memory (32 KB Q, 2 x 2 x 16 KB K/V, 1 KB alignment).
+//   Bucket 256: 1 block an SM, 197,632 bytes. Not yet: TMA loads and a
+//   producer warp (warp specialisation), overlap of one tile's softmax with
+//   the next tile's QK^T.
 //
-// Design: one block per (b, h, 64-query tile); grid (q tiles, H, B), the
-// q-tile index reversed so the long causal tiles start first. 256 threads,
-// two blocks per SM at hd <= 128 (launch bound):
-// each query row is owned by 4 neighbouring lanes of one warp, and each lane
-// holds 1/4 of the row's q and of its f32 accumulator in registers, as
-// 4-float chunks c = sub + 4 i (so the four lanes' 16-byte shared loads fall
-// on distinct banks). The K loop walks kBK-key tiles in order: each K and V
-// tile is staged in shared memory, converted to f32 on load (bf16 read
-// natively), zero outside the ragged Sk / hd edges. A lane computes its
-// partial q.k for every key of the tile; two xor-shuffles sum the four
-// partials inside the warp, so every lane of the row holds the full score.
-// Masked scores are -1e30 (the reference's NEG_INF), the running max m, sum
-// l and accumulator follow the reference's update (corr = exp(m - m_new)),
-// and the output is acc / max(l, 1e-30). Causal K tiles wholly above the
-// diagonal are skipped: tile 0 always holds key 0, which every query sees,
-// so m is finite after it and a skipped tile would add p = 0 with corr = 1.
-// The inputs are read through their element strides (no transposes or
-// copies), and query head h reads kv head h / (H / Hkv). No atomics and a
-// fixed key order: repeated runs give identical bits. hd is a template bucket
-// (32, 64, 128, 256) with zero-filled tails.
-//
-// Simple and correct first: no tensor cores, no cp.async / TMA pipelining.
+// f32 (the parity mode): flash_attention_kernel, IEEE fp32 on the CUDA
+//   cores, as the reference's kernel computes; capped at about 3.1 ms at
+//   the serve shape by the FP32 peak (67 TFLOP/s).
+//   Design: one block per (b, h, 64-query tile); grid (q tiles, H, B), the
+//   q-tile index reversed so the long causal tiles start first. 256 threads,
+//   two blocks per SM at hd <= 128 (launch bound):
+//   each query row is owned by 4 neighbouring lanes of one warp, and each
+//   lane holds 1/4 of the row's q and of its f32 accumulator in registers,
+//   as 4-float chunks c = sub + 4 i (so the four lanes' 16-byte shared loads
+//   fall on distinct banks). The K loop walks kBK-key tiles in order: each K
+//   and V tile is staged in shared memory as f32, zero outside the ragged
+//   Sk / hd edges. A lane computes its partial q.k for every key of the
+//   tile; two xor-shuffles sum the four partials inside the warp, so every
+//   lane of the row holds the full score. Masked scores are -1e30 (the
+//   reference's NEG_INF), the running max m, sum l and accumulator follow
+//   the reference's update (corr = exp(m - m_new)), and the output is acc /
+//   max(l, 1e-30). Causal K tiles wholly above the diagonal are skipped as
+//   above. The inputs are read through their element strides, and query
+//   head h reads kv head h / (H / Hkv). No atomics and a fixed key order.
+//   hd is a template bucket (32, 64, 128, 256) with zero-filled tails.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,15 +88,6 @@ constexpr int kLanes = 4;       // lanes per query row
 constexpr int kThreads = kBQ * kLanes;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 template <int HD>
 struct Tile {
   static constexpr int kBK = HD <= 128 ? 32 : 16;  // keys per K/V tile
@@ -69,11 +98,12 @@ struct Tile {
   static constexpr int kMinBlocks = HD <= 128 ? 2 : 1;
 };
 
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, Tile<HD>::kMinBlocks)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int H, int group, int hd, long long qsb,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int Sq, int Sk, int H, int group, int hd, long long qsb,
                        long long qss, long long qsh, long long qsd,
                        long long ksb, long long kss, long long ksh,
                        long long ksd, long long vsb, long long vss,
@@ -95,14 +125,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // this lane's q chunks (dims 4c .. 4c+3, c = sub + kLanes * i), f32
   float4 qr[kC];
-  const T* qp = q + (long long)b * qsb + (long long)qi * qss + (long long)h * qsh;
+  const float* qp = q + (long long)b * qsb + (long long)qi * qss + (long long)h * qsh;
 #pragma unroll
   for (int i = 0; i < kC; ++i) {
     const int d0 = 4 * (sub + kLanes * i);
     float e[4];
 #pragma unroll
     for (int t = 0; t < 4; ++t)
-      e[t] = (live && d0 + t < hd) ? to_f32(qp[(long long)(d0 + t) * qsd]) : 0.0f;
+      e[t] = (live && d0 + t < hd) ? qp[(long long)(d0 + t) * qsd] : 0.0f;
     qr[i] = make_float4(e[0], e[1], e[2], e[3]);
   }
   float4 acc[kC];
@@ -118,8 +148,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q_last = min(qt * kBQ + kBQ - 1, Sq - 1);
     nt = min(nk, q_last / kBK + 1);
   }
-  const T* kb = k + (long long)b * ksb + (long long)hk * ksh;
-  const T* vb = v + (long long)b * vsb + (long long)hk * vsh;
+  const float* kb = k + (long long)b * ksb + (long long)hk * ksh;
+  const float* vb = v + (long long)b * vsb + (long long)hk * vsh;
 
   for (int t = 0; t < nt; ++t) {
     const int k0 = t * kBK;
@@ -128,8 +158,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / HD, d = e % HD;
       const bool in = k0 + r < Sk && d < hd;
       const long long kr = (long long)(k0 + r);
-      Ks[e] = in ? to_f32(kb[kr * kss + (long long)d * ksd]) : 0.0f;
-      Vs[e] = in ? to_f32(vb[kr * vss + (long long)d * vsd]) : 0.0f;
+      Ks[e] = in ? kb[kr * kss + (long long)d * ksd] : 0.0f;
+      Vs[e] = in ? vb[kr * vss + (long long)d * vsd] : 0.0f;
     }
     __syncthreads();
 
@@ -181,41 +211,481 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (!live) return;
   const float inv = 1.0f / fmaxf(l, 1e-30f);
-  T* op = out + (((long long)b * Sq + qi) * H + h) * hd;
+  float* op = out + (((long long)b * Sq + qi) * H + h) * hd;
 #pragma unroll
   for (int i = 0; i < kC; ++i) {
     const int d0 = 4 * (sub + kLanes * i);
     const float e[4] = {acc[i].x, acc[i].y, acc[i].z, acc[i].w};
 #pragma unroll
     for (int t = 0; t < 4; ++t)
-      if (d0 + t < hd) store(op + d0 + t, e[t] * inv);
+      if (d0 + t < hd) op[d0 + t] = e[t] * inv;
   }
 }
 
-template <int HD, typename T>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int Hkv, int hd, const long long* s,
            int causal, float scale, cudaStream_t stream) {
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<HD, T><<<grid, kThreads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Sk, H, H / Hkv, hd,
-      s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
+  flash_attention_kernel<HD><<<grid, kThreads, 0, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Sk,
+      H, H / Hkv, hd, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
       causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int B,
              int Sq, int Sk, int H, int Hkv, int hd, const long long* s,
              int causal, float scale, cudaStream_t stream) {
   if (hd <= 32)
-    return launch<32, T>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
+    return launch<32>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
   if (hd <= 64)
-    return launch<64, T>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
+    return launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
   if (hd <= 128)
-    return launch<128, T>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
-  return launch<256, T>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
+    return launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
+  return launch<256>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
 }
+
+
+// ---- bf16: the tensor-core kernel -----------------------------------------
+
+namespace tc {
+
+typedef __nv_bfloat16 bf16;
+constexpr int kBQ = 128;      // query rows per block: two warpgroups of 64
+constexpr int kBK = 64;       // keys per K/V tile
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of element (r, c) in a tile of `rows` rows held in the
+// 128-byte swizzle: hd blocks of 64 elements, each rows x 128 bytes, the
+// 16-byte chunk (c % 64) / 8 of row r stored at chunk ((c % 64) / 8) ^ (r % 8).
+__device__ __forceinline__ uint32_t swz(int rows, int r, int c) {
+  return (uint32_t)((c >> 6) * rows * 128 + r * 128 +
+                    ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// 2^x on the special-function unit (subnormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep registers that an in-flight wgmma reads or writes live, and in
+// place, up to this point
+__device__ __forceinline__ void keep(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void keep(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// d (64 x 64, f32) += A (64 x 16) B (16 x 64), both bf16 from shared
+// memory, K-major
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers) B (16 x 64, bf16 in
+// shared memory, MN-major: the transpose bit)
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Rows [0, R) x hd columns [0, HDB) of a tile whose row 0 is `src`: rows
+// >= nvalid and columns >= hd are zero. vec: 16-byte cp.async (unit hd
+// stride, 16-byte-aligned rows); else element-wise loads and stores.
+// 16-byte copy to shared memory, zero past the first `bytes` bytes
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+template <int R, int HDB>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const bf16* src, int nvalid,
+                                          int hd, long long rs, long long ds,
+                                          bool vec, int tid) {
+  if (vec) {
+    const uint32_t base = smem_u32(dst);
+    for (int e = tid; e < R * HDB / 8; e += kThreads) {
+      const int r = e / (HDB / 8), c = (e % (HDB / 8)) * 8;
+      int bytes = 0;
+      const bf16* p = src;
+      if (r < nvalid && c < hd) {
+        bytes = min(16, (hd - c) * 2);
+        p = src + (long long)r * rs + c;
+      }
+      cp_async16(base + swz(R, r, c), p, bytes);
+    }
+  } else {
+    for (int e = tid; e < R * HDB; e += kThreads) {
+      const int r = e / HDB, c = e % HDB;
+      bf16 x = __float2bfloat16(0.0f);
+      if (r < nvalid && c < hd) x = src[(long long)r * rs + (long long)c * ds];
+      *reinterpret_cast<bf16*>(dst + swz(R, r, c)) = x;
+    }
+  }
+}
+
+// The K and V tiles of keys [k0, k0 + kBK) into dst and dst + one tile.
+// On the cp.async path with 256 % (HDB / 8) == 0 every thread copies the
+// same 16-byte column chunk c of rows r0, r0 + kStep, ... of each tile, so
+// its addressing costs a few adds a chunk; otherwise load_tile.
+template <int HDB>
+__device__ __forceinline__ void load_kv(unsigned char* dst, const bf16* kb,
+                                        const bf16* vb, int k0, int Sk,
+                                        int hd, long long kss, long long ksd,
+                                        long long vss, long long vsd,
+                                        bool vec, int tid) {
+  constexpr int kPerRow = HDB / 8;  // 16-byte chunks per row
+  if (vec && kThreads % kPerRow == 0) {
+    constexpr int kStep = kThreads / kPerRow;  // rows apart: a multiple of 8
+    const int r0 = tid / kPerRow, c = (tid % kPerRow) * 8;
+    const int bytes = c < hd ? min(16, (hd - c) * 2) : 0;
+    const uint32_t sk = smem_u32(dst) + swz(kBK, r0, c);  // same swizzle
+    const uint32_t sv = sk + kBK * HDB * 2;                 // for every i
+    const bf16* pk = kb + (long long)(k0 + r0) * kss + c;
+    const bf16* pv = vb + (long long)(k0 + r0) * vss + c;
+#pragma unroll
+    for (int i = 0; i < kBK / kStep; ++i) {
+      const int n = k0 + r0 + i * kStep < Sk ? bytes : 0;
+      cp_async16(sk + i * kStep * 128, n ? pk + (long long)i * kStep * kss : kb, n);
+      cp_async16(sv + i * kStep * 128, n ? pv + (long long)i * kStep * vss : vb, n);
+    }
+  } else {
+    load_tile<kBK, HDB>(dst, kb + (long long)k0 * kss, Sk - k0, hd, kss, ksd,
+                        vec, tid);
+    load_tile<kBK, HDB>(dst + kBK * HDB * 2, vb + (long long)k0 * vss, Sk - k0,
+                        hd, vss, vsd, vec, tid);
+  }
+}
+
+template <int HDB>
+constexpr int smem_bytes() {
+  return kBQ * HDB * 2 + 4 * kBK * HDB * 2 + 1024;  // Q, 2 x (K, V), align
+}
+
+template <int HDB>
+__global__ void __launch_bounds__(kThreads, HDB <= 128 ? 2 : 1)
+flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
+                   int Sk, int H, int group, int hd, long long qsb,
+                   long long qss, long long qsh, long long qsd, long long ksb,
+                   long long kss, long long ksh, long long ksd, long long vsb,
+                   long long vss, long long vsh, long long vsd, int causal,
+                   float scale_log2, int vec) {
+  constexpr int kNB = HDB / 64;               // 64-wide hd blocks
+  constexpr int kQBytes = kBQ * HDB * 2;
+  constexpr int kTBytes = kBK * HDB * 2;      // one K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment of the swizzle atoms, in the shared address space
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = sm;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // long causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / group;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;                   // warpgroup: query rows 64 wg..
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int q0 = qt * kBQ;
+  const int w0 = q0 + 64 * wg;                // this warpgroup's first row
+  const int qi_lo = w0 + 16 * warp + lane / 4;  // rows of fragment halves
+  const int qi_hi = qi_lo + 8;
+  const bf16* qb = q + (long long)b * qsb + (long long)q0 * qss +
+                   (long long)h * qsh;
+  const bf16* kb = k + (long long)b * ksb + (long long)hk * ksh;
+  const bf16* vb = v + (long long)b * vsb + (long long)hk * vsh;
+
+  int nt = (Sk + kBK - 1) / kBK;
+  if (causal) nt = min(nt, min(q0 + kBQ - 1, Sq - 1) / kBK + 1);
+
+  load_tile<kBQ, HDB>(sQ, qb, Sq - q0, hd, qss, qsd, vec, tid);
+  load_kv<HDB>(sm + kQBytes, kb, vb, 0, Sk, hd, kss, ksd, vss, vsd, vec, tid);
+  cp_async_commit();
+
+  float o[kNB][32];
+#pragma unroll
+  for (int n = 0; n < kNB; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[n][i] = 0.0f;
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.0f, l_hi = 0.0f;
+  const bool rows_live = w0 < Sq;
+
+  for (int t = 0; t < nt; ++t) {
+    unsigned char* sK = sm + kQBytes + (t & 1) * 2 * kTBytes;
+    unsigned char* sV = sK + kTBytes;
+    if (t + 1 < nt)
+      load_kv<HDB>(sm + kQBytes + ((t + 1) & 1) * 2 * kTBytes, kb, vb,
+                   (t + 1) * kBK, Sk, hd, kss, ksd, vss, vsd, vec, tid);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and Q) have landed; t + 1 may be in flight
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    const int k0 = t * kBK;
+    if (rows_live && (!causal || k0 <= w0 + 63)) {
+      // S = Q K^T for this warpgroup's 64 rows
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+      const uint32_t qa = smem_u32(sQ) + wg * 64 * 128;
+      const uint32_t ka = smem_u32(sK);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < HDB / 16; ++ks)
+        mma_ss(s, desc(qa + (ks / 4) * kBQ * 128 + (ks % 4) * 32, 16, 1024),
+               desc(ka + (ks / 4) * kBK * 128 + (ks % 4) * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+      keep(s);
+
+      // online softmax, base 2: register 4 j + e (+2) holds row qi_lo
+      // (qi_hi), key k0 + 8 j + 2 (lane % 4) + e
+      const bool masked = k0 + kBK > Sk || (causal && k0 + kBK - 1 > w0);
+      float mx_lo = kNegInf, mx_hi = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kj = k0 + 8 * j + 2 * (lane % 4) + e;
+          float a = s[4 * j + e] * scale_log2;
+          float c = s[4 * j + 2 + e] * scale_log2;
+          if (masked) {
+            if (!(kj < Sk && (!causal || kj <= qi_lo))) a = kNegInf;
+            if (!(kj < Sk && (!causal || kj <= qi_hi))) c = kNegInf;
+          }
+          s[4 * j + e] = a;
+          s[4 * j + 2 + e] = c;
+          mx_lo = fmaxf(mx_lo, a);
+          mx_hi = fmaxf(mx_hi, c);
+        }
+      }
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      const float corr_lo = ex2(m_lo - mn_lo), corr_hi = ex2(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      float ps_lo = 0.0f, ps_hi = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[4 * j + e] = ex2(s[4 * j + e] - mn_lo);
+          s[4 * j + 2 + e] = ex2(s[4 * j + 2 + e] - mn_hi);
+          ps_lo += s[4 * j + e];
+          ps_hi += s[4 * j + 2 + e];
+        }
+      }
+      l_lo = l_lo * corr_lo + ps_lo;
+      l_hi = l_hi * corr_hi + ps_hi;
+#pragma unroll
+      for (int n = 0; n < kNB; ++n)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[n][4 * j] *= corr_lo;
+          o[n][4 * j + 1] *= corr_lo;
+          o[n][4 * j + 2] *= corr_hi;
+          o[n][4 * j + 3] *= corr_hi;
+        }
+      // p as the register-A fragment of each 16-key slice kk: registers
+      // (row lo, keys 0-7), (row hi, keys 0-7), (row lo, 8-15), (row hi, 8-15)
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+
+      // O += P V: 16 keys (two 8-row swizzle atoms, 2048 bytes) per slice
+      const uint32_t va = smem_u32(sV);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int n = 0; n < kNB; ++n)
+          mma_rs(o[n], pa[kk],
+                 desc(va + n * kBK * 128 + kk * 2048, kBK * 128, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int n = 0; n < kNB; ++n) keep(o[n]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) keep(pa[kk]);
+    }
+    __syncthreads();  // every reader of stage t & 1 is done before reuse
+  }
+
+  if (!rows_live) return;
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
+  const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = half ? qi_hi : qi_lo;
+    if (qi >= Sq) continue;
+    const float inv = half ? inv_hi : inv_lo;
+    bf16* op = out + (((long long)b * Sq + qi) * H + h) * hd;
+#pragma unroll
+    for (int n = 0; n < kNB; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 64 * n + 8 * j + 2 * (lane % 4);
+        const float x0 = o[n][4 * j + 2 * half] * inv;
+        const float x1 = o[n][4 * j + 2 * half + 1] * inv;
+        if (c + 1 < hd) {
+          if (hd % 2 == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(op + c) =
+                __floats2bfloat162_rn(x0, x1);
+          } else {
+            op[c] = __float2bfloat16(x0);
+            op[c + 1] = __float2bfloat16(x1);
+          }
+        } else if (c < hd) {
+          op[c] = __float2bfloat16(x0);
+        }
+      }
+  }
+}
+
+template <int HDB>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Sq, int Sk, int H, int Hkv, int hd, const long long* s,
+           int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<HDB>();
+  static bool ready = false;  // the attribute is set once per instantiation
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_tc<HDB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  // cp.async needs unit hd stride and 16-byte-aligned rows
+  bool vec = s[3] == 1 && s[7] == 1 && s[11] == 1;
+  for (int i = 0; i < 12; ++i)
+    if (i % 4 != 3 && s[i] % 8 != 0) vec = false;
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i)
+    if ((uintptr_t)ptrs[i] % 16 != 0) vec = false;
+  const float log2e = 1.4426950408889634f;
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  flash_attention_tc<HDB><<<grid, kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, Sq, Sk, H,
+      H / Hkv, hd, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9],
+      s[10], s[11], causal, scale * log2e, (int)vec);
+  return (int)cudaGetLastError();
+}
+
+// hd is padded with zeros to its bucket
+int bucket(int hd) { return hd <= 64 ? 64 : hd <= 128 ? 128 : 256; }
+
+int dispatch(const void* q, const void* k, const void* v, void* out, int B,
+             int Sq, int Sk, int H, int Hkv, int hd, const long long* s,
+             int causal, float scale, cudaStream_t stream) {
+  switch (bucket(hd)) {
+    case 64:
+      return launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
+    case 128:
+      return launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
+    default:
+      return launch<256>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
+  }
+}
+
+// The runtime's attributes of the instantiation that hd launches: registers
+// a thread, local (spill) bytes a thread, static and maximum dynamic shared
+// memory a block (the latter as set by the first launch of that bucket)
+int attributes(int hd, int* out) {
+  cudaFuncAttributes a;
+  const int hb = bucket(hd);
+  const void* f = hb == 64    ? (const void*)flash_attention_tc<64>
+                  : hb == 128 ? (const void*)flash_attention_tc<128>
+                              : (const void*)flash_attention_tc<256>;
+  const cudaError_t e = cudaFuncGetAttributes(&a, f);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxDynamicSharedSizeBytes;
+  return 0;
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -238,8 +708,15 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                            ksh, ksd, vsb, vss, vsh, vsd};
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s,
-                                   causal, scale, st);
-  return dispatch<float>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal,
-                         scale, st);
+    return tc::dispatch(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale,
+                        st);
+  return dispatch(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, st);
+}
+
+// The tensor-core kernel's runtime attributes for head dim hd, into out[4]:
+// registers, local bytes (a thread), static shared bytes, maximum dynamic
+// shared bytes (a block). Returns a cudaError_t.
+extern "C" int flash_attention_tc_attributes(int hd, int* out) {
+  if (hd < 1 || hd > 256) return (int)cudaErrorInvalidValue;
+  return tc::attributes(hd, out);
 }

@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # name -> loaded CDLL, and name -> {"seconds", "log", "cached"} of the build
-# that produced it; process-wide, like the CUDA context the libraries use.
+# that produced it (a cached library's log is the one its build wrote beside
+# it); process-wide, like the CUDA context the libraries use.
 _LIBS: Dict[str, ctypes.CDLL] = {}
 REPORT: Dict[str, dict] = {}
 
@@ -63,7 +64,9 @@ def build_all() -> Dict[str, dict]:
     for name in todo:
         out = _target(name)
         if out.exists():
-            REPORT[name] = {"seconds": 0.0, "log": "", "cached": True}
+            log = out.with_suffix(".log")
+            REPORT[name] = {"seconds": 0.0, "cached": True,
+                            "log": log.read_text() if log.exists() else ""}
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -78,6 +81,7 @@ def build_all() -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"--- nvcc {name}.cu (rc={proc.returncode}) ---\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)   # ptxas -v, for cached loads
         os.replace(tmp, out)
         REPORT[name] = {"seconds": secs, "log": log, "cached": False}
     if failed:

@@ -16,9 +16,25 @@ by 1 / sqrt(hd), masked to -1e30, softmax and PV in f32; output
 wrapper raises if autograd would need its gradient (the training path's
 attention backward is a later slice, ROADMAP.md).
 
+On a CUDA tensor the kernel is chosen by dtype (a dispatch, not a
+fallback; neither ever catches the other's failure):
+
+* bfloat16 (the serve path): the tensor-core kernel. QK^T and PV are bf16
+  ``wgmma`` products with f32 accumulation, and p is rounded to bf16
+  before PV (as the reference's TPU kernel did at the MXU's default
+  precision), while l sums the f32 p. Against the plain version, which
+  keeps p in f32, each output element is within
+  ``2^-7 |plain| + 2^-9 max|v| + 1e-4`` (``bf16_limit``).
+* float32 (the parity mode): the IEEE fp32 CUDA-core kernel, within
+  ``2e-5 max(1, max|plain|)`` of the plain version.
+
+Both read q, k and v through their strides with no copy: the bf16 kernel
+copies tiles with 16-byte ``cp.async`` where hd has unit stride and rows
+are 16-byte aligned, and loads element by element otherwise.
+
 Bound on the H100 at the serve shape: bf16 operations at the tensor-core
-peak (0.21 ms); this kernel computes in f32 on the CUDA cores, whose peak
-caps it at about 3.1 ms. See the source for the design.
+peak (0.2086 ms); the f32 kernel's CUDA-core pipe caps it at about 3.1
+ms. See the source for the design.
 """
 from __future__ import annotations
 
@@ -33,10 +49,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIG = {"flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            *([_L] * 12), _I, ctypes.c_float, _I, _P]}
+                            *([_L] * 12), _I, ctypes.c_float, _I, _P],
+        "flash_attention_tc_attributes": [_I, ctypes.POINTER(_I)]}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 NEG_INF = -1e30
+BF16_LIMIT = "2^-7 |plain| + 2^-9 max|v| + 1e-4"   # bf16_limit, elementwise
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -80,6 +98,33 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def bf16_limit(plain: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Elementwise limit on |kernel - plain| for bf16 inputs, from the
+    plain output (B, Sq, H, hd) and v (B, Sk, Hkv, hd): rounding p_j to
+    bf16 moves it by at most 2^-9 p_j, so the f32 output by at most 2^-9
+    max|v| (max over the (b, kv-head) slice the query head reads); both
+    sides then round to bf16 once (at most one ulp, 2^-7 |plain|); 1e-4
+    covers f32 summation order near zero."""
+    B, _, H, _ = plain.shape
+    vmax = v.float().abs().amax(dim=(1, 3))                # (B, Hkv)
+    vmax = torch.repeat_interleave(vmax, H // v.shape[2], dim=1)
+    return (2.0 ** -7 * plain.float().abs()
+            + 2.0 ** -9 * vmax[:, None, :, None] + 1e-4)
+
+
+def tc_attributes(hd: int) -> dict:
+    """The CUDA runtime's attributes of the bf16 tensor-core kernel that
+    head dim ``hd`` launches: registers and local (spill) bytes a thread,
+    static and maximum dynamic shared memory a block, the latter as the
+    first launch of that hd bucket set it. Needs a card."""
+    vals = (_I * 4)()
+    lib = _build.load("flash_attention", _SIG)
+    _build.check(lib.flash_attention_tc_attributes(hd, vals),
+                 "flash_attention_tc_attributes")
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "max_dynamic_smem_bytes"), vals))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

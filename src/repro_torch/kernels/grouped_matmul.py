@@ -13,7 +13,14 @@ Contract (the reference's, oracle ``repro/kernels/ref.py``
 output in the promoted dtype (bf16 x f32 -> f32); an optional per-group
 ``valid`` mask, and a group with ``valid == 0`` comes back exactly zero.
 The kernel reads both operands through their strides, so transposed views
-cost no copy.
+cost no copy; bf16 operands are cast to f32 first (exact).
+
+The kernel splits K into ``split_k(G, M, N, K)`` slices: pass 1 computes
+each (group, 64 x 64 tile, slice) block, and for more than one slice a
+second pass sums the slices' f32 partials (a ``torch.empty`` workspace on
+the current stream) in the fixed order s = 0 .. S-1. No atomics, so
+repeated runs give identical bits. ``grouped_matmul.launches`` counts
+wrapper calls: one per call, also when a call issues both passes.
 
 Bound on the H100 at the main path's fc0 shape: FP32 operations on the
 CUDA cores (parity runs without TF32); see the source for the design.
@@ -21,7 +28,7 @@ CUDA cores (parity runs without TF32); see the source for the design.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,10 +37,44 @@ from repro_torch.kernels import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_SIG = {"grouped_matmul": [_P, _P, _P, _P, _I, _I, _I, _I,
-                           _L, _L, _L, _L, _L, _L, _I, _I, _P]}
+_SIG = {"grouped_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _L, _L, _L, _L, _L, _L, _I, _I, _I, _P],
+        "grouped_matmul_blocks": [_I, _I, _I, _I, ctypes.POINTER(_L)]}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_G = 65535
+TILE = 64          # output tile edge of a pass-1 block
+SLAB = 32          # K depth of one shared-memory slab
+MIN_SLICE = 256    # K depth below which a slice is not worth its partials
+SMS = 132          # streaming multiprocessors of the H100 SXM
+
+
+def split_k(G: int, M: int, N: int, K: int) -> Tuple[int, int]:
+    """(S, slice): the K slices of one call, a function of the shape alone.
+
+    Enough (group, tile, slice) blocks for two per SM, each slice a
+    multiple of the slab and at least ``MIN_SLICE`` deep (the last one
+    too), S * slice >= K > (S - 1) * slice; S = 1 when the tiles already
+    fill the card or K is too short to split."""
+    tiles = G * -(-M // TILE) * -(-N // TILE)
+    S = max(1, min(-(-2 * SMS // tiles), K // MIN_SLICE))
+    while True:
+        depth = -(-K // S)
+        depth = max(SLAB, -(-depth // SLAB) * SLAB)
+        S = max(1, -(-K // depth))
+        if S == 1 or K - (S - 1) * depth >= MIN_SLICE:
+            return S, depth
+        S -= 1
+
+
+def pass1_blocks(G: int, M: int, N: int, K: int) -> int:
+    """Blocks of pass 1 for this shape at ``split_k``'s slice count, from
+    the kernel's own launcher (builds the library, so it needs nvcc)."""
+    blocks = _L()
+    lib = _build.load("grouped_matmul", _SIG)
+    _build.check(lib.grouped_matmul_blocks(G, M, N, split_k(G, M, N, K)[0],
+                                           ctypes.byref(blocks)),
+                 "grouped_matmul_blocks")
+    return blocks.value
 
 
 def _check(lhs: torch.Tensor, rhs: torch.Tensor, valid) -> None:
@@ -78,20 +119,23 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
         raise ValueError(f"grouped_matmul: unsupported device {dev}")
     G, M, K = lhs.shape
     N = rhs.shape[2]
-    if G > MAX_G or -(-M // 64) > MAX_G:
+    S, depth = split_k(G, M, N, K)
+    if G * S > MAX_G or -(-M // TILE) > MAX_G:
         raise ValueError(f"grouped_matmul: G={G} or M={M} exceeds the grid")
     out = torch.empty((G, M, N), device=dev,
                       dtype=torch.promote_types(lhs.dtype, rhs.dtype))
     if out.numel() == 0:
         return out
+    a, b = lhs.float(), rhs.float()        # bf16 -> f32 is exact
     v = None if valid is None else valid.to(torch.float32).contiguous()
+    ws = torch.empty((S, G, M, N), device=dev) if S > 1 else None
     lib = _build.load("grouped_matmul", _SIG)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.grouped_matmul(
-        lhs.data_ptr(), rhs.data_ptr(), None if v is None else v.data_ptr(),
-        out.data_ptr(), G, M, K, N, *lhs.stride(), *rhs.stride(),
-        int(lhs.dtype == torch.bfloat16), int(rhs.dtype == torch.bfloat16),
-        stream)
+        a.data_ptr(), b.data_ptr(), None if v is None else v.data_ptr(),
+        out.data_ptr(), None if ws is None else ws.data_ptr(), G, M, K, N,
+        *a.stride(), *b.stride(), S, depth,
+        int(out.dtype == torch.bfloat16), stream)
     _build.check(err, "grouped_matmul")
     grouped_matmul.launches += 1
     return out

@@ -226,6 +226,35 @@ def test_grouped_matmul_dtype_promotion(dtypes):
                     np.asarray(ref.grouped_matmul_ref(ja, jb), np.float32)) < 5e-3
 
 
+# (G, M, N, K) -> (S, slice): the cohort main path's fc0 forward, dW and dx
+# at G = 4 and 8, fc1's forward, the edge shapes and long-K cases
+SPLIT_K = {(4, 64, 384, 4096): (11, 384), (8, 64, 384, 4096): (6, 704),
+           (4, 4096, 384, 64): (1, 64), (8, 4096, 384, 64): (1, 64),
+           (4, 64, 4096, 384): (1, 384), (8, 64, 4096, 384): (1, 384),
+           (4, 64, 192, 384): (1, 384), (1, 8, 16, 16): (1, 32),
+           (3, 130, 96, 200): (1, 224), (5, 1, 3, 7): (1, 32),
+           (4, 32, 64, 256): (1, 256), (2, 64, 64, 530): (1, 544),
+           (2, 64, 64, 600): (2, 320), (3, 40, 72, 5000): (10, 512)}
+
+
+@pytest.mark.parametrize("shape", sorted(SPLIT_K))
+def test_grouped_matmul_split_k_is_pinned(shape):
+    """The split count is a function of the shape alone: pinned values,
+    S >= 1, S = 1 for short K, the same on repeated calls, slices that
+    cover K and are each at least MIN_SLICE deep (the last one too)."""
+    G, M, N, K = shape
+    S, depth = tgm.split_k(G, M, N, K)
+    assert (S, depth) == SPLIT_K[shape] == tgm.split_k(G, M, N, K)
+    assert S >= 1 and depth % tgm.SLAB == 0
+    assert (S - 1) * depth < K <= S * depth
+    if K < 2 * tgm.MIN_SLICE:
+        assert S == 1
+    if S > 1:
+        assert K - (S - 1) * depth >= tgm.MIN_SLICE
+        tiles = G * -(-M // tgm.TILE) * -(-N // tgm.TILE)
+        assert tiles < 2 * tgm.SMS
+
+
 @pytest.mark.parametrize("bad", ["shape", "dtype", "k", "device_mix",
                                  "gm_shape", "gm_dtype", "gm_valid"])
 def test_wrappers_reject_bad_inputs(bad):
@@ -279,9 +308,12 @@ def test_cuda_kernels_match_plain_on_card():
 @pytest.mark.gpu
 def test_grouped_matmul_cuda_matches_plain_on_card():
     """The grouped kernel against its plain version on the card at the
-    main path's fc0 shapes (forward, dW and dx through transposed views)
-    and the edge shapes; valid-zero groups exactly zero; bf16 promotion;
-    repeated runs bit-identical (fixed K order, no atomics)."""
+    main path's fc0 shapes (forward, dW and dx through transposed views),
+    the edge shapes and a long K split ten ways with K not a multiple of
+    the slice; valid-zero groups exactly zero, also through the split's
+    second pass with inf in a masked group; bf16 promotion; repeated runs
+    bit-identical (fixed K order and a fixed-order split sum, no
+    atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -293,14 +325,22 @@ def test_grouped_matmul_cuda_matches_plain_on_card():
     g = T(rng.randn(4, 64, 384).astype(np.float32))
     cases = [(x, w), (x.transpose(1, 2), g), (g, w.transpose(1, 2))]
     cases += [tuple(T(v) for v in _gm_inputs(*s, 7)) for s in GM_SHAPES]
+    assert tgm.split_k(3, 40, 72, 5000) == (10, 512)
+    cases.append(tuple(T(v) for v in _gm_inputs(3, 40, 5000, 72, 8)))
     for a, b in cases:
         got = tgm.grouped_matmul(a, b)
         assert _rel_err(got.cpu().numpy(),
                         tgm.grouped_matmul_plain(a, b).cpu().numpy()) < 1e-5
         assert torch.equal(got, tgm.grouped_matmul(a, b))
     valid = T(np.array([1.0, 0.0, 1.0, 0.0], np.float32))
-    got = tgm.grouped_matmul(x, w, valid)
+    assert tgm.split_k(4, 64, 384, 4096)[0] > 1
+    xm = x.clone()
+    xm[3] = float("inf")                   # garbage in a masked group
+    got = tgm.grouped_matmul(xm, w, valid)
     assert bool((got[1] == 0).all()) and bool((got[3] == 0).all())
+    assert _rel_err(got.cpu().numpy(), tgm.grouped_matmul_plain(
+        xm, w, valid).cpu().numpy()) < 1e-5
+    assert torch.equal(got, tgm.grouped_matmul(xm, w, valid))
     out = tgm.grouped_matmul(x[:, :8, :64].bfloat16(), w[:, :64, :8])
     assert out.dtype == torch.float32
     assert _rel_err(out.cpu().numpy(), tgm.grouped_matmul_plain(
