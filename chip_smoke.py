@@ -9,28 +9,36 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: ``nvcc`` for every kernel source (all in parallel), with ptxas
-   register/shared-memory/spill lines;
+   register/shared-memory/spill lines, and the ``[sass]`` line: the
+   instruction mix of ``sens_sketch``'s hashing per (element, row) and
+   its INT32-pipe operations;
 3. kernel parity: each kernel against its plain PyTorch version on the
-   card at the main paths' shapes and edge shapes, the ``sens_sketch``
-   shard composition, the ``grouped_matmul`` mask (also through its
-   split-K second pass) and bf16 promotion, ``flash_attention`` in f32
+   card at the main paths' shapes and edge shapes: ``sens_sketch`` one
+   vector at a time, the shard composition, the whole CIFAR tree and
+   waves of 1, 3 and 8 members in one call, and the exact-sign case
+   (bit-equal); the ``grouped_matmul`` mask (also through its split-K
+   second pass) and bf16 promotion, ``flash_attention`` in f32
    (CUDA-core kernel) and bf16 (tensor-core kernel, with the worst
    element's share of its limit) at the serve shape, the reference tests'
    shapes and Sq != Sk, and bit-identical repeated runs of the reducing
    kernels;
 4. kernel timing: CUDA events around each launch (L2 flushed before each),
    kernel / plain version / one-call library yardstick / computed bound,
-   the kernel's share of its bound and its ratio to the library call, and
-   for the two kernels redesigned for Hopper their registers and shared
-   memory (ptxas) and ``grouped_matmul``'s split count and blocks;
+   the kernel's share of its bound and its ratio to the library call;
+   ``sens_sketch`` at ``fc0.w``, the CIFAR tree in one call and as 10
+   one-leaf calls, and a wave of 8, and its probe (the hashing without
+   the loads, the SM clock and the blocks' span, other grids); for the
+   kernels redesigned for Hopper their registers and shared memory
+   (ptxas) and ``grouped_matmul``'s split count and blocks;
 5. golden: the FedPSA and FedBuff runs on the golden world reproduce
    ``tests/golden/{fedpsa,fedbuff}.json`` on the card, on the sequential
    engine and on the cohort engine with both member kernels;
 6. main path, sequential engine: FedPSA on ``paper-cifar10-cnn`` at full
-   width (d = 1,756,426), with exact kernel launch counts;
+   width (d = 1,756,426), with exact kernel launch counts (``sens_sketch``
+   once per sketched model: receives + aggregations + 1);
 7. main path, cohort engine: the same run with ``engine="cohort",
    member_kernel="grouped"``, with exact launch counts of all three
-   kernels;
+   kernels (``sens_sketch`` once per wave: waves + aggregations + 1);
 8. profile: the first 2,000 virtual units of both main paths, and one
    serve prefill plus decode, under ``torch.profiler``: the device's busy
    share of the wall time and the CUDA kernels by total time (printed; a
@@ -140,7 +148,8 @@ def phase_build():
             elif "registers" in line or "spill" in line or "error" in line:
                 log(f"[build]   {entry}: {line.strip()}")
     log(f"[build] all sources in {wall:.2f}s (parallel)")
-    _sass_mix(_build, "sens_sketch", "sens_sketch_partialILi16E", rows=16)
+    _sass_mix(_build, "sens_sketch", "sens_sketch_tilesILi16ELi0E", elems=4,
+              rows=16)
 
 
 def _kernel_name(mangled: str) -> str:
@@ -156,11 +165,20 @@ def _kernel_name(mangled: str) -> str:
     return f"{name}[{args[1:end + 1]}]" if args.startswith("I") and end > 0 else name
 
 
-def _sass_mix(_build, lib: str, func: str, rows: int) -> None:
-    """Print the instruction mix of the main loop (the longest backward
-    branch) of ``func`` in the built library, per (element, row): elements
-    per iteration are the loop's global loads over the three input
-    streams."""
+# SASS opcodes that issue to the INT32 pipe (the integer ALU: shifts,
+# logic, LEA, adds, compares and selects); IMAD, IMAD.HI and VIADD are
+# left out (the FMA pipe executes IMAD; VIADD's pipe is not documented).
+INT32_PIPE = ("IADD3", "LOP3", "SHF", "LEA", "ISETP", "FSEL", "SEL", "PRMT",
+              "IABS", "IMNMX", "BMSK", "BREV", "FLO", "POPC", "SGXT")
+_BRANCHES = ("BRA", "EXIT", "RET", "CALL", "BSSY", "BSYNC")
+
+
+def _sass_mix(_build, lib: str, func: str, elems: int, rows: int) -> None:
+    """Print the instruction mix of ``func``'s hashing in the built library:
+    its largest basic block (the unrolled hashes of ``elems`` elements x
+    ``rows`` rows), per (element, row), and the INT32-pipe operations among
+    them; then the same over the smallest loop around it (one step:
+    both load paths, s and the loop's own instructions)."""
     import re
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build._target(lib))],
@@ -172,19 +190,42 @@ def _sass_mix(_build, lib: str, func: str, rows: int) -> None:
     ins = [(int(a, 16), op) for a, op in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)[^;]*;",
         body)]
-    loops = [(int(t, 16), int(a, 16)) for a, t in re.findall(
-        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?BRA[^;]*?(0x[0-9a-f]+)", body)
-        if int(t, 16) < int(a, 16)]
-    lo, hi = max(loops, key=lambda r: r[1] - r[0])
-    loop = [op for a, op in ins if lo <= a <= hi]
-    elems = max(1, sum(op.startswith("LDG") for op in loop) // 3)
-    mix = {}
-    for op in loop:
-        key = op.split(".")[0]
-        mix[key] = mix.get(key, 0) + 1
-    per = {k: round(v / (elems * rows), 2) for k, v in sorted(mix.items())}
-    log(f"[sass] {func}: main loop {len(loop)} instructions, {elems} "
-        f"element(s) x {rows} rows per iteration; per (element, row): {per}")
+    jumps = [(int(a, 16), int(t, 16)) for a, t in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?BRA[^;]*?(0x[0-9a-f]+)", body)]
+    targets = {t for _, t in jumps}
+    blocks, cur = [], []
+    for a, op in ins:
+        if a in targets and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append((a, op))
+        if op.split(".")[0] in _BRANCHES:
+            blocks.append(cur)
+            cur = []
+    blocks.append(cur)
+    hot = max(blocks, key=len)
+    lo, hi = hot[0][0], hot[-1][0]
+    loops = [(t, a) for a, t in jumps if t <= lo and a >= hi]
+    loop = min(loops, key=lambda r: r[1] - r[0]) if loops else (lo, hi)
+    pairs = elems * rows
+
+    def mix(ops):
+        counts = {}
+        for op in ops:
+            key = op.split(".")[0]
+            counts[key] = counts.get(key, 0) + 1
+        per = {k: round(v / pairs, 2) for k, v in sorted(counts.items())}
+        return per, round(sum(v for k, v in counts.items()
+                              if k in INT32_PIPE) / pairs, 2)
+
+    per, int_ops = mix([op for _, op in hot])
+    _, loop_int = mix([op for a, op in ins if loop[0] <= a <= loop[1]])
+    log(f"[sass] {func}: hash block {len(hot)} instructions for {elems} "
+        f"elements x {rows} rows, {per['FADD'] if 'FADD' in per else 0} FADD "
+        f"a pair; per (element, row): {per}; INT32-pipe operations per "
+        f"(element, row): {int_ops} in the hash block, {loop_int} over the "
+        f"step loop ({sum(loop[0] <= a <= loop[1] for a, _ in ins)} "
+        f"instructions)")
 
 
 def _rand(torch, rng, shape, dev, positive=False):
@@ -194,9 +235,9 @@ def _rand(torch, rng, shape, dev, positive=False):
 
 def phase_parity(torch, dev):
     """Kernel vs plain version on the card. Returns max |err| per kernel."""
-    from repro_torch.kernels import buffer_agg as ba, sens_sketch as ss
+    from repro_torch.kernels import buffer_agg as ba
     rng = np.random.default_rng(0)
-    errs = {"buffer_agg": 0.0, "sens_sketch": 0.0}
+    errs = {"buffer_agg": 0.0}
     # buffer_agg: a different summation order from the plain version
     # (fmaf chain vs addcmul) moves a result by a few ulp of its magnitude.
     for L, d in ((5, CIFAR_D), (1, 64), (8, 8193), (20, 100)):
@@ -212,54 +253,114 @@ def phase_parity(torch, dev):
             raise AssertionError(f"buffer_agg L={L} d={d}: {err} > {tol}")
         errs["buffer_agg"] = max(errs["buffer_agg"], err)
 
-    # sens_sketch: reduction order only; |err| <= 1e-5 * sum|s| / sqrt(k) + 1e-7
-    from repro_torch.configs import get_config
-    from repro_torch.common.tree import FlatSpec
-    from repro_torch.models.model import init_params
-    cifar = FlatSpec(init_params(torch.Generator().manual_seed(0),
-                                 get_config("paper-cifar10-cnn")))
-    cases = [(n, 16) for n in cifar.sizes] + \
-        [(d, k) for d in (1, 7, 4097, 20000) for k in ss.KS]
-    for d, k in cases:
-        t, g = _rand(torch, rng, (d,), dev), _rand(torch, rng, (d,), dev)
-        f = _rand(torch, rng, (d,), dev, positive=True)
-        got = ss.sens_sketch(t, g, f, k=k, seed=12345 + d)
-        want = ss.sens_sketch_plain(t, g, f, k=k, seed=12345 + d)
-        s_sum = float(torch.abs(g * t - 0.5 * f * t * t).sum())
-        err = float((got - want).abs().max())
-        tol = 1e-5 * s_sum / math.sqrt(k) + 1e-7
-        log(f"[parity] sens_sketch d={d} k={k} max|err|={err:.3e} tol={tol:.3e}")
-        if not err <= tol:
-            raise AssertionError(f"sens_sketch d={d} k={k}: {err} > {tol}")
-        errs["sens_sketch"] = max(errs["sens_sketch"], err)
-
-    d = 4096 + 640
-    t, g = _rand(torch, rng, (d,), dev), _rand(torch, rng, (d,), dev)
-    f = _rand(torch, rng, (d,), dev, positive=True)
-    full = ss.sens_sketch(t, g, f, k=16, seed=11)
-    bounds = np.linspace(0, d, 5).astype(int)
-    parts = sum(ss.sens_sketch(t[lo:hi], g[lo:hi], f[lo:hi], k=16, seed=11,
-                               index_offset=int(lo))
-                for lo, hi in zip(bounds[:-1], bounds[1:]))
-    err = float((parts - full).abs().max())
-    tol = 1e-5 * float(torch.abs(g * t - 0.5 * f * t * t).sum()) / 4 + 1e-7
-    log(f"[parity] sens_sketch 4-shard index_offset composition "
-        f"max|err|={err:.3e} tol={tol:.3e}")
-    if not err <= tol:
-        raise AssertionError(f"sens_sketch shard composition: {err} > {tol}")
-
-    n = cifar.sizes[cifar.sizes.index(max(cifar.sizes))]
-    t, g = _rand(torch, rng, (n,), dev), _rand(torch, rng, (n,), dev)
-    f = _rand(torch, rng, (n,), dev, positive=True)
-    a = ss.sens_sketch(t, g, f, k=16, seed=7)
-    b = ss.sens_sketch(t, g, f, k=16, seed=7)
-    if not torch.equal(a, b):
-        raise AssertionError("sens_sketch is not bit-identical across runs")
-    log(f"[parity] sens_sketch d={n} repeated runs bit-identical")
+    errs["sens_sketch"] = _parity_sketch(torch, dev, rng)
     errs["grouped_matmul"] = _parity_grouped(torch, dev, rng)
     (errs["flash_attention"], errs["flash_attention_bf16"],
      errs["flash_attention_bf16_share"]) = _parity_flash(torch, dev, rng)
     return errs
+
+
+def _cifar_spec(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.common.tree import FlatSpec
+    from repro_torch.models.model import init_params
+    return FlatSpec(init_params(torch.Generator().manual_seed(0),
+                                get_config("paper-cifar10-cnn")))
+
+
+def _sketch_rows(torch, rng, dev, B: int, d: int):
+    """(B, d) theta, g and F (F >= 0) rows."""
+    return (_rand(torch, rng, (B, d), dev), _rand(torch, rng, (B, d), dev),
+            _rand(torch, rng, (B, d), dev, positive=True))
+
+
+def _sketch_tol(torch, t, g, f, k: int):
+    """Per member: 1e-5 * sum|s| / sqrt(k) + 1e-7 (the kernel and the plain
+    version add the same terms in different orders)."""
+    s = torch.abs(g * t - 0.5 * f * t * t).double().sum(-1, keepdim=True)
+    return 1e-5 * s / math.sqrt(k) + 1e-7
+
+
+def _parity_sketch(torch, dev, rng) -> float:
+    """sens_sketch vs its plain version: one-vector calls at the CIFAR
+    leaves' sizes and edge sizes for every k, the 4-shard index_offset
+    composition, the whole CIFAR tree in one call, waves of 1, 3 and 8
+    members for every k (rows of d = 1,756,426 elements, so every odd
+    member's rows are not 16-byte aligned), bit-identical repeats, and an
+    exact-sign case: theta = 1, F = 0 and integer g in [-3, 3] make every
+    partial sum an integer below 2^24, so a single wrong sign shows; the
+    kernel must then equal the plain version bit for bit for k in {1, 4,
+    16} (scales 1, 1/2, 1/4) and within one ulp for k = 32 (1/sqrt(32) is
+    rounded). Returns the worst max |err|."""
+    from repro_torch.kernels import sens_sketch as ss
+    cifar = _cifar_spec(torch)
+    worst = 0.0
+
+    def check(what, got, want, tol):
+        nonlocal worst
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            raise AssertionError(f"sens_sketch {what}: {tuple(got.shape)} != "
+                                 f"{tuple(want.shape)}")
+        err = (got - want).abs()
+        share = float((err / tol).max())
+        log(f"[parity] sens_sketch {what} max|err|={float(err.max()):.3e} "
+            f"worst at {share:.3f} of its tolerance")
+        if not share <= 1.0:
+            raise AssertionError(f"sens_sketch {what}: {share} of tolerance")
+        worst = max(worst, float(err.max()))
+
+    cases = [(n, 16) for n in cifar.sizes] + \
+        [(d, k) for d in (1, 7, 4097, 20000) for k in ss.KS]
+    for d, k in cases:
+        t, g, f = (x[0] for x in _sketch_rows(torch, rng, dev, 1, d))
+        check(f"d={d} k={k}", ss.sens_sketch(t, g, f, k=k, seed=12345 + d),
+              ss.sens_sketch_plain(t, g, f, k=k, seed=12345 + d),
+              _sketch_tol(torch, t, g, f, k)[0])
+
+    d = 4096 + 640
+    t, g, f = (x[0] for x in _sketch_rows(torch, rng, dev, 1, d))
+    bounds = np.linspace(0, d, 5).astype(int)
+    parts = sum(ss.sens_sketch(t[lo:hi], g[lo:hi], f[lo:hi], k=16, seed=11,
+                               index_offset=int(lo))
+                for lo, hi in zip(bounds[:-1], bounds[1:]))
+    check("4-shard index_offset composition", parts,
+          ss.sens_sketch(t, g, f, k=16, seed=11),
+          _sketch_tol(torch, t, g, f, 16)[0])
+
+    for B, ks in ((1, ss.KS), (3, ss.KS), (8, (16,))):
+        t, g, f = _sketch_rows(torch, rng, dev, B, cifar.size)
+        for k in ks:
+            table = ss.layout_table(cifar.sizes, 42, k, str(dev))
+            got = ss.sens_sketch_rows(t, g, f, table)
+            check(f"CIFAR tree, wave of B={B} k={k} in one call", got,
+                  ss.sens_sketch_rows_plain(t, g, f, table),
+                  _sketch_tol(torch, t, g, f, k))
+            if not torch.equal(got, ss.sens_sketch_rows(t, g, f, table)):
+                raise AssertionError(f"sens_sketch B={B} k={k} is not "
+                                     f"bit-identical across runs")
+        log(f"[parity] sens_sketch CIFAR tree B={B}: repeated runs "
+            f"bit-identical")
+        del t, g, f
+
+    B = 3
+    g = torch.from_numpy(rng.integers(-3, 4, (B, cifar.size)).astype(
+        np.float32)).to(dev)
+    t, f = torch.ones_like(g), torch.zeros_like(g)
+    for k in ss.KS:
+        table = ss.layout_table(cifar.sizes, 42, k, str(dev))
+        got = ss.sens_sketch_rows(t, g, f, table)
+        want = ss.sens_sketch_rows_plain(t, g, f, table)
+        torch.cuda.synchronize()
+        # same-sign floats: the distance of their bit patterns is in ulps
+        dist = (got.view(torch.int32).long() - want.view(torch.int32).long())
+        ulps = int(torch.where(got == want, 0, dist.abs()).max())
+        log(f"[parity] sens_sketch exact-sign B={B} k={k}: {ulps} ulp "
+            f"({'bit-equal' if ulps == 0 else 'not bit-equal'})")
+        if ulps > (1 if k == 32 else 0):
+            raise AssertionError(f"sens_sketch exact-sign k={k}: {ulps} ulp "
+                                 f"from the plain version")
+    return worst
 
 
 def _gm_rel(torch, got, want) -> tuple:
@@ -386,9 +487,18 @@ def _parity_flash(torch, dev, rng) -> tuple:
     return worst[torch.float32], worst[torch.bfloat16], worst_share
 
 
-def _time_ms(torch, fn, iters: int, flush) -> float:
+# cycles the card spins (torch.cuda._sleep) before a launch timed with
+# hide_host: about 150 us at 1.98 GHz, more than a wrapper's host time, so
+# the launch is queued before the start event is reached
+HIDE_HOST_CYCLES = 300_000
+
+
+def _time_ms(torch, fn, iters: int, flush, hide_host: bool = False) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, each timed with
-    its own CUDA events after an L2 flush (flush time excluded)."""
+    its own CUDA events after an L2 flush (flush time excluded). When the
+    host takes longer to queue ``fn`` than the flush takes to run, the
+    card waits between the events; ``hide_host`` spins the card after the
+    flush so that the events hold the kernels alone."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -396,6 +506,8 @@ def _time_ms(torch, fn, iters: int, flush) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(HIDE_HOST_CYCLES)
         s.record()
         fn()
         e.record()
@@ -404,7 +516,7 @@ def _time_ms(torch, fn, iters: int, flush) -> float:
 
 
 def phase_timing(torch, dev):
-    from repro_torch.kernels import buffer_agg as ba, sens_sketch as ss
+    from repro_torch.kernels import buffer_agg as ba
     rng = np.random.default_rng(1)
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)  # 128 MB
     out = {}
@@ -421,18 +533,7 @@ def phase_timing(torch, dev):
         library_ms=_time_ms(torch, lambda: torch.addmv(g, u.t(), w), 200, flush),
         bound_ms=max(b_ms, f_ms), bound_by="bytes" if b_ms >= f_ms else "operations")
 
-    k, n = 16, 1_572_864          # the main path's largest leaf, fc0.w
-    t, gg = _rand(torch, rng, (n,), dev), _rand(torch, rng, (n,), dev)
-    f = _rand(torch, rng, (n,), dev, positive=True)
-    b_ms = 12 * n / HBM_BYTES_PER_S * 1e3
-    o_ms = SKETCH_INT_OPS_PER_ELEM_ROW * k * n / INT32_OPS_PER_S * 1e3
-    out["sens_sketch"] = dict(
-        shape=f"d={n} k={k}",
-        ms=_time_ms(torch, lambda: ss.sens_sketch(t, gg, f, k=k, seed=3), 200, flush),
-        plain_ms=_time_ms(torch, lambda: ss.sens_sketch_plain(t, gg, f, k=k, seed=3),
-                          20, flush),
-        library_ms=None,
-        bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms else "operations")
+    out["sens_sketch"] = _time_sketch(torch, dev, rng, flush)
     from repro_torch.kernels import grouped_matmul as gm
     G, (M, K, N) = 4, FC_SHAPES["fc0"]
     x, w = _rand(torch, rng, (G, M, K), dev), _rand(torch, rng, (G, K, N), dev)
@@ -462,16 +563,134 @@ def phase_timing(torch, dev):
                     f"SMs{', + pass 2' if S > 1 else ''}; "
                     f"{_ptxas('grouped_matmul', inst)}"))
     out["flash_attention"] = _time_flash(torch, dev, rng, flush)
-    for name, r in out.items():
-        lib = "none" if r["library_ms"] is None else (
+    rows = [(name, r) for name, r in out.items()] + \
+        [("sens_sketch", c) for c in out["sens_sketch"]["cases"]]
+    for name, r in rows:
+        lib = r.get("library_note", "none") if r["library_ms"] is None else (
             f"{r['library_ms'] * 1e3:.1f}us (kernel at "
             f"{r['ms'] / r['library_ms']:.2f}x its time)")
-        log(f"[timing] {name} {r['shape']}: kernel {r['ms'] * 1e3:.1f}us "
-            f"plain {r['plain_ms'] * 1e3:.1f}us library {lib} "
+        plain = "-" if r["plain_ms"] is None else f"{r['plain_ms'] * 1e3:.1f}us"
+        dev_t = ("" if "device_ms" not in r else
+                 f" ({r['device_ms'] * 1e3:.1f}us with the host's queueing "
+                 f"hidden, {100 * r['bound_ms'] / r['device_ms']:.2f}% of the "
+                 f"bound; host {r['host_us']:.1f}us a call)")
+        log(f"[timing] {name} {r['shape']}: kernel {r['ms'] * 1e3:.1f}us{dev_t} "
+            f"plain {plain} library {lib} "
             f"bound {r['bound_ms'] * 1e3:.1f}us ({r['bound_by']}; kernel at "
             f"{100 * r['bound_ms'] / r['ms']:.2f}% of it)"
             + (f"; {r['design']}" if "design" in r else ""))
     return out
+
+
+def _sketch_bound(n: int, k: int, members: int = 1) -> tuple:
+    """(bound ms, by what) of sketches of n elements in all: the larger of
+    12 bytes an element (and 4k a member's output) over HBM and
+    SKETCH_INT_OPS_PER_ELEM_ROW x k INT32 operations an element over the
+    INT32 pipe."""
+    b_ms = (12 * n + 4 * k * members) / HBM_BYTES_PER_S * 1e3
+    o_ms = SKETCH_INT_OPS_PER_ELEM_ROW * k * n / INT32_OPS_PER_S * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
+def _host_us(torch, fn, n: int = 200) -> float:
+    """Host microseconds ``fn`` takes to queue its work (no sync inside)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def _time_sketch(torch, dev, rng, flush) -> dict:
+    """sens_sketch at fc0.w (d = 1,572,864, k = 16, the one-vector entry;
+    the row earlier designs were timed on), and in ``cases``: the whole
+    CIFAR tree in one call, the same tree as 10 one-leaf calls, and a wave
+    of 8 members in one call; each also with the host's queueing hidden (``device_ms``)
+    and the host's time a call (``host_us``). No single PyTorch call
+    hashes the signs, so there is no library yardstick. Then the probe:
+    the tree and the wave with the loads replaced by values made from the
+    index (the hashing alone), the SM clock read by the blocks during the
+    run, the blocks' span on the device's global timer, and the tree under
+    other grids."""
+    from repro_torch.core.sketch import leaf_seed_host
+    from repro_torch.kernels import sens_sketch as ss
+    k, cifar = 16, _cifar_spec(torch)
+    n = 1_572_864                 # the main path's largest leaf, fc0.w
+    t, g, f = (x[0] for x in _sketch_rows(torch, rng, dev, 1, n))
+    bound, by = _sketch_bound(n, k)
+    none = "none (no single PyTorch call hashes the signs)"
+    one = lambda: ss.sens_sketch(t, g, f, k=k, seed=3)  # noqa: E731
+    r = dict(shape=f"d={n} k={k}", library_ms=None, library_note=none,
+             bound_ms=bound, bound_by=by, ms=_time_ms(torch, one, 200, flush),
+             device_ms=_time_ms(torch, one, 200, flush, hide_host=True),
+             host_us=_host_us(torch, one),
+             plain_ms=_time_ms(torch, lambda: ss.sens_sketch_plain(
+                 t, g, f, k=k, seed=3), 20, flush))
+    table = ss.layout_table(cifar.sizes, 42, k, str(dev))
+    ntiles = table.tiles.shape[0]
+    cases, waves = [], {}
+    for B in (1, 8):
+        waves[B] = _sketch_rows(torch, rng, dev, B, cifar.size)
+    t1, g1, f1 = (x[0] for x in waves[1])
+    leaves = [(o, m, leaf_seed_host(42, i)) for i, (o, m) in
+              enumerate(zip(cifar.offsets, cifar.sizes))]
+
+    def per_leaf():
+        return sum(ss.sens_sketch(t1[o:o + m], g1[o:o + m], f1[o:o + m], k=k,
+                                  seed=sd) for o, m, sd in leaves)
+
+    for what, B, fn, plain in (
+            ("CIFAR tree, one call", 1,
+             lambda: ss.sens_sketch_rows(*waves[1], table),
+             lambda: ss.sens_sketch_rows_plain(*waves[1], table)),
+            ("CIFAR tree, 10 one-leaf calls", 1, per_leaf, None),
+            ("CIFAR wave of B=8, one call", 8,
+             lambda: ss.sens_sketch_rows(*waves[8], table),
+             lambda: ss.sens_sketch_rows_plain(*waves[8], table))):
+        bound, by = _sketch_bound(B * cifar.size, k, B)
+        grid, sms, per = ss.grid_of(k, B * ntiles)
+        cases.append(dict(
+            shape=f"{what} (d={cifar.size} k={k})", bound_ms=bound,
+            bound_by=by, library_ms=None, library_note=none,
+            ms=_time_ms(torch, fn, 200, flush),
+            device_ms=_time_ms(torch, fn, 200, flush, hide_host=True),
+            host_us=_host_us(torch, fn),
+            plain_ms=None if plain is None else _time_ms(torch, plain, 10,
+                                                          flush),
+            design=(f"{B * ntiles} items of up to {ss.TILE} elements on "
+                    f"{grid} blocks for {sms} SMs ({per} resident an SM)")))
+    r["cases"] = cases
+
+    probe = []
+    for B in (1, 8):
+        items = B * ntiles
+        grid, sms, per = ss.grid_of(k, items)
+        grids = [grid] + (sorted({sms, 2 * sms, sms * per} - {grid})
+                          if B == 1 else [])
+        for gr in grids:
+            for loads in (True, False) if gr == grid else (True,):
+                ms = _time_ms(torch, lambda: ss.probe(*waves[B], table, grid=gr,
+                                                      loads=loads), 100, flush,
+                              hide_host=True)
+                _, clocks = ss.probe(*waves[B], table, grid=gr, loads=loads)
+                c = clocks.cpu().numpy().astype(np.float64)
+                probe.append(dict(B=B, grid=gr, loads=loads, ms=ms,
+                                  span_ms=(c[:, 3].max() - c[:, 2].min()) / 1e6,
+                                  sm_ghz=ss.sm_clock_ghz(clocks)))
+    for p in probe:
+        bound, _ = _sketch_bound(p["B"] * cifar.size, k, p["B"])
+        log(f"[probe] sens_sketch CIFAR B={p['B']} grid={p['grid']} "
+            f"{'loads' if p['loads'] else 'no loads (s from the index)'}: "
+            f"{p['ms'] * 1e3:.1f}us between events (host hidden), blocks' span "
+            f"{p['span_ms'] * 1e3:.1f}us ({100 * bound / p['span_ms']:.1f}% "
+            f"of the operation bound), SM clock {p['sm_ghz']:.3f} GHz")
+    r["probe"] = probe
+    r["design"] = (f"one launch; tiles of up to {ss.TILE} elements; "
+                   f"{_ptxas('sens_sketch', 'sens_sketch_tilesILi16ELi0E')}")
+    del waves
+    return r
 
 
 def _ptxas(lib: str, needle: str) -> str:
@@ -638,8 +857,9 @@ def phase_main(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    n_leaves = 10
-    want_sk = n_leaves * (res.dispatches + res.versions + 1)
+    # one sketch per receive, per aggregation (the global-model refresh)
+    # and of the initial global model, each one launch for the whole tree
+    want_sk = res.dispatches + res.versions + 1
     if counts["sens_sketch"] != want_sk or counts["buffer_agg"] != res.versions:
         raise AssertionError(f"main path launches {counts}: want sens_sketch="
                              f"{want_sk} buffer_agg={res.versions}")
@@ -693,7 +913,9 @@ def phase_main_cohort(torch):
     finally:
         simulator._make_cohort_engine = make
     (engine,) = engines
-    want = {"sens_sketch": 10 * (res.dispatches + res.versions + 1),
+    # sens_sketch: one launch per wave (all its members), per aggregation
+    # and for the initial global model
+    want = {"sens_sketch": res.cohorts + res.versions + 1,
             "buffer_agg": res.versions,
             "grouped_matmul": 9 * engine.steps_run, "flash_attention": 0}
     if counts != want:
@@ -974,8 +1196,9 @@ def main() -> int:
                         "max_abs_err": errs[k], "tolerance": tol, "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "shape": r["shape"], **({"design": r["design"]}
-                                                if "design" in r else {})})
+                        "shape": r["shape"],
+                        **{x: r[x] for x in ("device_ms", "host_us", "design",
+                                             "cases", "probe") if x in r}})
     from repro_torch.kernels import flash_attention as fa
     r = timing["flash_attention"]
     kernels.append({

@@ -2,7 +2,11 @@
 
 Client side: ``client_sketch`` computes the Eq. 8 sensitivity on the
 shared calibration batch and compresses it to a k-vector (Eq. 11) through
-the fused ``sens_sketch`` kernel, one launch per parameter leaf. Server
+the fused ``sens_sketch`` kernel, one launch per model;
+``client_sketch_members`` does it for a wave of B members at once (the
+reference's ``vmap`` of ``client_sketch``, with the member axis written
+out): one gradient pass and ``fisher_microbatches`` passes for the wave,
+and one launch. Server
 side: ``PSAState`` holds a fixed-size ``(L_s, d)`` update ring;
 ``server_receive`` / ``server_aggregate`` follow Algorithm 1 and
 ``server_step`` composes them. The reference fuses the step under
@@ -18,10 +22,10 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.common.tree import grad, ring_update
+from repro_torch.common.tree import FlatSpec, ring_update
 from repro_torch.core import aggregation, sketch, thermometer
-from repro_torch.core.sensitivity import fisher_diagonal
-from repro_torch.kernels.ops import sketch_tree_fused
+from repro_torch.core.sensitivity import grad_and_fisher
+from repro_torch.kernels.ops import sketch_flat
 
 
 @dataclass(frozen=True)
@@ -44,9 +48,34 @@ def client_sketch(loss_fn: Callable, params, calib_batch, cfg: PSAConfig
     sketch on the shared calibration batch. ``loss_fn(params, batch)``."""
     if not cfg.use_sensitivity:  # w/o S ablation: sketch the raw parameters
         return sketch.sketch_tree(params, cfg.sketch_seed, cfg.sketch_k)
-    g = grad(loss_fn, params, calib_batch)
-    f = fisher_diagonal(loss_fn, params, calib_batch, cfg.fisher_microbatches)
-    return sketch_tree_fused(params, g, f, k=cfg.sketch_k, seed=cfg.sketch_seed)
+    spec = FlatSpec(params)
+    return _sketch_rows(loss_fn, spec, spec.flatten(params), calib_batch,
+                        cfg)
+
+
+def client_sketch_members(member_loss_fn: Callable, spec: FlatSpec,
+                          w: torch.Tensor, calib_batch, cfg: PSAConfig
+                          ) -> torch.Tensor:
+    """(B, k) sketches of a wave's (B, d) flat client models.
+    ``member_loss_fn(params, batch) -> (B,)`` takes member-batched
+    parameters ((B, *shape) leaves) and the shared calibration batch."""
+    if not cfg.use_sensitivity:
+        return torch.stack([sketch.sketch_tree(spec.unflatten(row),
+                                               cfg.sketch_seed, cfg.sketch_k)
+                            for row in w])
+    return _sketch_rows(member_loss_fn, spec, w, calib_batch, cfg)
+
+
+def _sketch_rows(loss_fn, spec: FlatSpec, w: torch.Tensor, calib_batch,
+                 cfg: PSAConfig) -> torch.Tensor:
+    """Sketch of flat w, (d,) -> (k,) or (B, d) -> (B, k): the gradient and
+    Fisher diagonal with respect to w, then one sens_sketch launch."""
+    g, f = grad_and_fisher(loss_fn, spec, w, calib_batch,
+                           cfg.fisher_microbatches)
+    rows = w.reshape(-1, spec.size)
+    out = sketch_flat(spec, rows, g.reshape(rows.shape), f.reshape(rows.shape),
+                      k=cfg.sketch_k, seed=cfg.sketch_seed)
+    return out.reshape(w.shape[:-1] + (cfg.sketch_k,))
 
 
 @dataclass

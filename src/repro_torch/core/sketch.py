@@ -62,7 +62,7 @@ def sketch_leaf(leaf: torch.Tensor, seed: int, k: int = DEFAULT_K) -> torch.Tens
 def sketch_tree(tree, seed: int = 0, k: int = DEFAULT_K) -> torch.Tensor:
     """Full-model sketch of a tree: the sum of per-leaf partial sketches
     (R @ concat(leaves) for the blockwise-defined R). The fused
-    sensitivity path is ``kernels.ops.sketch_tree_fused``; this one sketches
+    sensitivity path is ``kernels.ops.sketch_flat``; this one sketches
     raw values (the w/o-S ablation)."""
     leaves = tree_leaves(tree)
     total = torch.zeros((k,), dtype=torch.float32, device=leaves[0].device)

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import setup_device
-from repro_torch.common.tree import FlatSpec, tree_map
+from repro_torch.common.tree import FlatSpec, tree_leaves, tree_map
 from repro_torch.core import psa as psa_lib
 from repro_torch.data.loader import ClientDataset, StackedClients
 from repro_torch.federated import client as client_lib
@@ -162,7 +162,8 @@ def _build_eval(cfg: ModelConfig, test_ds, sim: SimConfig, device):
 
 def make_sketch_fn(cfg: ModelConfig, calib_batch: dict,
                    psa_cfg: psa_lib.PSAConfig, device="cpu") -> Callable:
-    """params tree -> (k,) FedPSA client sketch on the calibration batch."""
+    """params tree -> (k,) FedPSA client sketch on the calibration batch
+    (one ``sens_sketch`` launch per tree)."""
     calib = registry.get_family(cfg).batch_fn(calib_batch["x"],
                                               calib_batch["y"], device)
 
@@ -175,12 +176,29 @@ def make_sketch_fn(cfg: ModelConfig, calib_batch: dict,
     return fn
 
 
-def make_sketch_fn_flat(sketch_fn: Callable, spec: FlatSpec) -> Callable:
-    """(B, d) flat client models -> (B, k) sketches: the per-tree
-    ``sketch_fn`` on each row in turn (one ``sens_sketch`` launch per leaf
-    and row)."""
+def make_sketch_fn_flat(cfg: ModelConfig, calib_batch: dict,
+                        psa_cfg: psa_lib.PSAConfig, spec: FlatSpec,
+                        device="cpu") -> Callable:
+    """(B, d) flat client models -> (B, k) sketches of a whole wave: the
+    member-batched loss (``client_loss(..., members=True)``) on the shared
+    calibration batch, one gradient pass plus ``fisher_microbatches``
+    passes for the wave and one ``sens_sketch`` launch — the reference's
+    jitted ``vmap`` of ``client_sketch``, with the member axis written
+    out."""
+    fam = registry.get_family(cfg)
+    calib = fam.batch_fn(calib_batch["x"], calib_batch["y"], device)
+
+    def member_loss(params, batch):
+        B, (n, *shape) = tree_leaves(params)[0].shape[0], batch["x"].shape
+        x = batch["x"].expand(B, n, *shape)
+        vm = torch.ones((B, n), dtype=torch.float32, device=x.device)
+        cnt = torch.full((B,), float(n), dtype=torch.float32, device=x.device)
+        return fam.client_loss(params, fam.masked_batch(
+            x, batch["y"].expand(B, n), vm, cnt), cfg, members=True)
+
     def fn(w_stack):
-        return torch.stack([sketch_fn(spec.unflatten(row)) for row in w_stack])
+        return psa_lib.client_sketch_members(member_loss, spec, w_stack, calib,
+                                             psa_cfg)
 
     return fn
 
@@ -238,9 +256,12 @@ def run_async(server_name: str, cfg: ModelConfig, init_params,
                             result, batched=batched, data_sizes=data_sizes)
     dispatcher.dispatch_many(np.zeros(concurrency))
     if batched:
+        sketch_rows = (make_sketch_fn_flat(cfg, calib_batch, psa_cfg,
+                                           server.policy.spec, device)
+                       if server.needs_sketch else None)
         t = _drain_cohort(server, cfg, client_datasets, sim,
                           dispatcher.dispatch_many, timeline, evaluate, result,
-                          data_sizes, server.client_align, sketch_fn,
+                          data_sizes, server.client_align, sketch_rows,
                           receive_hook, digest_fn, device)
     else:
         t = _drain_sequential(server, cfg, client_datasets, sim,
@@ -319,9 +340,11 @@ def _gather_snapshots(snaps) -> torch.Tensor:
 
 def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
                   dispatch_many, timeline, evaluate, result: SimResult,
-                  data_sizes, align, sketch_fn, receive_hook, digest_fn,
+                  data_sizes, align, sketch_rows, receive_hook, digest_fn,
                   device) -> float:
-    """Batched drain: train completion waves as single device batches.
+    """Batched drain: train completion waves as single device batches;
+    ``sketch_rows`` (fedpsa) sketches a wave's (B, d) client models in one
+    call.
 
     A wave is the maximal timeline prefix with ``t_done < t_first +
     latency_lo`` (capped at ``sim.max_cohort``). Any dispatch issued while
@@ -334,8 +357,6 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
     spec = server.policy.spec
     engine = _make_cohort_engine(cfg, client_datasets, spec, sim, device,
                                  align=align)
-    sketch_flat = (make_sketch_fn_flat(sketch_fn, spec)
-                   if server.needs_sketch else None)
 
     next_eval = 0.0
     t = 0.0
@@ -366,8 +387,8 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
             seeds = [sim.seed * 100003 + (d0 + r)
                      for r in range(len(ok_events))]
             deltas, w_stack = engine.cohort_update(snapshots, cids, lrs, seeds)
-            if sketch_flat is not None:
-                sketches = sketch_flat(w_stack)
+            if sketch_rows is not None:
+                sketches = sketch_rows(w_stack)
             result.cohorts += 1
 
         # Receives are deferred into ``pending`` and flushed as one batched

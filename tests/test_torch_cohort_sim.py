@@ -11,18 +11,24 @@ import json
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro import data as rdata
+from repro.common import tree as rtu
 from repro.configs import get_config as rget
+from repro.core import psa as rpsa
 from repro.federated import SimConfig as RSim, run_algorithm as r_run
+from repro.federated.simulator import make_sketch_fn_flat as r_sketch_flat
 from repro.models import model as RM
 from repro_torch import data as tdata
 from repro_torch.common.tree import FlatSpec
 from repro_torch.configs import get_config as tget
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.psa import PSAConfig
+from repro_torch.federated import simulator as tsim
 from repro_torch.federated.simulator import SimConfig, run_algorithm
 from repro_torch.kernels import ops
 from repro_torch.models import member_math as tmm
@@ -150,3 +156,53 @@ def test_cohort_counters_match_live_reference(golden_world):
     assert _orders(got) == _orders(want)
     np.testing.assert_allclose(np.asarray(got.digests),
                                np.asarray(want.digests), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("use_sensitivity", [True, False])
+def test_member_batched_sketch_matches_reference(golden_world, use_sensitivity):
+    """The wave sketch (``make_sketch_fn_flat``: one member-batched gradient
+    pass plus the Fisher microbatches for the whole wave, one sens_sketch
+    call) of a 3-member wave against the reference's ``make_sketch_fn_flat``
+    (a jitted vmap of client_sketch) on the golden world's
+    paper-synthetic-mlp, at the client-sketch tolerance of
+    tests/test_torch_core.py (rtol 1e-5, atol 1e-5 * max|want|)."""
+    cfg, clients, test, calib, params = golden_world
+    kw = dict(queue_len=10, use_sensitivity=use_sensitivity)
+    rspec = rtu.FlatSpec(params)
+    spec = FlatSpec(params_from_numpy(params))
+    base = np.asarray(rspec.flatten(params), np.float32)
+    rng = np.random.RandomState(7)
+    w = np.stack([base + 0.05 * i * rng.randn(base.size) for i in range(3)]
+                 ).astype(np.float32)
+    want = np.asarray(r_sketch_flat(rget("paper-synthetic-mlp"), calib,
+                                    rpsa.PSAConfig(**kw), rspec)(jnp.asarray(w)))
+    got = tsim.make_sketch_fn_flat(cfg, calib, PSAConfig(**kw), spec,
+                                   "cpu")(torch.from_numpy(w)).numpy()
+    assert got.shape == (3, 16)
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("engine", ["sequential", "cohort"])
+def test_sketch_is_one_call_per_tree_and_per_wave(golden_world, monkeypatch,
+                                                  engine):
+    """Wrapping the sketch entry counts one call per sketched model on the
+    sequential engine (receives + aggregations + the initial global model)
+    and one per wave on the cohort engine (waves + aggregations + 1), each
+    wave's call holding all its members."""
+    calls = []
+    real = ops.sens_sketch_rows
+
+    def counted(w, g, f, table):
+        calls.append(int(w.shape[0]))
+        return real(w, g, f, table)
+
+    monkeypatch.setattr(ops, "sens_sketch_rows", counted)
+    res = _run(golden_world, "fedpsa", engine=engine, horizon=3_000.0)
+    assert res.versions > 0 and res.dispatches > 0
+    if engine == "sequential":
+        assert calls == [1] * (res.dispatches + res.versions + 1)
+    else:
+        assert len(calls) == res.cohorts + res.versions + 1
+        assert sum(calls) == res.dispatches + res.versions + 1
+        assert max(calls) > 1

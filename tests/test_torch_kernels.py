@@ -7,6 +7,7 @@ CUDA kernels themselves run only on a card: the ``gpu``-marked test holds
 them against the plain versions there
 (``python -m pytest -m gpu tests/test_torch_kernels.py``).
 """
+import dataclasses
 import math
 
 import jax
@@ -21,11 +22,14 @@ from repro.kernels import ref
 from repro.kernels.buffer_agg import buffer_agg_pallas
 from repro.kernels.grouped_matmul import grouped_matmul_pallas
 from repro.kernels.sens_sketch import sens_sketch_pallas
+from repro_torch.common.tree import FlatSpec
+from repro_torch.configs import get_config as tget
 from repro_torch.core import sketch as tsk
 from repro_torch.kernels import buffer_agg as tba
 from repro_torch.kernels import grouped_matmul as tgm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import sens_sketch as tss
+from repro_torch.models import model as TM
 
 
 def _pair(x, dtype):
@@ -134,6 +138,118 @@ def test_sketch_tree_fused_matches_reference():
     leaves = [(p[a][b], g[a][b], f[a][b]) for a in sorted(p) for b in sorted(p[a])]
     tol = sum(_sketch_tol(*lf, 16) for lf in leaves)
     assert np.max(np.abs(got - want)) <= tol
+
+
+NARROW_CNN = dict(cnn_channels=(4, 8), input_hw=(8, 8, 3), mlp_hidden=(16,))
+
+
+def _narrow_cnn_spec():
+    """FlatSpec of a narrow CIFAR CNN (10 leaves, 4 to 800 elements)."""
+    cfg = dataclasses.replace(tget("paper-cifar10-cnn"), **NARROW_CNN)
+    return FlatSpec(TM.init_params(torch.Generator().manual_seed(0), cfg))
+
+
+@pytest.mark.parametrize("k", [4, 16])
+def test_sens_sketch_rows_plain_matches_reference(k):
+    """The batched leaf-table form (``ops.sketch_flat``: all members and
+    leaves in one call) against the reference's ``ops.sketch_tree_fused``
+    (interpret-mode Pallas, one launch per leaf) member by member, on a
+    narrow CNN's layout; tolerance the sum of the leaves' ``_sketch_tol``
+    (the two sum the same terms in different orders)."""
+    spec = _narrow_cnn_spec()
+    B, d = 2, spec.size
+    rng = np.random.RandomState(k)
+    w, g = rng.randn(B, d).astype(np.float32), rng.randn(B, d).astype(np.float32)
+    f = np.abs(rng.randn(B, d)).astype(np.float32)
+    got = tops.sketch_flat(spec, *(torch.from_numpy(x) for x in (w, g, f)),
+                           k=k, seed=5).numpy()
+    assert got.shape == (B, k) and got.dtype == np.float32
+    for b in range(B):
+        trees = [jax.tree_util.tree_map(
+            np.asarray, spec.unflatten(torch.from_numpy(x[b]))) for x in (w, g, f)]
+        want = np.asarray(rops.sketch_tree_fused(*trees, k=k, seed=5))
+        tol = sum(_sketch_tol(w[b, o:o + n], g[b, o:o + n], f[b, o:o + n], k)
+                  for o, n in zip(spec.offsets, spec.sizes))
+        assert np.max(np.abs(got[b] - want)) <= tol
+
+
+def test_sens_sketch_rows_honours_index_offset():
+    """A one-leaf table hashed from ``index_offset`` (``vector_table``)
+    through the rows entry equals the reference's per-shard
+    ``sens_sketch_pallas`` (interpret mode) at that offset."""
+    d, lo = 1500, 3333
+    theta, g, f = _sketch_inputs(d, 8)
+    table = tss.vector_table(d, 11, lo, 16, "cpu")
+    got = tss.sens_sketch_rows(*(torch.from_numpy(x)[None]
+                                 for x in (theta, g, f)), table)[0].numpy()
+    want = np.asarray(sens_sketch_pallas(
+        *(jnp.asarray(x) for x in (theta, g, f)), k=16, seed=11,
+        index_offset=lo, interpret=True))
+    assert np.max(np.abs(got - want)) <= _sketch_tol(theta, g, f, 16)
+
+
+def _kernel_hash_signs(tiles, k):
+    """The CUDA kernel's hash algebra emulated in numpy uint32 on its tile
+    records: per step base state + (v*k + r)*A, the seed folded into the
+    inner hash's last xor, the outer hash stopped at its multiply, the sign
+    read from bit 31. Returns the (element, row) signs in layout order."""
+    A, C, Bm = np.uint32(747796405), np.uint32(2891336453), np.uint32(277803737)
+
+    def word(state):
+        return ((state >> ((state >> np.uint32(28)) + np.uint32(4))) ^ state) * Bm
+
+    out = []
+    with np.errstate(over="ignore"):
+        for off, n, seed, state0 in tiles.tolist():
+            e = np.arange(n, dtype=np.uint32)
+            st = np.uint32(state0) + e * np.uint32(k * 747796405 % 2 ** 32)
+            r = np.arange(k, dtype=np.uint32)
+            w1 = word(st[:, None] + r[None, :] * A)
+            w2 = word(((w1 >> np.uint32(22)) ^ w1 ^ np.uint32(seed)) * A + C)
+            out.append(np.where(w2 >> np.uint32(31), -1.0, 1.0))
+    return np.concatenate(out).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [1, 4, 16, 32])
+def test_kernel_tile_hash_matches_rademacher_rows(k):
+    """The kernel's tile records and hash algebra give the reference's
+    signs (``rademacher_row``) at every element of a layout whose leaves
+    span several tiles, tails and a hash base (index_offset)."""
+    sizes, bases = (5, 2048, 4100, 1), (0, 0, 0, 70000)
+    seeds = [tsk.leaf_seed_host(9, i) for i in range(len(sizes))]
+    offs = np.cumsum((0,) + sizes[:-1])
+    leaves = list(zip(offs.tolist(), sizes, seeds, bases))
+    tiles = tss.tile_records(leaves, k, tile=1024)
+    assert tiles.shape == (1 + 2 + 5 + 1, 4)
+    assert np.all(tiles[:, 1] <= 1024) and tiles[:, 1].sum() == sum(sizes)
+    got = _kernel_hash_signs(tiles, k)
+    want = np.concatenate([
+        np.stack([tsk.rademacher_row(sd, (torch.arange(n) + b) & 0xFFFFFFFF,
+                                     r, k).numpy() for r in range(k)], axis=1)
+        for (_, n, sd, b) in leaves])
+    np.testing.assert_array_equal(got, want)
+    assert np.array_equal(tiles, tss.tile_records(leaves, k, tile=1024))
+
+
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_sens_sketch_rows_exact_sign_case_is_bit_equal(k):
+    """theta = 1, F = 0 and integer g in [-3, 3]: every partial sum is an
+    integer below 2**24, so any summation order gives the same bits. The
+    leaf-table form then equals the per-leaf one-vector plain sums bit for
+    bit (k in {1, 4, 16}: power-of-two scales, applied once instead of per
+    leaf); a single wrong sign would move it by 2/sqrt(k)."""
+    spec = _narrow_cnn_spec()
+    B = 3
+    rng = np.random.RandomState(3)
+    g = torch.from_numpy(rng.randint(-3, 4, (B, spec.size)).astype(np.float32))
+    t, f = torch.ones_like(g), torch.zeros_like(g)
+    got = tops.sketch_flat(spec, t, g, f, k=k, seed=42)
+    table = tss.layout_table(spec.sizes, 42, k, "cpu")
+    want = torch.stack([sum(tss.sens_sketch_plain(
+        t[b, o:o + n], g[b, o:o + n], f[b, o:o + n], k=k, seed=sd)
+        for o, n, sd, _ in table.leaves) for b in range(B)])
+    assert torch.equal(got, want)
+    assert torch.equal(got, tss.sens_sketch_rows_plain(t, g, f, table))
 
 
 @pytest.mark.parametrize("L,d", [(1, 64), (5, 3000), (8, 8193), (20, 100)])
@@ -303,6 +419,46 @@ def test_cuda_kernels_match_plain_on_card():
             want = tss.sens_sketch_plain(*T, k=k, seed=9)
             assert float((got - want).abs().max()) <= _sketch_tol(theta, g, f, k)
             assert torch.equal(got, tss.sens_sketch(*T, k=k, seed=9))
+
+
+@pytest.mark.gpu
+def test_sens_sketch_rows_cuda_matches_plain_on_card():
+    """The kernel's one-launch form against its plain version on the card:
+    the full-width CIFAR CNN layout (10 leaves, rows of 1,756,426 elements,
+    so every odd member's rows are not 16-byte aligned) as one tree and as
+    waves of 3 and 8 members, every k, within ``_sketch_tol`` per member,
+    with bit-identical repeats; and the exact-sign case (theta = 1, F = 0,
+    integer g in [-3, 3]: integer partial sums below 2**24), bit-equal for
+    k in {1, 4, 16} and within one ulp for k = 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    cfg = tget("paper-cifar10-cnn")
+    spec = FlatSpec(TM.init_params(torch.Generator().manual_seed(0), cfg))
+    rng = np.random.RandomState(2)
+    for B, ks in ((1, tss.KS), (3, tss.KS), (8, (16,))):
+        w, g = rng.randn(B, spec.size).astype(np.float32), \
+            rng.randn(B, spec.size).astype(np.float32)
+        f = np.abs(rng.randn(B, spec.size)).astype(np.float32)
+        T = [torch.from_numpy(x).to(dev) for x in (w, g, f)]
+        for k in ks:
+            table = tss.layout_table(spec.sizes, 42, k, str(dev))
+            got = tss.sens_sketch_rows(*T, table)
+            want = tss.sens_sketch_rows_plain(*T, table)
+            for b in range(B):
+                assert float((got[b] - want[b]).abs().max()) <= \
+                    _sketch_tol(w[b], g[b], f[b], k)
+            assert torch.equal(got, tss.sens_sketch_rows(*T, table))
+    gi = torch.from_numpy(rng.randint(-3, 4, (3, spec.size)).astype(
+        np.float32)).to(dev)
+    t, f0 = torch.ones_like(gi), torch.zeros_like(gi)
+    for k in tss.KS:
+        table = tss.layout_table(spec.sizes, 42, k, str(dev))
+        got = tss.sens_sketch_rows(t, gi, f0, table)
+        want = tss.sens_sketch_rows_plain(t, gi, f0, table)
+        dist = (got.view(torch.int32).long() - want.view(torch.int32).long())
+        ulps = int(torch.where(got == want, 0, dist.abs()).max())
+        assert ulps <= (1 if k == 32 else 0), (k, ulps)
 
 
 @pytest.mark.gpu
