@@ -15,8 +15,10 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
 3. kernel parity: each kernel against its plain PyTorch version on the
    card at the main paths' shapes and edge shapes: ``sens_sketch`` one
    vector at a time, the shard composition, the whole CIFAR tree and
-   waves of 1, 3 and 8 members in one call, and the exact-sign case
-   (bit-equal); the ``grouped_matmul`` mask (also through its split-K
+   waves of 1, 3 and 8 members in one call, asyncfeded's two-row
+   magnitude sketch of the CIFAR vector, and the exact-sign case
+   (bit-equal); ``buffer_agg`` also over a zero global (fedfa's apply);
+   the ``grouped_matmul`` mask (also through its split-K
    second pass) and bf16 promotion, ``flash_attention`` in f32
    (CUDA-core kernel) and bf16 (tensor-core kernel, with the worst
    element's share of its limit) at the serve shape, the reference tests'
@@ -30,15 +32,24 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    the loads, the SM clock and the blocks' span, other grids); for the
    kernels redesigned for Hopper their registers and shared memory
    (ptxas) and ``grouped_matmul``'s split count and blocks;
-5. golden: the FedPSA and FedBuff runs on the golden world reproduce
-   ``tests/golden/{fedpsa,fedbuff}.json`` on the card, on the sequential
-   engine and on the cohort engine with both member kernels;
+5. golden: every async policy's run on the golden world reproduces
+   ``tests/golden/<policy>.json`` on the card (fedpsa, fedbuff, fedasync,
+   ca2fl, fedfa, fedpac, asyncfeded), and asyncfeded's cosine and sketch
+   metrics the reference's digest streams in ``tests/torch_fixtures/``, on
+   the sequential engine and on the cohort engine with both member
+   kernels, each run with exact launch counts (``buffer_agg`` once per
+   apply, every receive under fedfa; ``sens_sketch`` per sketch);
 6. main path, sequential engine: FedPSA on ``paper-cifar10-cnn`` at full
    width (d = 1,756,426), with exact kernel launch counts (``sens_sketch``
    once per sketched model: receives + aggregations + 1);
 7. main path, cohort engine: the same run with ``engine="cohort",
    member_kernel="grouped"``, with exact launch counts of all three
    kernels (``sens_sketch`` once per wave: waves + aggregations + 1);
+7b. the other policies at full width: fedasync, fedpac, ca2fl, fedfa
+   and asyncfeded (l2, sketch) on ``paper-cifar10-cnn``, cohort engine
+   with ``member_kernel="grouped"``, horizon 2,000: exact launch counts,
+   a finite (d,) global, accuracy in [0, 1], and each run's receives,
+   wall, s/receive and peak device memory;
 8. profile: the first 2,000 virtual units of both main paths, and one
    serve prefill plus decode, under ``torch.profiler``: the device's busy
    share of the wall time and the CUDA kernels by total time (printed; a
@@ -57,6 +68,7 @@ and prints no result. It imports no JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -240,15 +252,20 @@ def phase_parity(torch, dev):
     errs = {"buffer_agg": 0.0}
     # buffer_agg: a different summation order from the plain version
     # (fmaf chain vs addcmul) moves a result by a few ulp of its magnitude.
-    for L, d in ((5, CIFAR_D), (1, 64), (8, 8193), (20, 100)):
+    # (5, CIFAR_D, zero global): fedfa's apply, a zero global every receive
+    for L, d, zero in ((5, CIFAR_D, False), (5, CIFAR_D, True), (1, 64, False),
+                       (8, 8193, False), (20, 100, False)):
         w = torch.softmax(_rand(torch, rng, (L,), dev), 0)
         g, u = _rand(torch, rng, (d,), dev), _rand(torch, rng, (L, d), dev)
+        if zero:
+            g = torch.zeros_like(g)
         got = ba.buffer_agg(w, g, u)
         want = ba.buffer_agg_plain(w, g, u)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         tol = 1e-6 * (1.0 + float(want.abs().max())) * L
-        log(f"[parity] buffer_agg L={L} d={d} max|err|={err:.3e} tol={tol:.3e}")
+        log(f"[parity] buffer_agg L={L} d={d}{' zero global' if zero else ''} "
+            f"max|err|={err:.3e} tol={tol:.3e}")
         if not err <= tol:
             raise AssertionError(f"buffer_agg L={L} d={d}: {err} > {tol}")
         errs["buffer_agg"] = max(errs["buffer_agg"], err)
@@ -286,8 +303,9 @@ def _parity_sketch(torch, dev, rng) -> float:
     leaves' sizes and edge sizes for every k, the 4-shard index_offset
     composition, the whole CIFAR tree in one call, waves of 1, 3 and 8
     members for every k (rows of d = 1,756,426 elements, so every odd
-    member's rows are not 16-byte aligned), bit-identical repeats, and an
-    exact-sign case: theta = 1, F = 0 and integer g in [-3, 3] make every
+    member's rows are not 16-byte aligned), asyncfeded's magnitude sketch
+    (two CIFAR-vector rows over a one-leaf table, g = 1, F = 0),
+    bit-identical repeats, and an exact-sign case: theta = 1, F = 0 and integer g in [-3, 3] make every
     partial sum an integer below 2^24, so a single wrong sign shows; the
     kernel must then equal the plain version bit for bit for k in {1, 4,
     16} (scales 1, 1/2, 1/4) and within one ulp for k = 32 (1/sqrt(32) is
@@ -342,6 +360,20 @@ def _parity_sketch(torch, dev, rng) -> float:
         log(f"[parity] sens_sketch CIFAR tree B={B}: repeated runs "
             f"bit-identical")
         del t, g, f
+
+    # asyncfeded metric="sketch": dw and the drift as two rows of one
+    # launch over a one-leaf table, g = 1, F = 0 (the magnitude sketch)
+    from repro_torch.core import psa as psa_lib
+    rows = _rand(torch, rng, (2, cifar.size), dev)
+    ones, zeros = psa_lib._unit_rows(cifar.size, rows.device)
+    table = ss.vector_table(cifar.size, 42, 0, 16, rows.device)
+    got = ss.sens_sketch_rows(rows, ones, zeros, table)
+    check("magnitude sketch, two rows of the CIFAR vector in one call", got,
+          ss.sens_sketch_rows_plain(rows, ones, zeros, table),
+          _sketch_tol(torch, rows, ones, zeros, 16))
+    if not torch.equal(got, ss.sens_sketch_rows(rows, ones, zeros, table)):
+        raise AssertionError("magnitude sketch is not bit-identical across runs")
+    del rows
 
     B = 3
     g = torch.from_numpy(rng.integers(-3, 4, (B, cifar.size)).astype(
@@ -774,53 +806,97 @@ def _golden_world():
     return cfg, clients, test, calib, params
 
 
+POLICIES = ("fedpsa", "fedbuff", "fedasync", "ca2fl", "fedfa", "fedpac",
+            "asyncfeded")
+ENGINE_SETTINGS = (("sequential", "vmap"), ("cohort", "vmap"),
+                   ("cohort", "grouped"))
+
+
+def _want_launches(name: str, metric: str, res) -> dict:
+    """Exact launch counts of one policy run (``grouped_matmul`` apart):
+    ``buffer_agg`` once per buffered apply (every receive under fedfa),
+    ``sens_sketch`` once per sketched tree or wave, per FedPSA aggregation
+    and for the initial global model, or once per asyncfeded receive
+    under ``metric="sketch"`` (dw and the drift in one launch)."""
+    receives = res.dispatches
+    agg = {"fedbuff": res.versions, "fedpac": res.versions,
+           "ca2fl": res.versions, "fedpsa": res.versions, "fedfa": receives}
+    sketch = 0
+    if name == "fedpsa":
+        sketch = (res.cohorts if res.engine == "cohort" else receives) \
+            + res.versions + 1
+    elif name == "asyncfeded" and metric == "sketch":
+        sketch = receives
+    return {"buffer_agg": agg.get(name, 0), "sens_sketch": sketch,
+            "flash_attention": 0}
+
+
+def _check_launches(what: str, counts: dict, want: dict, grouped: bool):
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+    if (counts["grouped_matmul"] > 0) != grouped:
+        raise AssertionError(f"{what}: grouped_matmul launched "
+                             f"{counts['grouped_matmul']} times")
+
+
 def phase_golden(torch):
+    """Every async policy on the golden world, on the sequential engine and
+    on the cohort engine with both member kernels: the committed goldens
+    (``tests/golden/<policy>.json``), and asyncfeded's cosine and sketch
+    metrics against the reference's digest streams committed under
+    ``tests/torch_fixtures/`` (with their per-receive coefficients)."""
     from repro_torch.core.psa import PSAConfig
     from repro_torch.federated.simulator import SimConfig, run_algorithm
     from repro_torch.kernels import ops
     cfg, clients, test, calib, params = _golden_world()
-    runs = [(n, "sequential", "vmap") for n in ("fedpsa", "fedbuff")] + \
-        [(n, "cohort", mk) for n in ("fedpsa", "fedbuff")
-         for mk in ("vmap", "grouped")]
-    for name, engine, mk in runs:
-        kw = (dict(psa_cfg=PSAConfig(**GOLDEN_PSA), calib_batch=calib)
-              if name == "fedpsa" else {})
-        sim = SimConfig(engine=engine, member_kernel=mk, device="cuda",
-                        record_trajectory=True, **GOLDEN_SIM)
-        ops.reset_launch_counts()
-        res = run_algorithm(name, cfg, params, clients, test, sim, **kw)
-        counts = ops.launch_counts()
-        with open(os.path.join(ROOT, "tests", "golden", f"{name}.json")) as fh:
+    cases = [(n, "l2", os.path.join("golden", f"{n}.json")) for n in POLICIES]
+    cases += [("asyncfeded", m, os.path.join(
+        "torch_fixtures", f"asyncfeded_{m}_digests.json"))
+        for m in ("cosine", "sketch")]
+    for name, metric, path in cases:
+        with open(os.path.join(ROOT, "tests", path)) as fh:
             golden = json.load(fh)
-        got, want = np.asarray(res.digests), np.asarray(golden["digests"])
-        if got.shape != want.shape:
-            raise AssertionError(f"golden {name}: {got.shape} != {want.shape}")
-        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
-        for key in ("versions", "dispatches", "dropped", "launched"):
-            if getattr(res, key) != golden["final"][key]:
-                raise AssertionError(f"golden {name}: {key} "
-                                     f"{getattr(res, key)} != {golden['final'][key]}")
-        np.testing.assert_allclose(res.final_accuracy,
-                                   golden["final"]["final_accuracy"], atol=2e-3)
-        np.testing.assert_allclose(res.aulc, golden["final"]["aulc"], atol=2e-3)
-        need = ("buffer_agg", "sens_sketch") if name == "fedpsa" else ("buffer_agg",)
-        if mk == "grouped":
-            need += ("grouped_matmul",)
-        elif counts["grouped_matmul"] != 0:
-            raise AssertionError(f"golden {name} {engine}/{mk}: "
-                                 f"grouped_matmul launched")
-        for k in need:
-            if counts[k] == 0:
-                raise AssertionError(f"golden {name} {engine}/{mk}: {k} "
-                                     f"never launched")
-        if res.engine != engine:
-            raise AssertionError(f"golden {name}: ran {res.engine}")
-        rel = float(np.max(np.abs(got - want) / (np.abs(want) + ATOL / RTOL)))
-        log(f"[golden] {name} {engine}/{mk}: {len(got)} digests match "
-            f"(max rel {rel:.2e}), cohorts={res.cohorts} "
-            f"versions={res.versions} dispatches={res.dispatches} "
-            f"final={res.final_accuracy:.4f} aulc={res.aulc:.4f} "
-            f"launches={counts}")
+        kw = {}
+        if name == "fedpsa":
+            kw = dict(psa_cfg=PSAConfig(**GOLDEN_PSA), calib_batch=calib)
+        if metric != "l2":
+            kw["server_kwargs"] = {"metric": metric}
+        for engine, mk in ENGINE_SETTINGS:
+            what = f"golden {name}/{metric} {engine}/{mk}"
+            sim = SimConfig(engine=engine, member_kernel=mk, device="cuda",
+                            record_trajectory=True, **GOLDEN_SIM)
+            ops.reset_launch_counts()
+            res = run_algorithm(name, cfg, params, clients, test, sim, **kw)
+            counts = ops.launch_counts()
+            got, want = np.asarray(res.digests), np.asarray(golden["digests"])
+            if got.shape != want.shape:
+                raise AssertionError(f"{what}: {got.shape} != {want.shape}")
+            np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+            for key in ("versions", "dispatches", "dropped", "launched"):
+                if getattr(res, key) != golden["final"][key]:
+                    raise AssertionError(f"{what}: {key} {getattr(res, key)} "
+                                         f"!= {golden['final'][key]}")
+            np.testing.assert_allclose(res.final_accuracy,
+                                       golden["final"]["final_accuracy"],
+                                       atol=2e-3)
+            np.testing.assert_allclose(res.aulc, golden["final"]["aulc"],
+                                       atol=2e-3)
+            if "weights" in golden:
+                np.testing.assert_allclose(
+                    [e["weight"] for e in res.server_log], golden["weights"],
+                    rtol=1e-4)
+            if res.engine != engine:
+                raise AssertionError(f"{what}: ran {res.engine}")
+            _check_launches(what, counts, _want_launches(name, metric, res),
+                            mk == "grouped")
+            rel = float(np.max(np.abs(got - want)
+                               / (np.abs(want) + ATOL / RTOL)))
+            log(f"[golden] {name}/{metric} {engine}/{mk}: {len(got)} digests "
+                f"match (max rel {rel:.2e}), cohorts={res.cohorts} "
+                f"versions={res.versions} dispatches={res.dispatches} "
+                f"final={res.final_accuracy:.4f} aulc={res.aulc:.4f} "
+                f"launches={counts}")
 
 
 def _main_world(torch):
@@ -938,6 +1014,87 @@ def phase_main_cohort(torch):
         f"max_mem={torch.cuda.max_memory_allocated() / 2**20:.1f}MiB "
         f"launches={counts}")
     return counts
+
+
+# phase 7b: the other policies at full width, over the window phase 8
+# profiles (93 receives)
+POLICY_RUNS = (("fedasync", "l2"), ("fedpac", "l2"), ("ca2fl", "l2"),
+               ("fedfa", "l2"), ("asyncfeded", "l2"), ("asyncfeded", "sketch"))
+POLICY_HORIZON = 2_000
+
+
+def phase_policies(torch) -> dict:
+    """Every policy other than FedPSA on ``paper-cifar10-cnn`` at full
+    width, cohort engine with the grouped member kernel, horizon cut to
+    ``POLICY_HORIZON``: exact launch counts, a finite (d,) global, accuracy
+    in [0, 1]. Returns each run's launch counts by path name."""
+    from repro_torch.federated import servers, simulator
+    from repro_torch.kernels import ops
+    cfg, clients, test, calib, params = _main_world(torch)
+    sim = simulator.SimConfig(engine="cohort", member_kernel="grouped",
+                              **{**MAIN_SIM, "horizon": POLICY_HORIZON})
+    engines, made = [], []
+    make_engine, make_server = simulator._make_cohort_engine, servers.make_server
+
+    def capture_engine(*a, **kw):
+        engines.append(make_engine(*a, **kw))
+        return engines[-1]
+
+    def capture_server(*a, **kw):
+        made.append(make_server(*a, **kw))
+        return made[-1]
+
+    simulator._make_cohort_engine = capture_engine
+    servers.make_server = capture_server
+    by_path = {}
+    try:
+        for name, metric in POLICY_RUNS:
+            what = name if name != "asyncfeded" else f"{name}-{metric}"
+            gc.collect()   # the previous run's tensors in reference cycles
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = simulator.run_algorithm(
+                name, cfg, params, clients, test, sim,
+                server_kwargs={"metric": metric} if name == "asyncfeded"
+                else None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            (engine,), (server,) = engines, made
+            want = {**_want_launches(name, metric, res),
+                    "grouped_matmul": 9 * engine.steps_run}
+            if counts != want:
+                raise AssertionError(f"policy {what}: launches {counts} != "
+                                     f"{want}")
+            if res.versions < 1 or res.engine != "cohort":
+                raise AssertionError(f"policy {what}: {res.engine} "
+                                     f"versions={res.versions}")
+            flat = server.flat_params
+            if flat.shape != (CIFAR_D,) or not bool(torch.isfinite(flat).all()):
+                raise AssertionError(f"policy {what}: global is not a finite "
+                                     f"(d,) vector")
+            if not 0.0 <= res.final_accuracy <= 1.0:
+                raise AssertionError(f"policy {what}: accuracy "
+                                     f"{res.final_accuracy}")
+            log(f"[policy] {what} paper-cifar10-cnn cohort/grouped "
+                f"d={CIFAR_D} horizon={POLICY_HORIZON} "
+                f"receives={res.dispatches} versions={res.versions} "
+                f"cohorts={res.cohorts} final={res.final_accuracy:.4f} "
+                f"wall={wall:.2f}s s/receive={wall / res.dispatches:.4f} "
+                f"max_mem={torch.cuda.max_memory_allocated() / 2**20:.1f}MiB "
+                f"(live at start {live / 2**20:.1f}MiB) launches={counts}")
+            by_path[f"cohort-{what}"] = counts
+            # the next run's peak holds none of this run's tensors
+            engines.clear()
+            made.clear()
+            del engine, server, flat, res
+    finally:
+        simulator._make_cohort_engine = make_engine
+        servers.make_server = make_server
+    return by_path
 
 
 def _profile_run(torch, engine: str) -> None:
@@ -1171,7 +1328,7 @@ def main() -> int:
     timing = phase_timing(torch, dev)
     phase_golden(torch)
     by_path = {"sequential": phase_main(torch),
-               "cohort": phase_main_cohort(torch)}
+               "cohort": phase_main_cohort(torch), **phase_policies(torch)}
     # the timed serve runs come before any profiler session, so no profiler
     # state is live while they run
     serve_check = phase_serve_checks(torch, dev)

@@ -1,5 +1,5 @@
 """Buffer aggregation rules: FedPSA's temperature softmax (Eq. 19-20) and
-the time-based staleness weighting of the buffered baselines."""
+the time-based staleness weightings of the asynchronous baselines."""
 from __future__ import annotations
 
 import numpy as np
@@ -31,3 +31,19 @@ def staleness_polynomial(tau, alpha: float = 0.6, a: float = 0.5) -> float:
     a host int, so the scale needs no device round trip."""
     return float(np.float32(alpha)
                  * np.power(np.float32(1.0 + tau), np.float32(-a)))
+
+
+def staleness_constant(tau, alpha: float = 0.6) -> float:
+    """alpha, whatever the version gap (float32, on the host)."""
+    return float(np.float32(alpha))
+
+
+def staleness_hinge(tau, alpha: float = 0.6, a: float = 10.0,
+                    b: float = 4.0) -> float:
+    """alpha up to a gap of b, then alpha / (a * (tau - b) + 1), in float32
+    arithmetic on the host."""
+    tau, alpha = np.float32(tau), np.float32(alpha)
+    if tau <= np.float32(b):
+        return float(alpha)
+    return float(alpha / (np.float32(a) * (tau - np.float32(b))
+                          + np.float32(1.0)))

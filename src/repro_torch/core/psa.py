@@ -13,9 +13,14 @@ side: ``PSAState`` holds a fixed-size ``(L_s, d)`` update ring;
 ``lax.cond``; here the branch "has the buffer filled" is a host ``int``
 comparison, so a receive costs no device sync. The Eq. 20 apply runs
 through the ``buffer_agg`` kernel and returns a fresh global vector.
+
+Also here, as in the reference: the distance-metric staleness family of
+``asyncfeded`` (``distance_staleness_scale``, ``sketch_distance_scale``)
+and ``magnitude_sketch``, the ``sens_sketch`` kernel with g = 1, F = 0.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
@@ -26,6 +31,8 @@ from repro_torch.common.tree import FlatSpec, ring_update
 from repro_torch.core import aggregation, sketch, thermometer
 from repro_torch.core.sensitivity import grad_and_fisher
 from repro_torch.kernels.ops import sketch_flat
+from repro_torch.kernels.sens_sketch import (sens_sketch, sens_sketch_rows,
+                                             vector_table)
 
 
 @dataclass(frozen=True)
@@ -187,3 +194,72 @@ def server_step(state: PSAState, global_vec: torch.Tensor,
     if refresh_fn is not None:
         state.global_sketch = refresh_fn(new_global)
     return state, new_global, info
+
+
+# ---------------------------------------------------------------------------
+# Distance-metric staleness family (generalizing AsyncFedED's Euclidean
+# drift; the metric taxonomy of "Revisiting Gradient Staleness")
+# ---------------------------------------------------------------------------
+
+DISTANCE_METRICS = ("l2", "cosine", "sketch")
+
+# ``PolicyParams.dist_mode`` codes of the arithmetic variants (the
+# reference's traced values); "sketch" is a structural choice of
+# ``asyncfeded_policy(metric="sketch")``.
+DIST_MODE_L2 = 0.0
+DIST_MODE_COSINE = 1.0
+
+
+def distance_staleness_scale(global_vec: torch.Tensor, wi: torch.Tensor,
+                             dw: torch.Tensor, *, alpha: float, eps: float,
+                             dist_mode: float) -> torch.Tensor:
+    """AsyncFedED-family mixing coefficient s for  w <- w + s * dw, a 0-d
+    tensor on the vectors' device (no host round trip):
+
+    l2 (``dist_mode=0``):  s = alpha * min(1, ||dw|| / (||w_i - w|| + eps));
+    cosine (``dist_mode=1``):
+        s = alpha * 0.5 * (1 + <dw, w_i - w> / (||dw||*||w_i - w|| + eps)).
+    ``dist_mode`` is a host value, so the branch costs no sync."""
+    drift = wi - global_vec
+    dist = torch.sqrt(torch.sum(torch.square(drift)))
+    norm = torch.sqrt(torch.sum(torch.square(dw)))
+    if dist_mode < 0.5:
+        return alpha * torch.clamp(norm / (dist + eps), max=1.0)
+    dot = torch.sum(dw * drift)
+    return alpha * (0.5 * (1.0 + dot / (norm * dist + eps)))
+
+
+@functools.lru_cache(maxsize=8)
+def _unit_rows(d: int, device: torch.device):
+    """(2, d) ones and zeros: the g = 1, F = 0 rows of a two-row
+    ``magnitude_sketch``, made once per (d, device)."""
+    return (torch.ones((2, d), dtype=torch.float32, device=device),
+            torch.zeros((2, d), dtype=torch.float32, device=device))
+
+
+def magnitude_sketch(vec: torch.Tensor, *, k: int, seed: int) -> torch.Tensor:
+    """(k,) JL magnitude sketch  z = R|vec| / sqrt(k)  with the same
+    Rademacher hash as the sensitivity sketch, so ||z|| estimates
+    ||vec||_2: ``sens_sketch`` with (g=1, F=0), under which the Eq. 8
+    sensitivity |g*theta - 0.5*F*theta^2| is exactly |vec|. The whole
+    vector is one leaf hashed with ``seed`` from index 0."""
+    return sens_sketch(vec, torch.ones_like(vec), torch.zeros_like(vec),
+                       k=k, seed=seed)
+
+
+def sketch_distance_scale(global_vec: torch.Tensor, wi: torch.Tensor,
+                          dw: torch.Tensor, *, alpha: float, eps: float,
+                          k: int, seed: int) -> torch.Tensor:
+    """The l2 rule evaluated in k-dim sketch space, a 0-d tensor:
+
+        s = alpha * min(1, ||R|dw||| / (||R|w_i - w||| + eps))
+
+    The reference sketches dw and the drift in two calls; here they are
+    the two rows of one ``sens_sketch_rows`` launch over a one-leaf table
+    (the same function: each row is ``magnitude_sketch`` of its vector)."""
+    d, dev = dw.shape[0], dw.device
+    ones, zeros = _unit_rows(d, dev)
+    z = sens_sketch_rows(torch.stack([dw, wi - global_vec]), ones, zeros,
+                         vector_table(d, seed, 0, k, dev))
+    norm, dist = torch.sqrt(torch.sum(torch.square(z), dim=1)).unbind()
+    return alpha * torch.clamp(norm / (dist + eps), max=1.0)

@@ -3,7 +3,8 @@
 The server constructs one small batch, broadcasts it once, and every client
 evaluates its sensitivity on it. ``source="gaussian"`` uses pure N(0,1)
 noise inputs with uniform labels. A copy of the reference's
-``repro.data.calibration`` for image data.
+``repro.data.calibration`` for image data; an integer-token dataset raises
+(the token path is ROADMAP.md Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -14,6 +15,10 @@ from repro_torch.data.synthetic import SyntheticClassification
 
 def make_calibration_batch(ds: SyntheticClassification, batch_size: int = 64,
                            source: str = "gaussian", seed: int = 123) -> dict:
+    if np.issubdtype(ds.x.dtype, np.integer):
+        raise NotImplementedError(
+            "token calibration batches are not ported to repro_torch "
+            "(ROADMAP.md Queue 1 item 10)")
     rng = np.random.RandomState(seed)
     if source == "real":
         idx = rng.choice(len(ds), size=batch_size, replace=False)

@@ -8,39 +8,73 @@ reference (``repro.federated.policies``), hyperparameters live in
 branch the reference takes under ``lax.cond`` is a host ``int``
 comparison. The global vector is never written in place: an applied
 update produces a fresh tensor (``buffer_agg`` writes a new output), so a
-dispatch snapshot taken at an earlier version stays as it was.
+dispatch snapshot taken at an earlier version stays as it was. The rings
+and the CA2FL cache are server-private and are written in place.
 
-Ported: ``fedpsa`` and ``fedbuff``. The other five policies of the
-reference raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 3b).
+A receive costs no device sync: fill counts, versions and the CA2FL
+count of clients seen are host ``int``s, and a coefficient computed from
+device norms (asyncfeded's) stays a 0-d device tensor, in the step and in
+the log entry, until ``PolicyServer.host_log`` reads the log.
+
+All seven policies of the reference: fedasync, fedbuff, fedpsa, ca2fl,
+fedfa, fedpac and asyncfeded (metrics l2, cosine and sketch).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.common.tree import FlatSpec, ring_update
 from repro_torch.core import aggregation, psa as psa_lib
+from repro_torch.kernels.sens_sketch import KS
 
 
 class PolicyParams(NamedTuple):
-    """Timeline-preserving hyperparameters (host values) of the ported
-    policies; the unported ones add theirs (alpha, beta, eps) with them."""
+    """Timeline-preserving hyperparameters (host values), one record for
+    every policy, with the reference's fields and defaults; a policy reads
+    the fields it uses."""
+    alpha: float = 0.6            # fedasync / asyncfeded mixing
     a: float = 0.5                # staleness polynomial exponent
     server_lr: float = 1.0        # buffered-apply learning rate
+    beta: float = 0.5             # fedfa recency decay
     gamma: float = 5.0            # fedpsa temperature slope
     delta: float = 0.5            # fedpsa temperature floor
+    eps: float = 1e-8             # asyncfeded distance epsilon
     use_thermometer: bool = True  # fedpsa w/o-T ablation switch
+    dist_mode: float = psa_lib.DIST_MODE_L2  # asyncfeded metric (0=l2, 1=cosine)
+
+
+HYPER_FIELDS = PolicyParams._fields
+
+# Metric names accepted for ``dist_mode`` (the arithmetic variants);
+# "sketch" is a structural choice: ``asyncfeded_policy(metric="sketch")``.
+_DIST_MODE_CODES = {"l2": psa_lib.DIST_MODE_L2,
+                    "cosine": psa_lib.DIST_MODE_COSINE}
 
 
 def make_hyper(**kw) -> PolicyParams:
-    """``PolicyParams`` from keyword overrides over the defaults; raises on
-    unknown keys."""
-    bad = sorted(set(kw) - set(PolicyParams._fields))
+    """``PolicyParams`` from keyword overrides over the defaults. Raises on
+    unknown keys; ``dist_mode`` also accepts the metric names "l2" and
+    "cosine". The messages are the reference's."""
+    bad = sorted(set(kw) - set(HYPER_FIELDS))
     if bad:
-        raise ValueError(f"unknown policy hyperparameter(s) {bad}; known: "
-                         f"{sorted(PolicyParams._fields)}")
+        raise ValueError(
+            f"unknown policy hyperparameter(s) {bad}; per-lane tunables are "
+            f"{sorted(HYPER_FIELDS)} (shape parameters like buffer_size/"
+            f"queue_len/sketch_k are static and must be shared)")
+    if isinstance(kw.get("dist_mode"), str):
+        try:
+            kw["dist_mode"] = _DIST_MODE_CODES[kw["dist_mode"]]
+        except KeyError:
+            raise ValueError(
+                f"dist_mode {kw['dist_mode']!r} is not a traced metric; "
+                f"traced: {sorted(_DIST_MODE_CODES)} ('sketch' alters the "
+                f"program — request it via asyncfeded_policy(metric="
+                f"'sketch'))") from None
     return PolicyParams(**kw)
 
 
@@ -52,12 +86,25 @@ class RingState:
 
 
 @dataclasses.dataclass
+class CacheState:
+    """CA2FL per-client cached deltas h_i plus their running sum."""
+    data: torch.Tensor   # (num_clients, d) f32, written in place
+    valid: np.ndarray    # (num_clients,) host bool: client seen at least once
+    total: torch.Tensor  # (d,) f32 running sum of cached deltas, in place
+
+    @property
+    def n_cached(self) -> int:
+        return int(self.valid.sum())
+
+
+@dataclasses.dataclass
 class ServerState:
     """One state for every policy; unused sub-states are None."""
     params: torch.Tensor                     # (d,) flat f32 global model
     version: int                             # completed global updates
     ring: Optional[RingState] = None
     psa: Optional[psa_lib.PSAState] = None
+    cache: Optional[CacheState] = None
     hyper: PolicyParams = PolicyParams()
 
 
@@ -89,6 +136,93 @@ def base_state(spec: FlatSpec, params, hyper: PolicyParams) -> ServerState:
     return ServerState(params=spec.flatten(params), version=0, hyper=hyper)
 
 
+def _ring(L: int, d: int, device) -> RingState:
+    return RingState(data=torch.zeros((L, d), dtype=torch.float32,
+                                      device=device), count=0)
+
+
+@functools.lru_cache(maxsize=8)
+def _zeros(d: int, device: torch.device) -> torch.Tensor:
+    """A (d,) zero vector per (d, device), never written: fedfa's global
+    input to the Eq. 20 apply."""
+    return torch.zeros((d,), dtype=torch.float32, device=device)
+
+
+def _log_mix(tau: int, s) -> dict:
+    """Log entry of a mix policy: the version gap and the mixing
+    coefficient (a host float, or a 0-d device tensor until
+    ``PolicyServer.host_log``)."""
+    return {"tau": tau, "weight": s}
+
+
+# ---------------------------------------------------------------------------
+# Immediate-mix policies (one global update per arrival)
+# ---------------------------------------------------------------------------
+
+def fedasync_policy(spec: FlatSpec, alpha: float = 0.6,
+                    a: float = 0.5) -> Policy:
+    """FedAsync: w <- (1-s)w + s*w_i with s = alpha*(1+tau)^-a, a host
+    float."""
+    hyper = make_hyper(alpha=alpha, a=a)
+
+    def init(params) -> ServerState:
+        return base_state(spec, params, hyper)
+
+    def step(state: ServerState, arr: Arrival):
+        h = state.hyper
+        s = aggregation.staleness_polynomial(arr.tau, h.alpha, h.a)
+        wi = spec.flatten(arr.client_params)
+        # the reference's arithmetic: (1 - s) in float32, two products, a sum
+        state.params = float(np.float32(1.0) - np.float32(s)) * state.params \
+            + s * wi
+        state.version += 1
+        return state, True, _log_mix(arr.tau, s)
+
+    return Policy(name="fedasync", init=init, step=step, spec=spec)
+
+
+def asyncfeded_policy(spec: FlatSpec, alpha: float = 0.6, eps: float = 1e-8,
+                      metric: str = "l2", sketch_k: int = 16,
+                      sketch_seed: int = 42) -> Policy:
+    """AsyncFedED-style distance-metric staleness: w <- w + s * dw, with s
+    from the drift between the returning client model and the current
+    global (``core.psa.DISTANCE_METRICS``): "l2" (the original rule),
+    "cosine", or "sketch" (the l2 rule on k-dim magnitude sketches, one
+    ``sens_sketch`` launch over dw and the drift). s is a 0-d device
+    tensor."""
+    if metric not in psa_lib.DISTANCE_METRICS:
+        raise ValueError(f"unknown distance metric {metric!r}; known: "
+                         f"{psa_lib.DISTANCE_METRICS}")
+    if metric == "sketch" and sketch_k not in KS:
+        raise ValueError(f"asyncfeded: sketch_k={sketch_k} not in the "
+                         f"sens_sketch kernel's {KS}")
+    # "sketch" keeps the l2 code in hyper (as the reference) and is
+    # selected by ``metric``, a constant of the policy
+    hyper = make_hyper(alpha=alpha, eps=eps,
+                       dist_mode="l2" if metric == "sketch" else metric)
+
+    def init(params) -> ServerState:
+        return base_state(spec, params, hyper)
+
+    def step(state: ServerState, arr: Arrival):
+        h = state.hyper
+        dw = spec.flatten(arr.update)
+        wi = spec.flatten(arr.client_params)
+        if metric == "sketch":
+            s = psa_lib.sketch_distance_scale(state.params, wi, dw,
+                                              alpha=h.alpha, eps=h.eps,
+                                              k=sketch_k, seed=sketch_seed)
+        else:
+            s = psa_lib.distance_staleness_scale(state.params, wi, dw,
+                                                 alpha=h.alpha, eps=h.eps,
+                                                 dist_mode=h.dist_mode)
+        state.params = state.params + s * dw
+        state.version += 1
+        return state, True, _log_mix(arr.tau, s)
+
+    return Policy(name="asyncfeded", init=init, step=step, spec=spec)
+
+
 # ---------------------------------------------------------------------------
 # Buffered policies (flush every L-th arrival)
 # ---------------------------------------------------------------------------
@@ -103,8 +237,7 @@ def _buffered_policy(name: str, spec: FlatSpec, buffer_size: int,
 
     def init(params) -> ServerState:
         st = base_state(spec, params, hyper)
-        st.ring = RingState(data=torch.zeros((L, spec.size), dtype=torch.float32,
-                                             device=st.params.device), count=0)
+        st.ring = _ring(L, spec.size, st.params.device)
         return st
 
     def step(state: ServerState, arr: Arrival):
@@ -133,6 +266,16 @@ def fedbuff_policy(spec: FlatSpec, buffer_size: int = 5,
         lambda arr, h: aggregation.staleness_polynomial(arr.tau, 1.0, h.a))
 
 
+def fedpac_policy(spec: FlatSpec, buffer_size: int = 5,
+                  server_lr: float = 1.0) -> Policy:
+    """FedPAC-lite: FedBuff-style buffering of raw deltas; clients train with
+    an extra classifier-alignment term (``client.local_update(align=...)``
+    and the cohort engine's ``align``)."""
+    return _buffered_policy("fedpac", spec, buffer_size,
+                            make_hyper(server_lr=server_lr),
+                            lambda arr, h: 1.0, client_align=0.1)
+
+
 def fedpsa_policy(spec: FlatSpec, cfg: psa_lib.PSAConfig,
                   sketch_refresh: Callable) -> Policy:
     """FedPSA (Algorithm 1): behavioral-staleness softmax over the buffer.
@@ -159,13 +302,100 @@ def fedpsa_policy(spec: FlatSpec, cfg: psa_lib.PSAConfig,
         if not info.updated:
             return state, False, None
         state.version += 1
-        log = {"weights": info.weights.cpu().numpy(),
-               "kappas": info.kappas.cpu().numpy(),
-               "temp": float(info.temp) if info.temp_valid else None}
+        # device tensors until PolicyServer.host_log: no sync here
+        log = {"weights": info.weights, "kappas": info.kappas,
+               "temp": info.temp if info.temp_valid else None}
         return state, True, log
 
     return Policy(name="fedpsa", init=init, step=step, spec=spec,
                   sketch_k=cfg.sketch_k, needs_sketch=True)
+
+
+def ca2fl_policy(spec: FlatSpec, num_clients: int, buffer_size: int = 5,
+                 server_lr: float = 1.0) -> Policy:
+    """CA2FL: cached-update calibration. Buffers the residual vs the
+    client's previous delta; aggregation adds the cache mean back. The
+    (num_clients, d) cache lives on the run's device and is indexed with a
+    host ``int``."""
+    L = buffer_size
+    hyper = make_hyper(server_lr=server_lr)
+
+    def init(params) -> ServerState:
+        st = base_state(spec, params, hyper)
+        dev = st.params.device
+        st.ring = _ring(L, spec.size, dev)
+        st.cache = CacheState(
+            data=torch.zeros((num_clients, spec.size), dtype=torch.float32,
+                             device=dev),
+            valid=np.zeros((num_clients,), bool),
+            total=torch.zeros((spec.size,), dtype=torch.float32, device=dev))
+        return st
+
+    def step(state: ServerState, arr: Arrival):
+        h, cache, cid = state.hyper, state.cache, arr.client_id
+        dw = spec.flatten(arr.update)
+        prev = cache.data[cid]          # zeros until the client is first seen
+        ring_update(state.ring.data, dw - prev, state.ring.count)
+        cache.total.add_(dw).sub_(prev)  # total + dw - prev, in that order
+        cache.data[cid] = dw             # after every read of prev (a view)
+        cache.valid[cid] = True
+        state.ring.count += 1
+        if state.ring.count < L:
+            return state, False, None
+        w = aggregation.uniform_weights(L, state.params.device)
+        params = aggregation.aggregate_flat(state.params, state.ring.data, w,
+                                            h.server_lr)
+        state.params = params + h.server_lr * cache.total \
+            / max(cache.n_cached, 1)
+        state.version += 1
+        state.ring.count = 0
+        return state, True, None
+
+    return Policy(name="ca2fl", init=init, step=step, spec=spec)
+
+
+def fedfa_policy(spec: FlatSpec, queue_len: int = 5,
+                 beta: float = 0.5) -> Policy:
+    """FedFa: the global model is a recency-weighted average of the ring of
+    the last ``queue_len`` client models, refreshed on every arrival (one
+    ``buffer_agg`` launch over a zero global). The ring count grows
+    monotonically; slot ages are recovered from it. The weights depend only
+    on the host count and beta: each of the at most 2L - 1 vectors is made
+    once, in numpy float32 as the reference computes them, and kept on the
+    device."""
+    L = queue_len
+    hyper = make_hyper(beta=beta)
+    weights = {}
+
+    def recency_weights(count: int, beta_: float, device) -> torch.Tensor:
+        n, newest = min(count, L), (count - 1) % L
+        key = (n, newest, beta_, device)
+        w = weights.get(key)
+        if w is None:
+            age = np.mod(newest - np.arange(L), L).astype(np.float32)
+            w = np.where(age < n, np.power(np.float32(beta_), age),
+                         np.float32(0.0)).astype(np.float32)
+            w = torch.from_numpy(w / np.sum(w, dtype=np.float32)).to(device)
+            weights[key] = w
+        return w
+
+    def init(params) -> ServerState:
+        st = base_state(spec, params, hyper)
+        st.ring = _ring(L, spec.size, st.params.device)
+        return st
+
+    def step(state: ServerState, arr: Arrival):
+        dev = state.params.device
+        ring_update(state.ring.data, spec.flatten(arr.client_params),
+                    state.ring.count)
+        state.ring.count += 1
+        w = recency_weights(state.ring.count, state.hyper.beta, dev)
+        state.params = aggregation.aggregate_flat(
+            _zeros(spec.size, dev), state.ring.data, w)
+        state.version += 1
+        return state, True, None
+
+    return Policy(name="fedfa", init=init, step=step, spec=spec)
 
 
 # ---------------------------------------------------------------------------
@@ -174,20 +404,26 @@ def fedpsa_policy(spec: FlatSpec, cfg: psa_lib.PSAConfig,
 
 POLICY_NAMES = ("fedasync", "fedbuff", "fedpsa", "ca2fl", "fedfa", "fedpac",
                 "asyncfeded")
-PORTED = ("fedbuff", "fedpsa")
+PORTED = POLICY_NAMES
 
 
 def make_policy(name: str, spec: FlatSpec, *, num_clients: int = 50,
                 psa_cfg: Optional[psa_lib.PSAConfig] = None,
                 sketch_refresh: Optional[Callable] = None, **kw) -> Policy:
+    if name == "fedasync":
+        return fedasync_policy(spec, **kw)
     if name == "fedbuff":
         return fedbuff_policy(spec, **kw)
     if name == "fedpsa":
         if psa_cfg is None or sketch_refresh is None:
             raise ValueError("fedpsa needs psa_cfg and sketch_refresh")
         return fedpsa_policy(spec, psa_cfg, sketch_refresh)
-    if name in POLICY_NAMES:
-        raise NotImplementedError(
-            f"policy {name!r} is not ported to repro_torch yet (ported: "
-            f"{PORTED}); see ROADMAP.md Queue 1 item 3b")
+    if name == "ca2fl":
+        return ca2fl_policy(spec, num_clients=num_clients, **kw)
+    if name == "fedfa":
+        return fedfa_policy(spec, **kw)
+    if name == "fedpac":
+        return fedpac_policy(spec, **kw)
+    if name == "asyncfeded":
+        return asyncfeded_policy(spec, **kw)
     raise ValueError(f"unknown staleness policy {name!r}")

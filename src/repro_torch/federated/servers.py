@@ -9,6 +9,7 @@ reference's ``repro.federated.servers.PolicyServer`` does:
     flat_params                                   # current global (d,) vector
     version                                       # number of global updates
     psa                                           # FedPSA sub-state
+    host_log()                                    # the log, on the host
 
 ``meta`` carries tau (version gap), client_id, data_size and, for FedPSA,
 the uploaded sensitivity sketch. Every version of the global model is its
@@ -21,6 +22,7 @@ from __future__ import annotations
 from typing import Callable, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.common.tree import FlatSpec
 from repro_torch.core import psa as psa_lib
@@ -66,15 +68,33 @@ class PolicyServer:
         if self.needs_sketch and "sketch" not in meta:
             raise KeyError(
                 f"{self.name} requires meta['sketch'] (behavioral sketch)")
+        if self.state.cache is not None:
+            cid = int(meta["client_id"])  # cache policies require a real id
+            n = self.state.cache.data.shape[0]
+            if not 0 <= cid < n:
+                raise ValueError(f"client_id {cid} outside the server's "
+                                 f"num_clients={n} cache")
+        else:
+            cid = int(meta.get("client_id", 0))
         arrival = pol.Arrival(update=delta, client_params=client_params,
-                              tau=meta.get("tau", 0),
-                              client_id=int(meta.get("client_id", 0)),
+                              tau=meta.get("tau", 0), client_id=cid,
                               data_size=float(meta.get("data_size", 1.0)),
                               sketch=meta.get("sketch"))
         self.state, updated, entry = self.policy.step(self.state, arrival)
         if entry is not None:
             self.log.append(entry)
         return updated
+
+    def host_log(self) -> List[dict]:
+        """The per-update log with every tensor moved to the host: a 0-d
+        tensor (asyncfeded's coefficient) becomes a float, any other a
+        numpy array. Entries keep device tensors while the run goes on, so
+        that a receive does not wait on the device."""
+        def host(v):
+            if not isinstance(v, torch.Tensor):
+                return v
+            return float(v) if v.dim() == 0 else v.cpu().numpy()
+        return [{k: host(v) for k, v in e.items()} for e in self.log]
 
     def receive_many(self, deltas, client_params, client_ids, data_sizes,
                      v_dispatch, sketches=None):

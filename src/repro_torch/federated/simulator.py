@@ -15,12 +15,17 @@ default: each wave of completions trains as one batch of members in
 ``PolicyServer.receive_many``), which reproduces the oracle's receive
 order, versions and eval times.
 
-Runs on ``SimConfig.device`` — the CUDA card by default, where the kernels
-(``sens_sketch``, ``buffer_agg``, and ``grouped_matmul`` under
-``member_kernel="grouped"``) launch; ``device="cpu"`` runs their plain
-versions. Paths that are not ported yet (sharded meshes, streaming shards,
-checkpoints, sweeps, synchronous FedAvg) raise ``NotImplementedError``
-naming ROADMAP.md; none of them falls back to another path.
+Every async policy of the reference runs on both engines (fedasync,
+fedbuff, fedpsa, ca2fl, fedfa, fedpac, asyncfeded; ``server_kwargs`` reach
+the policy, e.g. asyncfeded's ``metric=``). Runs on ``SimConfig.device`` —
+the CUDA card by default, where the kernels launch: ``buffer_agg`` for
+each buffered apply (every receive under fedfa), ``sens_sketch`` for
+FedPSA's sketches and asyncfeded's ``metric="sketch"``, and
+``grouped_matmul`` under ``member_kernel="grouped"``; ``device="cpu"``
+runs their plain versions. Paths that are not ported yet (sharded meshes,
+streaming shards, checkpoints, sweeps, synchronous FedAvg) raise
+``NotImplementedError`` naming ROADMAP.md; none of them falls back to
+another path.
 """
 from __future__ import annotations
 
@@ -96,7 +101,7 @@ class SimResult:
     dropped: int = 0                  # dispatches lost to client unavailability
     cohorts: int = 0                  # device batches the cohort engine ran
     engine: str = ""
-    server_log: List[dict] = field(default_factory=list)
+    server_log: List[dict] = field(default_factory=list)  # host values
     receive_log: List[dict] = field(default_factory=list)
     digests: List[List[float]] = field(default_factory=list)
 
@@ -272,7 +277,7 @@ def run_async(server_name: str, cfg: ModelConfig, init_params,
     result.times.append(min(t, sim.horizon))
     result.accuracies.append(result.final_accuracy)
     result.versions = server.version
-    result.server_log = server.log
+    result.server_log = server.host_log()
     return result
 
 

@@ -2,7 +2,7 @@
 
 On the golden world (``tests/test_golden.py``'s constants and the
 reference's legacy-threefry init): the cohort engine reproduces the
-committed goldens with both member kernels, matches the port's sequential
+committed goldens of all seven async policies with both member kernels, matches the port's sequential
 engine event for event (with dropouts, and with a receive_hook), and
 matches a live reference cohort run's counters. Tolerances are the golden
 suite's ``RTOL=1e-4, ATOL=1e-3`` on digests; counters are exact.
@@ -38,6 +38,8 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN = dict(samples=1_500, classes=10, dim=32, clients=8, alpha=0.3, seed=0)
 SIM = dict(num_clients=8, horizon=6_000.0, eval_every=3_000.0, seed=0)
 RTOL, ATOL = 1e-4, 1e-3
+POLICIES = ["fedpsa", "fedbuff", "fedasync", "ca2fl", "fedfa", "fedpac",
+            "asyncfeded"]
 
 
 def _golden_init():
@@ -82,7 +84,7 @@ def _orders(res):
 
 
 @pytest.mark.parametrize("mode", tmm.MODES)
-@pytest.mark.parametrize("name", ["fedpsa", "fedbuff"])
+@pytest.mark.parametrize("name", POLICIES)
 def test_cohort_run_matches_golden(golden_world, name, mode):
     res = _run(golden_world, name, engine="cohort", member_kernel=mode)
     with open(os.path.join(ROOT, "tests", "golden", f"{name}.json")) as f:
