@@ -39,6 +39,18 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    the sequential engine and on the cohort engine with both member
    kernels, each run with exact launch counts (``buffer_agg`` once per
    apply, every receive under fedfa; ``sens_sketch`` per sketch);
+5b. sweeps: a 3-lane ``run_sweep`` of every policy on the golden world
+   (data seeds [0, 0, 1234], ``SWEEP_HYPER`` on lane 1) with both member
+   kernels: lane 0 holds the golden, under ``"grouped"`` lanes 1 and 2 the
+   port's standalone runs at the lane tolerance (rtol 1e-5, atol 1e-4),
+   with exact launch counts (``buffer_agg`` per lane and apply,
+   ``sens_sketch`` once per wave for all lanes plus each lane's refreshes,
+   ``grouped_matmul`` as the standalone run's);
+5c. resume and FedAvg: fedbuff (both engines) and fedpsa (cohort)
+   checkpointed every 1,000 units, pruned to a mid-run snapshot and
+   resumed, equal to the unbroken run (fedbuff exactly); ``run_fedavg`` on
+   the three engine settings against ``tests/torch_fixtures/
+   fedavg_golden_world.json``;
 6. main path, sequential engine: FedPSA on ``paper-cifar10-cnn`` at full
    width (d = 1,756,426), with exact kernel launch counts (``sens_sketch``
    once per sketched model: receives + aggregations + 1);
@@ -50,6 +62,11 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    with ``member_kernel="grouped"``, horizon 2,000: exact launch counts,
    a finite (d,) global, accuracy in [0, 1], and each run's receives,
    wall, s/receive and peak device memory;
+7c. the same window at full width: FedPSA with cuDNN's deterministic flag
+   on, off and on (the two runs with it on must be bit-equal; s/receive
+   of each), a 3-lane FedPSA sweep (data seeds [0, 0, 1], gamma [5, 1, 5])
+   and ``run_fedavg``, with exact launch counts, s/receive, peak device
+   memory and lane 0's digest gap to the standalone run;
 8. profile: the first 2,000 virtual units of both main paths, and one
    serve prefill plus decode, under ``torch.profiler``: the device's busy
    share of the wall time and the CUDA kernels by total time (printed; a
@@ -105,9 +122,18 @@ GOLDEN_SIM = dict(num_clients=8, horizon=6_000.0, eval_every=3_000.0, seed=0)
 GOLDEN_PSA = dict(queue_len=10)
 RTOL, ATOL = 1e-4, 1e-3
 CIFAR_D = 1_756_426
+# grouped_matmul launches per local step of the CIFAR CNN on the cohort
+# engine under member_kernel="grouped": forward, dW and dx of its three
+# dense layers, and the weight gradient of its two convolutions
+# (models/member_math.py MemberConv2d)
+CNN_GM_PER_STEP = 3 * 3 + 2
 # The CIFAR CNN's dense layers (fc0: 4096 -> 384, fc1: 384 -> 192) at the
 # batch size 64 of a local step: the grouped_matmul main-path shapes.
 FC_SHAPES = {"fc0": (64, 4096, 384), "fc1": (64, 384, 192)}
+# The CNN's convolution weight gradients as grouped_matmul products (M, K,
+# N) = (C_out, images x H x W, C_in x 5 x 5) at the batch size 64
+CONV_WGRAD_SHAPES = {"conv0": (64, 64 * 32 * 32, 3 * 25),
+                     "conv1": (64, 64 * 16 * 16, 64 * 25)}
 # tests/test_grouped_matmul.py's edge shapes (G, M, K, N)
 GM_EDGE_SHAPES = ((1, 8, 16, 16), (3, 130, 200, 96), (5, 1, 7, 3),
                   (4, 32, 256, 64))
@@ -404,7 +430,8 @@ def _gm_rel(torch, got, want) -> tuple:
 def _parity_grouped(torch, dev, rng) -> float:
     """grouped_matmul vs its plain version: the forward, dW and dx products
     of fc0 and fc1 at G = 4 and 8 (dW and dx through the transposed views
-    the backward passes), the edge shapes, the valid mask, bf16 promotion
+    the backward passes), the CNN's convolution weight gradients at G = 4,
+    the edge shapes, the valid mask, bf16 promotion
     (the fc0 forward through the split-K second pass), a long K split ten
     ways, and bit-identical repeated runs. Tolerance: max|err| <= 1e-5 *
     max|plain| in f32 (the two sum K terms in different orders)."""
@@ -436,8 +463,14 @@ def _parity_grouped(torch, dev, rng) -> float:
                 err, _ = check(f"{layer} {what} G={G} {tuple(a.shape)}@"
                                f"{tuple(b.shape)}", a, b)
                 worst = max(worst, err)
+    for layer, (M, K, N) in CONV_WGRAD_SHAPES.items():
+        S, depth = gm.split_k(M, N, K)
+        err, _ = check(f"{layer} wgrad G=4 ({M}, {K})@({K}, {N}) split "
+                       f"{S}x{depth}", _rand(torch, rng, (4, M, K), dev),
+                       _rand(torch, rng, (4, K, N), dev))
+        worst = max(worst, err)
     for G, M, K, N in GM_EDGE_SHAPES + ((3, 40, 5000, 72),):
-        S, depth = gm.split_k(G, M, N, K)
+        S, depth = gm.split_k(M, N, K)
         check(f"edge G={G} M={M} K={K} N={N} split {S}x{depth}",
               _rand(torch, rng, (G, M, K), dev), _rand(torch, rng, (G, K, N), dev))
     M, K, N = FC_SHAPES["fc0"]
@@ -453,7 +486,7 @@ def _parity_grouped(torch, dev, rng) -> float:
     check("bf16 x bf16 -> bf16", xs.bfloat16(), ws.bfloat16(), tol=8e-3)
     x[3] = float("inf")                      # garbage in a masked group
     valid = torch.tensor([1.0, 0.0, 1.0, 0.0], device=dev)
-    S = gm.split_k(4, M, N, K)[0]
+    S = gm.split_k(M, N, K)[0]
     _, got = check(f"valid=[1,0,1,0] fc0 G=4 split {S}", x, w, valid)
     if not (bool((got[1] == 0).all()) and bool((got[3] == 0).all())):
         raise AssertionError("grouped_matmul: valid == 0 groups not exactly 0")
@@ -570,20 +603,28 @@ def phase_timing(torch, dev):
     G, (M, K, N) = 4, FC_SHAPES["fc0"]
     x, w = _rand(torch, rng, (G, M, K), dev), _rand(torch, rng, (G, K, N), dev)
     gr = _rand(torch, rng, (G, M, N), dev)
+    # the convolutions' weight gradients, laid out as MemberConv2d passes
+    # them: gy (G, C_out, n*H*W) and the input's windows (G, n*H*W, ckk)
+    conv = {f"{c} wgrad": (_rand(torch, rng, (G, m, k), dev),
+                           _rand(torch, rng, (G, k, n), dev))
+            for c, (m, k, n) in CONV_WGRAD_SHAPES.items()}
     for what, a, b in (("fwd", x, w), ("dW", x.transpose(1, 2), gr),
-                       ("dx", gr, w.transpose(1, 2))):
+                       ("dx", gr, w.transpose(1, 2)),
+                       *((c, *ab) for c, ab in conv.items())):
         g_, m_, k_ = a.shape
         n_ = b.shape[2]
         b_ms = 4 * g_ * (m_ * k_ + k_ * n_ + m_ * n_) / HBM_BYTES_PER_S * 1e3
         f_ms = 2 * g_ * m_ * k_ * n_ / FP32_FLOPS_PER_S * 1e3
-        key = "grouped_matmul" if what == "fwd" else f"grouped_matmul_{what}"
-        S, depth = gm.split_k(g_, m_, n_, k_)
+        key = ("grouped_matmul" if what == "fwd" else
+               f"grouped_matmul_{what.replace(' ', '_')}")
+        S, depth = gm.split_k(m_, n_, k_)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         # pass-1 instantiation: <lhs k-contiguous, rhs k-contiguous, out>
         inst = (f"grouped_matmul_kernelILb{int(a.stride(2) == 1)}"
                 f"ELb{int(b.stride(1) == 1 and b.stride(2) != 1)}EfE")
         out[key] = dict(
-            shape=f"fc0 {what} G={g_} ({m_}x{k_})@({k_}x{n_})",
+            shape=(f"{'' if 'wgrad' in what else 'fc0 '}{what} G={g_} "
+                   f"({m_}x{k_})@({k_}x{n_})"),
             ms=_time_ms(torch, lambda: gm.grouped_matmul(a, b), 200, flush),
             plain_ms=_time_ms(torch, lambda: gm.grouped_matmul_plain(a, b),
                               200, flush),
@@ -594,6 +635,9 @@ def phase_timing(torch, dev):
                     f"{gm.pass1_blocks(g_, m_, n_, k_)} blocks for {sms} "
                     f"SMs{', + pass 2' if S > 1 else ''}; "
                     f"{_ptxas('grouped_matmul', inst)}"))
+    del x, w, gr, conv
+    out["grouped_matmul"]["cases"] = [
+        dict(r) for k, r in out.items() if k.startswith("grouped_matmul_")]
     out["flash_attention"] = _time_flash(torch, dev, rng, flush)
     rows = [(name, r) for name, r in out.items()] + \
         [("sens_sketch", c) for c in out["sens_sketch"]["cases"]]
@@ -899,6 +943,247 @@ def phase_golden(torch):
                 f"launches={counts}")
 
 
+# tests/test_golden.py's sweep lanes: one timeline-preserving override per
+# policy, on lane 1 of [0, 0, 1234]
+SWEEP_HYPER = {
+    "fedasync": {"alpha": 0.3}, "fedbuff": {"server_lr": 0.7},
+    "fedpsa": {"server_lr": 0.5}, "ca2fl": {"server_lr": 0.6},
+    "fedfa": {"beta": 0.8}, "fedpac": {"server_lr": 0.8},
+    "asyncfeded": {"alpha": 0.4},
+}
+SWEEP_SEEDS = [0, 0, 1234]
+# a lane against its standalone run (the reference's tests/test_sweep.py)
+LANE_RTOL, LANE_ATOL = 1e-5, 1e-4
+
+
+def _want_sweep_launches(name: str, metric: str, res) -> dict:
+    """Exact launch counts of an S-lane sweep (``grouped_matmul`` apart):
+    every lane applies on its own (``buffer_agg`` S x versions, S x
+    receives under fedfa) and refreshes its own global sketch (FedPSA: S at
+    init and S per aggregation), while a wave's S x B client sketches are
+    one ``sens_sketch`` launch."""
+    S, receives = res.num_lanes, res.dispatches
+    agg = {"fedbuff": res.versions, "fedpac": res.versions,
+           "ca2fl": res.versions, "fedpsa": res.versions, "fedfa": receives}
+    sketch = 0
+    if name == "fedpsa":
+        sketch = res.cohorts + S * (res.versions + 1)
+    elif name == "asyncfeded" and metric == "sketch":
+        sketch = S * receives
+    return {"buffer_agg": S * agg.get(name, 0), "sens_sketch": sketch,
+            "flash_attention": 0}
+
+
+def _lane_gap(got, want) -> float:
+    """Worst digest gap as a share of the lane tolerance."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"digest streams {got.shape} != {want.shape}")
+    return float(np.max(np.abs(got - want)
+                        / (LANE_ATOL + LANE_RTOL * np.abs(want))))
+
+
+def phase_sweeps_golden(torch):
+    """Phase 5b: a 3-lane sweep of every policy on the golden world (data
+    seeds [0, 0, 1234], hyperparameters [None, SWEEP_HYPER, None]) on both
+    member kernels: lane 0 holds the committed golden, and under
+    ``"grouped"`` lanes 1 and 2 hold the port's standalone runs on the card
+    at the lane tolerance; launch counts exact (``grouped_matmul`` as the
+    standalone cohort run's: the same waves and local steps)."""
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated.simulator import (SimConfig, SweepConfig,
+                                                 run_algorithm, run_sweep)
+    from repro_torch.kernels import ops
+    cfg, clients, test, calib, params = _golden_world()
+    for name in POLICIES:
+        with open(os.path.join(ROOT, "tests", "golden", f"{name}.json")) as fh:
+            golden = json.load(fh)
+        kw = (dict(psa_cfg=PSAConfig(**GOLDEN_PSA), calib_batch=calib)
+              if name == "fedpsa" else {})
+        hypers = [None, SWEEP_HYPER[name], None]
+        for mk in ("vmap", "grouped"):
+            what = f"sweep {name} cohort/{mk}"
+            sim = SimConfig(engine="cohort", member_kernel=mk, device="cuda",
+                            record_trajectory=True, **GOLDEN_SIM)
+            ops.reset_launch_counts()
+            res = run_sweep(name, cfg, params, clients, test, sim,
+                            SweepConfig(data_seeds=SWEEP_SEEDS,
+                                        policy_params=hypers), **kw)
+            counts = ops.launch_counts()
+            want = np.asarray(golden["digests"])
+            got = np.asarray(res.digests[0])
+            if got.shape != want.shape:
+                raise AssertionError(f"{what}: {got.shape} != {want.shape}")
+            np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+            for key in ("versions", "dispatches", "dropped", "launched"):
+                if getattr(res, key) != golden["final"][key]:
+                    raise AssertionError(f"{what}: {key} {getattr(res, key)}"
+                                         f" != {golden['final'][key]}")
+            np.testing.assert_allclose(res.final_accuracy[0],
+                                       golden["final"]["final_accuracy"],
+                                       atol=2e-3)
+            _check_launches(what, counts, _want_sweep_launches(name, "l2", res),
+                            mk == "grouped")
+            gaps = []
+            if mk == "grouped":
+                for s in (1, 2):
+                    lane_kw = dict(kw)
+                    if s == 1 and name == "fedpsa":
+                        lane_kw["psa_cfg"] = PSAConfig(**GOLDEN_PSA,
+                                                       **SWEEP_HYPER[name])
+                    elif s == 1:
+                        lane_kw["server_kwargs"] = dict(SWEEP_HYPER[name])
+                    ops.reset_launch_counts()
+                    solo = run_algorithm(
+                        name, cfg, params, clients, test,
+                        SimConfig(engine="cohort", member_kernel=mk,
+                                  device="cuda", record_trajectory=True,
+                                  **{**GOLDEN_SIM, "seed": SWEEP_SEEDS[s],
+                                     "timeline_seed": GOLDEN_SIM["seed"]}),
+                        **lane_kw)
+                    solo_gm = ops.launch_counts()["grouped_matmul"]
+                    gaps.append(_lane_gap(res.digests[s], solo.digests))
+                    if gaps[-1] > 1.0 or solo.receive_log != res.receive_log:
+                        raise AssertionError(f"{what}: lane {s} at {gaps[-1]}"
+                                             f" of the lane tolerance")
+                    if counts["grouped_matmul"] != solo_gm:
+                        raise AssertionError(
+                            f"{what}: grouped_matmul {counts['grouped_matmul']}"
+                            f" != the standalone run's {solo_gm}")
+            rel = float(np.max(np.abs(got - want)
+                               / (np.abs(want) + ATOL / RTOL)))
+            log(f"[sweep] {name} cohort/{mk} 3 lanes: lane 0 matches the "
+                f"golden (max rel {rel:.2e})"
+                + (f", lanes 1-2 vs standalone at {gaps[0]:.2e}, "
+                   f"{gaps[1]:.2e} of the lane tolerance" if gaps else "")
+                + f"; cohorts={res.cohorts} versions={res.versions} "
+                f"launches={counts}")
+
+
+CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+
+
+def _prune_to_mid_run(ckdir: str, total: int) -> int:
+    """Keep the snapshots up to the middle one of those taken mid-run;
+    returns its step (dispatches at the snapshot)."""
+    import shutil
+    steps = sorted(int(d.split("_")[1]) for d in os.listdir(ckdir))
+    mid = [s for s in steps if 0 < s < total]
+    if not mid:
+        raise AssertionError(f"no mid-run snapshot among {steps}")
+    keep = mid[len(mid) // 2]
+    for s in steps:
+        if s > keep:
+            shutil.rmtree(os.path.join(ckdir, f"step_{s:08d}"))
+    return keep
+
+
+def phase_resume_fedavg(torch):
+    """Phase 5c on the golden world: fedbuff on both engines and fedpsa on
+    the cohort engine checkpointed every 1,000 units (which must not
+    change the run), pruned to a snapshot from the middle of the run and
+    resumed: digests, ``receive_log``, times and counters equal the
+    unbroken run's exactly (fedpsa's digests at rtol 1e-6, atol 1e-5);
+    then ``run_fedavg`` on both engines against the reference's run
+    committed in ``tests/torch_fixtures/fedavg_golden_world.json`` (the
+    evaluated models' digests at ``RTOL``/``ATOL``), with no
+    ``buffer_agg`` or ``sens_sketch`` launch."""
+    import shutil
+    from repro_torch.common.tree import FlatSpec
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated import simulator
+    from repro_torch.federated.simulator import SimConfig, run_algorithm
+    from repro_torch.kernels import ops
+    cfg, clients, test, calib, params = _golden_world()
+    for name, engine, mk in (("fedbuff", "sequential", "vmap"),
+                             ("fedbuff", "cohort", "grouped"),
+                             ("fedpsa", "cohort", "grouped")):
+        what = f"resume {name} {engine}/{mk}"
+        kw = (dict(psa_cfg=PSAConfig(**GOLDEN_PSA), calib_batch=calib)
+              if name == "fedpsa" else {})
+        base_sim = dict(engine=engine, member_kernel=mk, device="cuda",
+                        record_trajectory=True, **GOLDEN_SIM)
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        runs = []
+        for ck in ({}, dict(checkpoint_dir=CKPT_DIR, checkpoint_every=1_000.0),
+                   "resume"):
+            if ck == "resume":
+                step = _prune_to_mid_run(CKPT_DIR, runs[0].dispatches)
+                ck = dict(checkpoint_dir=CKPT_DIR, checkpoint_every=1_000.0,
+                          resume=True)
+            runs.append(run_algorithm(name, cfg, params, clients, test,
+                                      SimConfig(**base_sim, **ck), **kw))
+        base, snapped, resumed = runs
+        for r, who in ((snapped, "checkpointed run"), (resumed, "resumed run")):
+            if name == "fedpsa":
+                np.testing.assert_allclose(r.digests, base.digests, rtol=1e-6,
+                                           atol=1e-5)
+            elif r.digests != base.digests:
+                raise AssertionError(f"{what}: the {who}'s digests differ")
+            for key in ("dispatches", "launched", "dropped", "versions",
+                        "cohorts", "times", "receive_log"):
+                if getattr(r, key) != getattr(base, key):
+                    raise AssertionError(f"{what}: the {who}'s {key} differs")
+        gap = float(np.max(np.abs(np.asarray(resumed.digests)
+                                  - np.asarray(base.digests))))
+        log(f"[resume] {name} {engine}/{mk}: resumed from the snapshot at "
+            f"{step} of {base.dispatches} receives; digests, receive_log, "
+            f"times and counters equal the unbroken run's (max |digest "
+            f"gap| {gap:.3e}); final {resumed.final_accuracy:.4f} vs "
+            f"{base.final_accuracy:.4f}")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    with open(os.path.join(ROOT, "tests", "torch_fixtures",
+                           "fedavg_golden_world.json")) as fh:
+        want = json.load(fh)
+    # the digest of the model each evaluation sees: FedAvg's accuracies
+    # alone move in steps of one test sample
+    seen, build = [], simulator._build_eval
+
+    def build_recording(*a, **kw):
+        evaluate = build(*a, **kw)
+
+        def recorded(p):
+            w = FlatSpec(p).flatten(p).cpu().numpy()
+            seen.append(simulator.make_digest_fn(w.size)(w[None])[0])
+            return evaluate(p)
+
+        return recorded
+
+    for engine, mk in ENGINE_SETTINGS:
+        what = f"fedavg {engine}/{mk}"
+        seen.clear()
+        ops.reset_launch_counts()
+        simulator._build_eval = build_recording
+        try:
+            res = run_algorithm("fedavg", cfg, params, clients, test,
+                                SimConfig(engine=engine, member_kernel=mk,
+                                          device="cuda", **GOLDEN_SIM))
+        finally:
+            simulator._build_eval = build
+        counts = ops.launch_counts()
+        if len(seen) != len(want["digests"]):
+            raise AssertionError(f"{what}: {len(seen)} evaluations")
+        np.testing.assert_allclose(seen, want["digests"], rtol=RTOL,
+                                   atol=ATOL)
+        gap = float(np.max(np.abs(np.asarray(seen) - want["digests"])))
+        if res.times != want["times"]:
+            raise AssertionError(f"{what}: times {res.times}")
+        for key in ("versions", "dispatches", "launched"):
+            if getattr(res, key) != want[key]:
+                raise AssertionError(f"{what}: {key} {getattr(res, key)} != "
+                                     f"{want[key]}")
+        np.testing.assert_allclose(res.accuracies, want["accuracies"],
+                                   atol=2e-3)
+        np.testing.assert_allclose(res.final_accuracy, want["final_accuracy"],
+                                   atol=2e-3)
+        _check_launches(what, counts, {"buffer_agg": 0, "sens_sketch": 0,
+                                       "flash_attention": 0}, mk == "grouped")
+        log(f"[fedavg] {engine}/{mk}: rounds={res.versions} dispatches="
+            f"{res.dispatches} accuracies={res.accuracies} and the evaluated "
+            f"models' digests (max |gap| {gap:.3e}) match the reference's "
+            f"fixture; launches={counts}")
+
+
 def _main_world(torch):
     from repro_torch.launch.train import build_task
     from repro_torch.models.model import init_params
@@ -993,7 +1278,8 @@ def phase_main_cohort(torch):
     # and for the initial global model
     want = {"sens_sketch": res.cohorts + res.versions + 1,
             "buffer_agg": res.versions,
-            "grouped_matmul": 9 * engine.steps_run, "flash_attention": 0}
+            "grouped_matmul": CNN_GM_PER_STEP * engine.steps_run,
+            "flash_attention": 0}
     if counts != want:
         raise AssertionError(f"cohort main path launches {counts} != {want}")
     if res.versions < 1 or res.engine != "cohort" or res.cohorts < 1:
@@ -1065,7 +1351,7 @@ def phase_policies(torch) -> dict:
             counts = ops.launch_counts()
             (engine,), (server,) = engines, made
             want = {**_want_launches(name, metric, res),
-                    "grouped_matmul": 9 * engine.steps_run}
+                    "grouped_matmul": CNN_GM_PER_STEP * engine.steps_run}
             if counts != want:
                 raise AssertionError(f"policy {what}: launches {counts} != "
                                      f"{want}")
@@ -1095,6 +1381,314 @@ def phase_policies(torch) -> dict:
         simulator._make_cohort_engine = make_engine
         servers.make_server = make_server
     return by_path
+
+
+# phase 7c's sweep: data seeds and FedPSA temperature slopes of its 3 lanes
+FULL_SWEEP_SEEDS = [0, 0, 1]
+FULL_SWEEP_GAMMA = [5.0, 1.0, 5.0]
+
+
+def _timed_run(torch, fn):
+    """(result, wall s, memory text, launch counts) of ``fn()``, with the
+    peak and the counts reset just before; the text holds the peak device
+    memory and what was live at the start."""
+    from repro_torch.kernels import ops
+    gc.collect()   # the previous run's tensors in reference cycles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    mem = (f"max_mem={torch.cuda.max_memory_allocated() / 2**20:.1f}MiB "
+           f"(live at start {live / 2**20:.1f}MiB)")
+    return res, time.perf_counter() - t0, mem, ops.launch_counts()
+
+
+def _gap_profile(a, b) -> str:
+    """Where two digest streams part: the first receive whose digest
+    differs, the gap there relative to the digest, and the largest gap."""
+    a, b = np.asarray(a), np.asarray(b)
+    diff = np.abs(a - b).max(axis=1)
+    nz = np.flatnonzero(diff)
+    if not nz.size:
+        return "bit-equal"
+    i = int(nz[0])
+    return (f"first differing receive {i} of {len(a)} (gap there "
+            f"{diff[i] / np.abs(b[i]).max():.3e} of the digest), max |gap| "
+            f"{diff.max():.3e} at receive {int(np.argmax(diff))}")
+
+
+# the convolutions' float32 parity: max |got - float64| over the sum of the
+# terms' magnitudes, element by element, in u = 2**-24 (8 float32 ulps)
+CONV_GATE_U = 16
+
+
+def _lane_op_gaps(torch) -> None:
+    """The wave's ops at the CNN's shapes, on N(0, 1) inputs, at groups 4
+    (a standalone wave's bucket) and 12 (a 3-lane sweep's):
+
+    * precision: forward, input gradient and weight gradient of each
+      convolution through ``member_conv2d`` (the path of a cohort step,
+      under ``"grouped"``), and cuDNN's own weight gradient, against
+      float64 on the card (cuDNN's double-precision convolution), as
+      max |err| / sum|terms| in u = 2**-24. The port's path must stay
+      within ``CONV_GATE_U``; cuDNN's weight gradient is printed (it is
+      why the port does not use it), and so are both weight gradients'
+      times at groups 4;
+    * lane parity: groups 4 against the first 4 groups of 12, and
+      ``grouped_matmul`` at G = 4 against the first 4 of G = 12 (fc0's
+      forward, dW and dx), as max |diff| (printed)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.models import member_math
+    rng = np.random.default_rng(3)
+    dev = torch.device("cuda")
+    n, k, c_out = 64, 5, 64
+
+    def grads(conv, x, w, gy):
+        x, w = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = conv(x, w)
+        return (y.detach(), *torch.autograd.grad(y, (x, w), gy))
+
+    def timed(fn):
+        fn()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(10):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / 10
+
+    for name, c_in, hw in (("conv0", 3, 32), ("conv1", 64, 16)):
+        x = _rand(torch, rng, (n, 12 * c_in, hw, hw), dev)
+        w = _rand(torch, rng, (12 * c_out, c_in, k, k), dev)
+        gy = _rand(torch, rng, (n, 12 * c_out, hw, hw), dev)
+        port = {}
+        for G in (4, 12):
+            xg, wg, gyg = x[:, :G * c_in], w[:G * c_out], gy[:, :G * c_out]
+
+            def member(a, b):
+                return member_math.member_conv2d(a, b, groups=G,
+                                                 padding=k // 2)
+
+            def plain(a, b):
+                return F.conv2d(a, b, padding=k // 2, groups=G)
+
+            def cudnn_wgrad():
+                return torch.nn.grad.conv2d_weight(xg, wg.shape, gyg,
+                                                   padding=k // 2, groups=G)
+
+            with member_math.routing("grouped"):
+                port[G] = grads(member, xg, wg, gyg)
+            ref = grads(plain, xg.double(), wg.double(), gyg.double())
+            mag = grads(plain, xg.double().abs(), wg.double().abs(),
+                        gyg.double().abs())
+            got = (*port[G], cudnn_wgrad())
+            errs = [float(((g.double() - r).abs() / m.clamp_min(1e-300))
+                          .max()) / 2.0 ** -24
+                    for g, r, m in zip(got, (*ref, ref[2]), (*mag, mag[2]))]
+            times = ""
+            if G == 4:
+                leaf = wg.clone().requires_grad_(True)
+                with member_math.routing("grouped"):
+                    y = member(xg, leaf)     # backward: the weight gradient
+                ms_port = timed(lambda: torch.autograd.grad(
+                    y, leaf, gyg, retain_graph=True))
+                ms_cudnn = timed(cudnn_wgrad)
+                del y, leaf
+                times = (f"; wgrad {ms_port:.3f} ms (port), {ms_cudnn:.3f} "
+                         f"ms (cuDNN)")
+            log(f"[lane-ops] {name} groups {G} (n={n}, {c_in}->{c_out}, "
+                f"{hw}x{hw}) vs float64, max |err|/sum|terms| in u=2^-24: "
+                f"fwd {errs[0]:.1f}, dgrad {errs[1]:.1f}, wgrad {errs[2]:.1f} "
+                f"(cuDNN's own wgrad {errs[3]:.1f}); gate {CONV_GATE_U}"
+                f"{times}")
+            if not max(errs[:3]) <= CONV_GATE_U:
+                raise AssertionError(
+                    f"{name} groups {G}: the port's convolution misses "
+                    f"float64 by {max(errs[:3]):.1f} u > {CONV_GATE_U}")
+        (y4, dx4, dw4), (y12, dx12, dw12) = port[4], port[12]
+        gaps = [float((wide - narrow).abs().max()) for wide, narrow in (
+            (y12[:, :4 * c_out], y4), (dx12[:, :4 * c_in], dx4),
+            (dw12[:4 * c_out], dw4))]
+        log(f"[lane-ops] {name} groups 4 vs the first 4 of 12: max |diff| "
+            f"fwd {gaps[0]:.3e}, dgrad {gaps[1]:.3e}, wgrad {gaps[2]:.3e}")
+    M, K, N = FC_SHAPES["fc0"]
+    a, b = _rand(torch, rng, (12, M, K), dev), _rand(torch, rng, (12, K, N), dev)
+    g = _rand(torch, rng, (12, M, N), dev)
+    gaps = []
+    for lhs, rhs in ((a, b), (a.transpose(1, 2), g), (g, b.transpose(1, 2))):
+        wide = gm.grouped_matmul(lhs, rhs)[:4]
+        gaps.append(float((gm.grouped_matmul(lhs[:4], rhs[:4]) - wide)
+                          .abs().max()))
+        gaps.append(gm.split_k(lhs.shape[1], rhs.shape[2], lhs.shape[2])[0])
+    log(f"[lane-ops] grouped_matmul fc0 G=4 vs the first 4 of G=12: max "
+        f"|diff| fwd {gaps[0]:.3e} (split {gaps[1]}), dW {gaps[2]:.3e} "
+        f"(split {gaps[3]}), dx {gaps[4]:.3e} (split {gaps[5]})")
+
+
+def phase_full_width(torch, smi: str) -> dict:
+    """Phase 7c, ``paper-cifar10-cnn`` at full width, cohort engine with
+    ``member_kernel="grouped"``, horizon ``POLICY_HORIZON``:
+
+    * determinism: the FedPSA run with cuDNN's deterministic flag on, off
+      (``setup_device`` sets it; the off run clears it after), and on
+      again; the two runs with it on must give bit-equal digest streams
+      and accuracies;
+    * a 1-lane FedPSA sweep, which must be bit-equal to the standalone run
+      (the same shapes throughout);
+    * a 3-lane FedPSA sweep (data seeds ``FULL_SWEEP_SEEDS``, gamma
+      ``FULL_SWEEP_GAMMA``) with exact launch counts, s/receive and peak
+      device memory; lane 0 is the standalone run's configuration and must
+      stay within the lane tolerance of it (checked after FedAvg, so that
+      the phase prints all it measured first), and the wave's ops are
+      checked at the standalone and the sweep's widths
+      (``_lane_op_gaps``);
+    * ``run_fedavg``.
+
+    Returns the 3-lane sweep's and FedAvg's launch counts by path name."""
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated import simulator
+    cfg, clients, test, calib, params = _main_world(torch)
+    sim = simulator.SimConfig(engine="cohort", member_kernel="grouped",
+                              record_trajectory=True,
+                              **{**MAIN_SIM, "horizon": POLICY_HORIZON})
+    engines = []
+    make_engine, setup = simulator._make_cohort_engine, simulator.setup_device
+
+    def capture_engine(*a, **kw):
+        engines.append(make_engine(*a, **kw))
+        return engines[-1]
+
+    def setup_nondeterministic(name):
+        dev = setup(name)
+        torch.backends.cudnn.deterministic = False
+        return dev
+
+    def fedpsa():
+        return simulator.run_algorithm("fedpsa", cfg, params, clients, test,
+                                       sim, psa_cfg=PSAConfig(),
+                                       calib_batch=calib)
+
+    def sweep(seeds, gammas):
+        return simulator.run_sweep(
+            "fedpsa", cfg, params, clients, test, sim,
+            simulator.SweepConfig(data_seeds=seeds, policy_params=[
+                {"gamma": g} for g in gammas]),
+            psa_cfg=PSAConfig(), calib_batch=calib)
+
+    simulator._make_cohort_engine = capture_engine
+    runs = {}
+    try:
+        for label in ("on", "off", "on again"):
+            simulator.setup_device = (setup_nondeterministic
+                                      if label == "off" else setup)
+            engines.clear()
+            res, wall, mem, counts = _timed_run(torch, fedpsa)
+            flag = torch.backends.cudnn.deterministic
+            (engine,) = engines
+            want = {**_want_launches("fedpsa", "l2", res),
+                    "grouped_matmul": CNN_GM_PER_STEP * engine.steps_run}
+            if counts != want or flag != (label != "off"):
+                raise AssertionError(f"determinism {label}: launches {counts}"
+                                     f" != {want} or flag {flag}")
+            runs[label] = (res, wall, counts)
+            log(f"[determinism] fedpsa cohort/grouped cudnn.deterministic="
+                f"{flag}: receives={res.dispatches} versions={res.versions} "
+                f"final={res.final_accuracy:.4f} wall={wall:.2f}s "
+                f"s/receive={wall / res.dispatches:.4f} {mem} on {smi}")
+            del engine, res
+        simulator.setup_device = setup
+        on, off, again = (runs[k][0] for k in ("on", "off", "on again"))
+        if on.digests != again.digests or on.accuracies != again.accuracies:
+            raise AssertionError(
+                f"determinism: two runs with the flag on differ: "
+                f"{_gap_profile(again.digests, on.digests)}, accuracies "
+                f"{on.accuracies} vs {again.accuracies}")
+        s_on = [runs[k][1] / runs[k][0].dispatches for k in ("on", "on again")]
+        s_off = runs["off"][1] / off.dispatches
+        log(f"[determinism] the two runs with the flag on are bit-equal "
+            f"({len(on.digests)} digests, accuracies {on.accuracies}); the "
+            f"run with it off: {_gap_profile(off.digests, on.digests)}, "
+            f"final {off.final_accuracy:.4f}; s/receive on {s_on[0]:.4f}, "
+            f"{s_on[1]:.4f}, off {s_off:.4f} (on/off "
+            f"{np.mean(s_on) / s_off:.3f})")
+
+        engines.clear()
+        res, wall, mem, counts = _timed_run(
+            torch, lambda: sweep(FULL_SWEEP_SEEDS[:1], FULL_SWEEP_GAMMA[:1]))
+        if res.digests[0] != on.digests or \
+                res.lane_accuracies[0] != on.accuracies or \
+                counts != runs["on"][2]:
+            raise AssertionError(
+                f"1-lane sweep vs the standalone run: "
+                f"{_gap_profile(res.digests[0], on.digests)}; launches "
+                f"{counts} vs {runs['on'][2]}")
+        log(f"[sweep-full] fedpsa 1 lane: bit-equal to the standalone run "
+            f"(digests, accuracies, launches {counts}); wall={wall:.2f}s "
+            f"s/receive={wall / res.dispatches:.4f} {mem}")
+        del res
+
+        engines.clear()
+        S = len(FULL_SWEEP_SEEDS)
+        res, wall, mem, counts = _timed_run(
+            torch, lambda: sweep(FULL_SWEEP_SEEDS, FULL_SWEEP_GAMMA))
+        (engine,) = engines
+        want = {**_want_sweep_launches("fedpsa", "l2", res),
+                "grouped_matmul": CNN_GM_PER_STEP * engine.steps_run}
+        if counts != want or counts["grouped_matmul"] != \
+                runs["on"][2]["grouped_matmul"]:
+            raise AssertionError(f"sweep: launches {counts} != {want} (the "
+                                 f"standalone run: {runs['on'][2]})")
+        if res.dispatches != on.dispatches or res.versions != on.versions:
+            raise AssertionError("sweep: the shared timeline differs from "
+                                 "the standalone run's")
+        acc = np.asarray(res.final_accuracy)
+        if not (np.all(acc >= 0) and np.all(acc <= 1)):
+            raise AssertionError(f"sweep: accuracies {acc}")
+        log(f"[sweep-full] fedpsa {S} lanes (data seeds {FULL_SWEEP_SEEDS}, "
+            f"gamma {FULL_SWEEP_GAMMA}) cohort/grouped d={CIFAR_D}: "
+            f"receives={res.dispatches} versions={res.versions} "
+            f"cohorts={res.cohorts} finals={[round(float(a), 4) for a in acc]} "
+            f"wall={wall:.2f}s s/receive={wall / res.dispatches:.4f} "
+            f"({wall / (S * res.dispatches):.4f} a lane-receive; standalone "
+            f"{s_on[0]:.4f}, {s_on[1]:.4f}) {mem} launches={counts}")
+        lane0 = _lane_gap(res.digests[0], on.digests)
+        log(f"[sweep-full] lane 0 vs the standalone run: "
+            f"{_gap_profile(res.digests[0], on.digests)}; {lane0:.3e} of the "
+            f"lane tolerance (rtol {LANE_RTOL}, atol {LANE_ATOL}); final "
+            f"{acc[0]:.4f} vs {on.final_accuracy:.4f}")
+        sweep_counts = counts
+        del engine, res
+        _lane_op_gaps(torch)
+
+        engines.clear()
+        res, wall, mem, counts = _timed_run(
+            torch, lambda: simulator.run_algorithm("fedavg", cfg, params,
+                                                   clients, test, sim))
+        (engine,) = engines
+        want = {"buffer_agg": 0, "sens_sketch": 0, "flash_attention": 0,
+                "grouped_matmul": CNN_GM_PER_STEP * engine.steps_run}
+        if counts != want or res.cohorts != res.versions or res.versions < 1:
+            raise AssertionError(f"fedavg: launches {counts} != {want}, "
+                                 f"rounds {res.versions} waves {res.cohorts}")
+        if not 0.0 <= res.final_accuracy <= 1.0:
+            raise AssertionError(f"fedavg: accuracy {res.final_accuracy}")
+        log(f"[fedavg-full] cohort/grouped d={CIFAR_D}: rounds={res.versions} "
+            f"dispatches={res.dispatches} final={res.final_accuracy:.4f} "
+            f"wall={wall:.2f}s s/receive={wall / res.dispatches:.4f} {mem} "
+            f"launches={counts}")
+        del engine, res
+        if not lane0 <= 1.0:
+            raise AssertionError(f"sweep: lane 0 ends {lane0:.3e} x the lane "
+                                 f"tolerance from its standalone run")
+    finally:
+        simulator._make_cohort_engine = make_engine
+        simulator.setup_device = setup
+    return {"sweep": sweep_counts, "fedavg": counts}
 
 
 def _profile_run(torch, engine: str) -> None:
@@ -1278,9 +1872,11 @@ def phase_serve(torch, dev, smi: str):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     cfg = get_config(SERVE["arch"])
+    gc.collect()   # earlier phases' tensors in reference cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     res = serve.main(["--arch", SERVE["arch"], "--batch", str(SERVE["batch"]),
@@ -1305,7 +1901,8 @@ def phase_serve(torch, dev, smi: str):
         f"({res['decode_tok_s']:.1f} tok/s, "
         f"{1e3 * res['decode_s'] / res['decode_steps']:.2f} ms/step), "
         f"wall incl. init {wall:.2f}s, peak device memory "
-        f"{peak / 2**30:.2f} GiB, launches={counts} on {smi}")
+        f"{peak / 2**30:.2f} GiB ({live / 2**30:.2f} GiB live at the start), "
+        f"launches={counts} on {smi}")
     return counts, {"prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
                     "decode_tok_s": res["decode_tok_s"], "peak_bytes": peak}
 
@@ -1327,8 +1924,11 @@ def main() -> int:
     errs = phase_parity(torch, dev)
     timing = phase_timing(torch, dev)
     phase_golden(torch)
+    phase_sweeps_golden(torch)
+    phase_resume_fedavg(torch)
     by_path = {"sequential": phase_main(torch),
-               "cohort": phase_main_cohort(torch), **phase_policies(torch)}
+               "cohort": phase_main_cohort(torch), **phase_policies(torch),
+               **phase_full_width(torch, smi)}
     # the timed serve runs come before any profiler session, so no profiler
     # state is live while they run
     serve_check = phase_serve_checks(torch, dev)

@@ -20,6 +20,13 @@ def setup_device(name: str) -> torch.device:
         # tolerance; parity runs in full float32.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        # Checkpoint/resume promises that a resumed run equals the unbroken
+        # one, and a sweep lane that it equals its standalone run: both need
+        # bit-reproducible convolutions, so cuDNN may pick only
+        # deterministic algorithms, and no autotuning (which may pick
+        # another algorithm from one process to the next).
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
     return dev

@@ -16,8 +16,10 @@
 // compute with nothing in flight) gave the fc0 forward 24 blocks for 132
 // SMs and ~3 us per 16-deep K slab. Two changes:
 // - Deterministic split-K. The caller picks S slices of `slice` K values
-//   each (kernels/grouped_matmul.py split_k: enough blocks for two per SM,
-//   each slice at least 256 deep, S = 1 when the tiles fill the card). Pass
+//   each (kernels/grouped_matmul.py split_k, from one group's M, N and K
+//   alone, so a member's sums do not depend on G: enough blocks for two
+//   per SM at 4 groups, each slice at least 256 deep, S = 1 when the tiles
+//   fill the card). Pass
 //   1 runs one block per (group, 64 x 64 tile, slice); with S > 1 it writes
 //   the slice's f32 partial tile to a workspace (S, G, M, N), and pass 2
 //   (splitk_reduce) sums the S partials in the fixed order s = 0 .. S-1,

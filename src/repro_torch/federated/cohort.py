@@ -144,6 +144,26 @@ class CohortEngine:
                         n_steps)
         return (w - params_stack)[:B], w[:B]
 
+    def sweep_update(self, params_stack: torch.Tensor, cids: Sequence[int],
+                     lrs: Sequence[float], seeds_per_lane
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Train one wave for all S sweep lanes as one wave of S*B members.
+
+        ``params_stack`` is the ``(S, B, d)`` stack of per-lane dispatch
+        snapshots; ``cids``/``lrs`` are shared across lanes (the event
+        timeline is lane-invariant) and tiled S times; ``seeds_per_lane``
+        is ``(S, B)``. Returns ``(deltas, new_params)``, both ``(S, B,
+        d)``. Members are independent, so lane s is ``cohort_update`` on
+        that lane's snapshots and seeds; the wave pads to
+        ``bucket_size(S*B)`` (the grouped kernel's G) and runs the same
+        local steps as one lane alone, so it adds no launches."""
+        S, B, d = (int(n) for n in params_stack.shape)
+        deltas, w = self.cohort_update(
+            params_stack.reshape(S * B, d), np.tile(np.asarray(cids), S),
+            np.tile(np.asarray(lrs, np.float64), S),
+            np.asarray(seeds_per_lane).reshape(S * B))
+        return deltas.view(S, B, d), w.view(S, B, d)
+
     def _train(self, params_stack, cids, idx, valid, counts, lr_steps,
                n_steps: int) -> torch.Tensor:
         """Run local steps 0 .. n_steps-1 of the padded wave; (Bp, d)."""

@@ -1,8 +1,8 @@
 """Staleness-policy core of the port: every async server is one step.
 
-A ``Policy`` has an ``init`` building a ``ServerState`` (flat contiguous
-f32 parameter vector, fixed-size stacked ring buffers) and a
-``step(state, arrival) -> (state, updated, log_entry)``. As in the
+A ``Policy`` has an ``init(params, hyper)`` building a ``ServerState``
+(flat contiguous f32 parameter vector, fixed-size stacked ring buffers)
+and a ``step(state, arrival) -> (state, updated, log_entry)``. As in the
 reference (``repro.federated.policies``), hyperparameters live in
 ``ServerState.hyper``; here they are host floats, and the "buffer full"
 branch the reference takes under ``lax.cond`` is a host ``int``
@@ -18,6 +18,9 @@ the log entry, until ``PolicyServer.host_log`` reads the log.
 
 All seven policies of the reference: fedasync, fedbuff, fedpsa, ca2fl,
 fedfa, fedpac and asyncfeded (metrics l2, cosine and sketch).
+
+``state_arrays``/``load_state_arrays`` turn a ``ServerState`` into named
+host arrays and back (simulator checkpoints).
 """
 from __future__ import annotations
 
@@ -122,10 +125,14 @@ class Arrival(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class Policy:
+    """``hyper`` holds the factory-call hyperparameters: a standalone
+    server inits with them, a sweep lane with its overrides merged over
+    them (``servers.make_lane_server``)."""
     name: str
-    init: Callable[[Any], ServerState]
+    init: Callable[[Any, PolicyParams], ServerState]
     step: Callable[[ServerState, Arrival], tuple]   # -> (state, updated, log)
     spec: FlatSpec
+    hyper: PolicyParams = PolicyParams()
     sketch_k: int = 0
     needs_sketch: bool = False
     client_align: float = 0.0
@@ -163,11 +170,6 @@ def fedasync_policy(spec: FlatSpec, alpha: float = 0.6,
                     a: float = 0.5) -> Policy:
     """FedAsync: w <- (1-s)w + s*w_i with s = alpha*(1+tau)^-a, a host
     float."""
-    hyper = make_hyper(alpha=alpha, a=a)
-
-    def init(params) -> ServerState:
-        return base_state(spec, params, hyper)
-
     def step(state: ServerState, arr: Arrival):
         h = state.hyper
         s = aggregation.staleness_polynomial(arr.tau, h.alpha, h.a)
@@ -178,7 +180,8 @@ def fedasync_policy(spec: FlatSpec, alpha: float = 0.6,
         state.version += 1
         return state, True, _log_mix(arr.tau, s)
 
-    return Policy(name="fedasync", init=init, step=step, spec=spec)
+    return Policy(name="fedasync", init=functools.partial(base_state, spec),
+                  step=step, spec=spec, hyper=make_hyper(alpha=alpha, a=a))
 
 
 def asyncfeded_policy(spec: FlatSpec, alpha: float = 0.6, eps: float = 1e-8,
@@ -201,9 +204,6 @@ def asyncfeded_policy(spec: FlatSpec, alpha: float = 0.6, eps: float = 1e-8,
     hyper = make_hyper(alpha=alpha, eps=eps,
                        dist_mode="l2" if metric == "sketch" else metric)
 
-    def init(params) -> ServerState:
-        return base_state(spec, params, hyper)
-
     def step(state: ServerState, arr: Arrival):
         h = state.hyper
         dw = spec.flatten(arr.update)
@@ -220,7 +220,8 @@ def asyncfeded_policy(spec: FlatSpec, alpha: float = 0.6, eps: float = 1e-8,
         state.version += 1
         return state, True, _log_mix(arr.tau, s)
 
-    return Policy(name="asyncfeded", init=init, step=step, spec=spec)
+    return Policy(name="asyncfeded", init=functools.partial(base_state, spec),
+                  step=step, spec=spec, hyper=hyper)
 
 
 # ---------------------------------------------------------------------------
@@ -235,8 +236,8 @@ def _buffered_policy(name: str, spec: FlatSpec, buffer_size: int,
     ``scale_fn(arr, hyper) -> float`` is evaluated on the host."""
     L = buffer_size
 
-    def init(params) -> ServerState:
-        st = base_state(spec, params, hyper)
+    def init(params, h: PolicyParams) -> ServerState:
+        st = base_state(spec, params, h)
         st.ring = _ring(L, spec.size, st.params.device)
         return st
 
@@ -254,7 +255,7 @@ def _buffered_policy(name: str, spec: FlatSpec, buffer_size: int,
         state.ring.count = 0
         return state, True, None
 
-    return Policy(name=name, init=init, step=step, spec=spec,
+    return Policy(name=name, init=init, step=step, spec=spec, hyper=hyper,
                   client_align=client_align)
 
 
@@ -286,8 +287,8 @@ def fedpsa_policy(spec: FlatSpec, cfg: psa_lib.PSAConfig,
                        server_lr=cfg.server_lr,
                        use_thermometer=cfg.use_thermometer)
 
-    def init(params) -> ServerState:
-        st = base_state(spec, params, hyper)
+    def init(params, h: PolicyParams) -> ServerState:
+        st = base_state(spec, params, h)
         st.psa = psa_lib.init_state(cfg, spec.size, sketch_refresh(st.params),
                                     device=st.params.device)
         return st
@@ -308,7 +309,7 @@ def fedpsa_policy(spec: FlatSpec, cfg: psa_lib.PSAConfig,
         return state, True, log
 
     return Policy(name="fedpsa", init=init, step=step, spec=spec,
-                  sketch_k=cfg.sketch_k, needs_sketch=True)
+                  hyper=hyper, sketch_k=cfg.sketch_k, needs_sketch=True)
 
 
 def ca2fl_policy(spec: FlatSpec, num_clients: int, buffer_size: int = 5,
@@ -320,8 +321,8 @@ def ca2fl_policy(spec: FlatSpec, num_clients: int, buffer_size: int = 5,
     L = buffer_size
     hyper = make_hyper(server_lr=server_lr)
 
-    def init(params) -> ServerState:
-        st = base_state(spec, params, hyper)
+    def init(params, h: PolicyParams) -> ServerState:
+        st = base_state(spec, params, h)
         dev = st.params.device
         st.ring = _ring(L, spec.size, dev)
         st.cache = CacheState(
@@ -351,7 +352,8 @@ def ca2fl_policy(spec: FlatSpec, num_clients: int, buffer_size: int = 5,
         state.ring.count = 0
         return state, True, None
 
-    return Policy(name="ca2fl", init=init, step=step, spec=spec)
+    return Policy(name="ca2fl", init=init, step=step, spec=spec,
+                  hyper=hyper)
 
 
 def fedfa_policy(spec: FlatSpec, queue_len: int = 5,
@@ -379,8 +381,8 @@ def fedfa_policy(spec: FlatSpec, queue_len: int = 5,
             weights[key] = w
         return w
 
-    def init(params) -> ServerState:
-        st = base_state(spec, params, hyper)
+    def init(params, h: PolicyParams) -> ServerState:
+        st = base_state(spec, params, h)
         st.ring = _ring(L, spec.size, st.params.device)
         return st
 
@@ -395,7 +397,62 @@ def fedfa_policy(spec: FlatSpec, queue_len: int = 5,
         state.version += 1
         return state, True, None
 
-    return Policy(name="fedfa", init=init, step=step, spec=spec)
+    return Policy(name="fedfa", init=init, step=step, spec=spec,
+                  hyper=hyper)
+
+
+# ---------------------------------------------------------------------------
+# Server state as named host arrays (simulator checkpoints)
+# ---------------------------------------------------------------------------
+
+def _state_fields(state: ServerState):
+    """(name, holder, attribute) of every field a step reads; ``hyper``
+    comes from the policy factory and is not among them."""
+    yield "params", state, "params"
+    yield "version", state, "version"
+    if state.ring is not None:
+        yield "ring/data", state.ring, "data"
+        yield "ring/count", state.ring, "count"
+    if state.psa is not None:
+        p = state.psa
+        for attr in ("buffer", "kappas", "count", "global_sketch"):
+            yield f"psa/{attr}", p, attr
+        for attr in ("queue", "count", "m0"):
+            yield f"psa/thermo/{attr}", p.thermo, attr
+    if state.cache is not None:
+        for attr in ("data", "total", "valid"):
+            yield f"cache/{attr}", state.cache, attr
+
+
+def state_array_names(state: ServerState) -> list:
+    return [name for name, _, _ in _state_fields(state)]
+
+
+def state_arrays(state: ServerState) -> dict:
+    """name -> numpy array of every field of ``state`` a step reads."""
+    out = {}
+    for name, holder, attr in _state_fields(state):
+        v = getattr(holder, attr)
+        out[name] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                     else np.asarray(v))
+    return out
+
+
+def load_state_arrays(state: ServerState, arrays: dict) -> ServerState:
+    """Restore ``state_arrays`` output into a live state built by the same
+    policy: tensors as fresh tensors on the state's device and dtype, host
+    ints as ``int`` (a receive still costs no device sync) and the CA2FL
+    valid mask as a host bool array."""
+    for name, holder, attr in _state_fields(state):
+        cur, a = getattr(holder, attr), np.asarray(arrays[name])
+        if isinstance(cur, torch.Tensor):
+            new = torch.tensor(a, dtype=cur.dtype, device=cur.device)
+        elif isinstance(cur, np.ndarray):
+            new = a.astype(cur.dtype)
+        else:
+            new = int(a)
+        setattr(holder, attr, new)
+    return state
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Pluggable dispatch schedulers: WHO to dispatch and WHEN a slot relaunches.
 
 A copy of the reference's ``repro.federated.scheduler``, pinned to it
-stream-for-stream by the CPU tests. (The schedulers' checkpoint state
-round-trip arrives with the checkpoint port, ROADMAP.md.)
+stream-for-stream by the CPU tests, with its checkpoint round trip
+(``checkpointable``, ``state_arrays``).
 
 Historically the dispatch rule — "sample a client uniformly, relaunch the
 freed concurrency slot immediately" — was inlined twice, as twin
@@ -131,9 +131,18 @@ class Scheduler:
     stream and the scheduler-visible client state; then, per dispatch batch,
     ``launch_times`` maps slot-freed times to launch times (pure, no RNG)
     and ``select`` draws one client per launch (the only RNG consumer).
+
+    ``checkpointable`` says whether a simulator checkpoint can hold the
+    scheduler: true when its only mutable state is the bound RNG (which
+    checkpoints already persist), or when ``state_arrays`` /
+    ``load_state_arrays`` round-trip the rest (the staleness scheduler's
+    lag table). Checkpointed runs refuse the others up front. (The
+    reference spells this as two flags, ``stateless`` and
+    ``checkpoint_state``; checkpointable = stateless or checkpoint_state.)
     """
 
     name = "scheduler"
+    checkpointable = True
 
     def bind(self, *, num_clients: int, rng: np.random.RandomState,
              latency_means=None, avail_probs=None, data_sizes=None) -> None:
@@ -151,6 +160,18 @@ class Scheduler:
         """(n,) client ids for launches at ``ts`` with the given
         version-at-dispatch per slot. The ONLY method that may draw RNG."""
         raise NotImplementedError
+
+    def state_arrays(self) -> dict:
+        """The scheduler's incremental host state as name -> numpy array,
+        persisted by simulator checkpoints (nothing when there is none).
+        Stateless schedulers have nothing to persist."""
+        return {}
+
+    def load_state_arrays(self, arrays: dict) -> None:
+        """Restore ``state_arrays`` output into a bound scheduler."""
+        if arrays:
+            raise NotImplementedError(
+                f"scheduler {self.name!r} does not restore state")
 
 
 class UniformRefillScheduler(Scheduler):
@@ -222,6 +243,7 @@ class StalenessAwareScheduler(Scheduler):
     """
 
     name = "staleness"
+    checkpointable = True   # its lag table round-trips via state_arrays
 
     _REJECT_REFRESH = 16    # rejections before recomputing the lag floor
     _REJECT_EXACT = 64      # rejections before one exact O(C) fallback
@@ -257,6 +279,16 @@ class StalenessAwareScheduler(Scheduler):
         self._lv_floor = 0.0
         self.sample_stats = {"draws": 0, "proposals": 0,
                              "floor_refreshes": 0, "exact_fallbacks": 0}
+
+    # -- checkpoint round-trip ----------------------------------------------
+
+    def state_arrays(self) -> dict:
+        return {"last_version": np.asarray(self.last_version, np.float64),
+                "lv_floor": np.asarray([self._lv_floor], np.float64)}
+
+    def load_state_arrays(self, arrays: dict) -> None:
+        self.last_version[:] = np.asarray(arrays["last_version"], np.float64)
+        self._lv_floor = float(np.asarray(arrays["lv_floor"]).ravel()[0])
 
     # -- samplers ------------------------------------------------------------
 

@@ -16,6 +16,9 @@ the uploaded sensitivity sketch. Every version of the global model is its
 own tensor (policies never write it in place), so ``flat_params`` and
 ``params`` can hand it out without a copy: a dispatch snapshot taken now
 is still the same values after later receives.
+
+``LanePolicyServer`` holds S sweep lanes of one policy, each a
+``PolicyServer`` with its own hyperparameters, over one shared timeline.
 """
 from __future__ import annotations
 
@@ -33,12 +36,14 @@ class PolicyServer:
     """Owns the ``ServerState`` of one ``Policy``, turns metas into
     ``Arrival``s and keeps the per-update log the benchmarks read."""
 
-    def __init__(self, policy: pol.Policy, params):
+    def __init__(self, policy: pol.Policy, params,
+                 hyper: Optional[pol.PolicyParams] = None):
         self.policy = policy
         self.name = policy.name
         self.needs_sketch = policy.needs_sketch
         self.client_align = policy.client_align
-        self.state = policy.init(params)
+        self.state = policy.init(params,
+                                 policy.hyper if hyper is None else hyper)
         self.log: List[dict] = []
         self._tree_cache = None
         self._tree_cache_version = -1
@@ -62,6 +67,12 @@ class PolicyServer:
     @property
     def psa(self) -> Optional[psa_lib.PSAState]:
         return self.state.psa
+
+    def load_state_arrays(self, arrays: dict) -> None:
+        """Restore ``policies.state_arrays`` output (a checkpoint) into this
+        server."""
+        pol.load_state_arrays(self.state, arrays)
+        self._tree_cache_version = -1
 
     def receive(self, delta, client_params, meta) -> bool:
         """Ingest one completion; returns whether the global model moved."""
@@ -125,6 +136,81 @@ class PolicyServer:
         return updated, taus, snapshots
 
 
+class LanePolicyServer:
+    """S experiment lanes of one policy over one shared event timeline.
+
+    Each lane is a ``PolicyServer`` with its own ``ServerState``, built by
+    the policy's ``init`` with that lane's ``PolicyParams``, so every lane
+    runs the standalone server's code. ``receive_many`` steps the lanes in
+    lane order over their own ``(B, d)`` rows (one ``buffer_agg`` launch
+    per lane and per apply). Every policy's update decision depends only on
+    arrival counts, never on values, so the ``updated`` flags and the
+    version are the same in every lane (asserted at ingest)."""
+
+    def __init__(self, policy: pol.Policy, params_per_lane,
+                 hypers: List[pol.PolicyParams]):
+        if len(params_per_lane) != len(hypers) or not hypers:
+            raise ValueError("one params tree and one hyper record a lane")
+        self.policy = policy
+        self.name = policy.name
+        self.needs_sketch = policy.needs_sketch
+        self.client_align = policy.client_align
+        self.num_lanes = len(hypers)
+        self.lanes = [PolicyServer(policy, p, h)
+                      for p, h in zip(params_per_lane, hypers)]
+        self._flat = None
+        self._flat_version = -1
+
+    @property
+    def version(self) -> int:
+        return self.lanes[0].version
+
+    @property
+    def flat_params(self) -> torch.Tensor:
+        """(S, d) stack of the lanes' global vectors: a fresh tensor per
+        version, never written in place (dispatch snapshots hold it)."""
+        if self._flat_version != self.version:
+            self._flat = torch.stack([l.flat_params for l in self.lanes])
+            self._flat_version = self.version
+        return self._flat
+
+    def receive_many(self, deltas, client_params, client_ids, data_sizes,
+                     v_dispatch, sketches=None):
+        """B completions for every lane: ``deltas``/``client_params`` (and
+        ``sketches``) are ``(S, B, ...)`` stacks, the scalar arrival fields
+        are shared. Returns ``(updated (B,) bool, taus, snapshots (S, B,
+        d))``, ``PolicyServer.receive_many``'s contract with a lane axis."""
+        S = int(deltas.shape[0])
+        if S != self.num_lanes:
+            raise ValueError(f"{S} lanes of rows for {self.num_lanes} lanes")
+        if self.needs_sketch and sketches is None:
+            raise KeyError(f"{self.name} requires behavioral sketches")
+        out = [lane.receive_many(deltas[s], client_params[s], client_ids,
+                                 data_sizes, v_dispatch,
+                                 None if sketches is None else sketches[s])
+               for s, lane in enumerate(self.lanes)]
+        updated, taus, _ = out[0]
+        # the lane contract: update decisions are count-driven, never
+        # value-driven, so they cannot diverge across lanes
+        if any(not np.array_equal(u, updated) for u, _, _ in out):
+            raise AssertionError("policy update decisions diverged across "
+                                 "sweep lanes")
+        snaps = torch.stack([r for _, _, rows in out for r in rows])
+        return updated, taus, snaps.view(S, len(taus), -1)
+
+
+def _policy(name: str, spec: FlatSpec, num_clients: int,
+            psa_cfg: Optional[psa_lib.PSAConfig],
+            sketch_fn: Optional[Callable], kw: dict) -> pol.Policy:
+    refresh = None
+    if name == "fedpsa":
+        if psa_cfg is None or sketch_fn is None:
+            raise ValueError("fedpsa needs psa_cfg and sketch_fn")
+        refresh = lambda vec: sketch_fn(spec.unflatten(vec))  # noqa: E731
+    return pol.make_policy(name, spec, num_clients=num_clients,
+                           psa_cfg=psa_cfg, sketch_refresh=refresh, **kw)
+
+
 def make_server(name: str, params, *, num_clients: int = 50,
                 psa_cfg: Optional[psa_lib.PSAConfig] = None,
                 sketch_fn: Optional[Callable] = None, mesh=None,
@@ -136,12 +222,25 @@ def make_server(name: str, params, *, num_clients: int = 50,
         raise NotImplementedError(
             "the mesh-sharded server is not ported to repro_torch "
             "(ROADMAP.md Queue 1 item 9)")
-    spec = FlatSpec(params)
-    refresh = None
-    if name == "fedpsa":
-        if psa_cfg is None or sketch_fn is None:
-            raise ValueError("fedpsa needs psa_cfg and sketch_fn")
-        refresh = lambda vec: sketch_fn(spec.unflatten(vec))  # noqa: E731
-    policy = pol.make_policy(name, spec, num_clients=num_clients,
-                             psa_cfg=psa_cfg, sketch_refresh=refresh, **kw)
+    policy = _policy(name, FlatSpec(params), num_clients, psa_cfg, sketch_fn,
+                     kw)
     return PolicyServer(policy, params)
+
+
+def make_lane_server(name: str, params_per_lane, lane_hypers, *,
+                     num_clients: int = 50,
+                     psa_cfg: Optional[psa_lib.PSAConfig] = None,
+                     sketch_fn: Optional[Callable] = None,
+                     **kw) -> LanePolicyServer:
+    """Build the lane server for one algorithm. ``params_per_lane`` is a
+    list of S trees of one layout; ``lane_hypers`` a list of S dicts of
+    per-lane overrides (``PolicyParams`` field names, e.g. ``{"alpha":
+    0.3}`` or ``{"gamma": 0.1, "use_thermometer": False}``) merged over the
+    policy's factory values. Structural kwargs (buffer_size, psa_cfg
+    shapes, ...) are shared by all lanes; ``make_hyper`` rejects them per
+    lane."""
+    policy = _policy(name, FlatSpec(params_per_lane[0]), num_clients,
+                     psa_cfg, sketch_fn, kw)
+    hypers = [pol.make_hyper(**{**policy.hyper._asdict(), **(over or {})})
+              for over in lane_hypers]
+    return LanePolicyServer(policy, params_per_lane, hypers)

@@ -17,13 +17,17 @@ order, versions and eval times.
 
 Every async policy of the reference runs on both engines (fedasync,
 fedbuff, fedpsa, ca2fl, fedfa, fedpac, asyncfeded; ``server_kwargs`` reach
-the policy, e.g. asyncfeded's ``metric=``). Runs on ``SimConfig.device`` —
+the policy, e.g. asyncfeded's ``metric=``), with checkpoint/resume
+(``SimConfig.checkpoint_dir``/``checkpoint_every``/``resume``). Beside
+``run_async``: ``run_fedavg`` (synchronous FedAvg, both engines, with
+``prox``) and ``run_sweep`` (S lanes of one async policy over one shared
+event timeline, on the cohort engine). Runs on ``SimConfig.device`` —
 the CUDA card by default, where the kernels launch: ``buffer_agg`` for
-each buffered apply (every receive under fedfa), ``sens_sketch`` for
-FedPSA's sketches and asyncfeded's ``metric="sketch"``, and
-``grouped_matmul`` under ``member_kernel="grouped"``; ``device="cpu"``
-runs their plain versions. Paths that are not ported yet (sharded meshes,
-streaming shards, checkpoints, sweeps, synchronous FedAvg) raise
+each buffered apply (every receive under fedfa; once per lane in a
+sweep), ``sens_sketch`` for FedPSA's sketches and asyncfeded's
+``metric="sketch"``, and ``grouped_matmul`` under
+``member_kernel="grouped"``; ``device="cpu"`` runs their plain versions.
+Paths that are not ported yet (sharded meshes, streaming shards) raise
 ``NotImplementedError`` naming ROADMAP.md; none of them falls back to
 another path.
 """
@@ -35,13 +39,16 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.common.device import setup_device
 from repro_torch.common.tree import FlatSpec, tree_leaves, tree_map
 from repro_torch.core import psa as psa_lib
 from repro_torch.data.loader import ClientDataset, StackedClients
 from repro_torch.federated import client as client_lib
+from repro_torch.federated import policies as pol
 from repro_torch.federated import servers as servers_lib
 from repro_torch.federated.cohort import CohortEngine
+from repro_torch.federated.latency import STREAM_SYNC_CHOICE, _subseed
 from repro_torch.federated.scheduler import (Dispatcher, make_scheduler,
                                              make_streams)
 from repro_torch.federated.timeline import Timeline
@@ -82,7 +89,15 @@ class SimConfig:
     # backward.
     member_kernel: str = "vmap"        # "vmap" | "grouped"
     shard_size: int = 0                # > 0 (streaming slabs) is not ported
-    checkpoint_dir: Optional[str] = None  # checkpoints are not ported
+    # Periodic snapshots (checkpoint.store layout): every
+    # ``checkpoint_every`` virtual-time units the run persists the server
+    # state, the host RNG streams, the in-flight events with their dispatch
+    # snapshots, and the metric/digest streams under ``checkpoint_dir``;
+    # ``resume=True`` restores the latest snapshot and reproduces the rest
+    # of the run exactly. Single runs only (sweeps are not checkpointed).
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: float = 0.0
+    resume: bool = False
     mesh: Optional[object] = None      # the sharded server is not ported
     record_trajectory: bool = False
     # Where the run executes. "cuda" needs a card and raises without one;
@@ -130,9 +145,6 @@ def _check_ported(sim: SimConfig) -> None:
     if sim.shard_size > 0:
         raise _unported("SimConfig.shard_size > 0 (streaming slabs)",
                         "Queue 1 item 8")
-    if sim.checkpoint_dir:
-        raise _unported("SimConfig.checkpoint_dir (checkpoint/resume)",
-                        "Queue 1 item 6")
 
 
 def _resolve_engine(sim: SimConfig, cfg: ModelConfig) -> str:
@@ -146,21 +158,43 @@ def _resolve_engine(sim: SimConfig, cfg: ModelConfig) -> str:
     return sim.engine
 
 
-def _build_eval(cfg: ModelConfig, test_ds, sim: SimConfig, device):
-    """Accuracy over ``eval_batches`` fixed test batches (the reference's
+def _eval_batches(cfg: ModelConfig, test_ds, sim: SimConfig, device):
+    """The ``eval_batches`` fixed test batches (the reference's
     ``RandomState(1234)`` draw), held on ``device``."""
     fam = registry.get_family(cfg)
     rng = np.random.RandomState(1234)
     n = len(test_ds)
     bs = min(sim.eval_batch_size, n)
     idxs = [rng.choice(n, size=bs, replace=False) for _ in range(sim.eval_batches)]
-    batches = [fam.batch_fn(test_ds.x[ix], test_ds.y[ix], device) for ix in idxs]
+    return fam, [fam.batch_fn(test_ds.x[ix], test_ds.y[ix], device)
+                 for ix in idxs]
+
+
+def _build_eval(cfg: ModelConfig, test_ds, sim: SimConfig, device):
+    """params tree -> accuracy over the fixed test batches."""
+    fam, batches = _eval_batches(cfg, test_ds, sim, device)
 
     def evaluate(params) -> float:
         with torch.no_grad():
             accs = torch.stack([fam.eval_accuracy(params, b, cfg)
                                 for b in batches])
         return float(np.mean(accs.cpu().numpy().astype(np.float64)))
+
+    return evaluate
+
+
+def _build_eval_lanes(cfg: ModelConfig, test_ds, sim: SimConfig,
+                      spec: FlatSpec, device):
+    """(S, d) flat lane models -> (S,) accuracies on ``_build_eval``'s
+    batches, each lane's as the standalone run's."""
+    fam, batches = _eval_batches(cfg, test_ds, sim, device)
+
+    def evaluate(flat_stack) -> np.ndarray:
+        with torch.no_grad():
+            accs = torch.stack([torch.stack([
+                fam.eval_accuracy(spec.unflatten(row), b, cfg)
+                for b in batches]) for row in flat_stack])
+        return np.mean(accs.cpu().numpy().astype(np.float64), axis=1)
 
     return evaluate
 
@@ -226,6 +260,179 @@ def make_digest_fn(d: int) -> Callable:
     return fn
 
 
+# ---------------------------------------------------------------------------
+# Checkpoints (SimConfig.checkpoint_dir / checkpoint_every / resume)
+# ---------------------------------------------------------------------------
+# A snapshot is taken at a wave boundary (all receives applied): the server
+# state (``policies.state_arrays``), the three host RNG streams (dispatch,
+# latency jitter, availability), the in-flight events with their dispatch
+# snapshots as one (n, d) stack, and the metric, digest and receive-log
+# streams: enough to restore mid-run and reproduce the rest of the run
+# exactly. Every draw of a run comes from these numpy streams (client batch
+# shuffles are seeded per dispatch), so no torch RNG state is saved. The
+# policy's per-update log is not persisted: a resumed run's covers only
+# the part after the resume.
+
+def _rng_pack(rng: np.random.RandomState) -> dict:
+    kind, keys, pos, has_gauss, cached = rng.get_state()
+    assert kind == "MT19937"
+    return {"keys": np.asarray(keys, np.uint32),
+            "pos": np.int64(pos), "has_gauss": np.int64(has_gauss),
+            "cached": np.float64(cached)}
+
+
+def _rng_unpack(rng: np.random.RandomState, packed: dict) -> None:
+    rng.set_state(("MT19937", np.asarray(packed["keys"], np.uint32),
+                   int(packed["pos"]), int(packed["has_gauss"]),
+                   float(packed["cached"])))
+
+
+def _event_snapshot_vec(ev, spec: FlatSpec) -> torch.Tensor:
+    """One in-flight event's dispatch snapshot as a flat (d,) tensor: a
+    ``(rows, i)`` reference of the cohort engine resolved, a params tree
+    of the sequential engine flattened."""
+    s = ev.snapshot
+    if isinstance(s, tuple):
+        return s[0][s[1]]
+    if isinstance(s, torch.Tensor):
+        return s
+    return spec.flatten(s)
+
+
+_RNG_KEYS = ("keys", "pos", "has_gauss", "cached")
+_EVENT_KEYS = ("t_done", "seq", "cid", "version", "ok", "snapshots")
+
+
+def _ckpt_save(sim: SimConfig, server, streams, timeline, scheduler,
+               result: SimResult, t: float, next_eval: float,
+               seq: int) -> str:
+    spec = server.policy.spec
+    events = timeline.events()
+    tree = {
+        "server": pol.state_arrays(server.state),
+        "events": {
+            "t_done": np.asarray([e.t_done for e in events], np.float64),
+            "seq": np.asarray([e.seq for e in events], np.int64),
+            "cid": np.asarray([e.cid for e in events], np.int64),
+            "version": np.asarray([e.version for e in events], np.int64),
+            "ok": np.asarray([e.ok for e in events], bool),
+            "snapshots": torch.stack([_event_snapshot_vec(e, spec)
+                                      for e in events]),
+        },
+        "rng": _rng_pack(streams.rng),
+        "lat_rng": _rng_pack(streams.latency.rng),
+        "avail_rng": _rng_pack(streams.avail_rng),
+        "counters": np.asarray(
+            [t, next_eval, seq, result.dispatches, result.launched,
+             result.dropped, result.cohorts, server.version], np.float64),
+        "times": np.asarray(result.times, np.float64),
+        "accuracies": np.asarray(result.accuracies, np.float64),
+        "digests": np.asarray(result.digests, np.float64).reshape(-1, 2),
+        "receive_log": {
+            "t": np.asarray([r["t"] for r in result.receive_log], np.float64),
+            "tau": np.asarray([r["tau"] for r in result.receive_log],
+                              np.int64),
+            "client": np.asarray([r["client"] for r in result.receive_log],
+                                 np.int64),
+        },
+    }
+    if sched := scheduler.state_arrays():
+        tree["scheduler"] = sched
+    return store.save_pytree(tree, sim.checkpoint_dir, step=result.dispatches)
+
+
+def _ckpt_like(server, scheduler) -> dict:
+    """The structure ``store.load_pytree`` restores into (names only)."""
+    z = np.zeros((0,))
+    tree = {
+        "server": {k: z for k in pol.state_array_names(server.state)},
+        "events": {k: z for k in _EVENT_KEYS},
+        "rng": {k: z for k in _RNG_KEYS},
+        "lat_rng": {k: z for k in _RNG_KEYS},
+        "avail_rng": {k: z for k in _RNG_KEYS},
+        "counters": z, "times": z, "accuracies": z, "digests": z,
+        "receive_log": {k: z for k in ("t", "tau", "client")},
+    }
+    if sched := scheduler.state_arrays():
+        tree["scheduler"] = {k: z for k in sched}
+    return tree
+
+
+def _ckpt_restore(sim: SimConfig, server, streams, timeline, scheduler,
+                  result: SimResult, batched: bool, device):
+    """Restore the latest snapshot under ``sim.checkpoint_dir`` into the
+    live run and return ``(t, next_eval, seq)``, or None when there is no
+    snapshot (the run then starts fresh). The events' snapshots become
+    ``(rows, i)`` references into one (n, d) device tensor on the cohort
+    engine and params trees (views of its rows) on the sequential one."""
+    step = store.latest_step(sim.checkpoint_dir)
+    if step is None:
+        return None
+    tree = store.load_pytree(sim.checkpoint_dir, _ckpt_like(server, scheduler),
+                             step)
+    if "scheduler" in tree:
+        scheduler.load_state_arrays(tree["scheduler"])
+    server.load_state_arrays(tree["server"])
+    _rng_unpack(streams.rng, tree["rng"])
+    _rng_unpack(streams.latency.rng, tree["lat_rng"])
+    _rng_unpack(streams.avail_rng, tree["avail_rng"])
+    (t, next_eval, seq, dispatches, launched, dropped, cohorts,
+     version) = (float(v) for v in tree["counters"])
+    if int(version) != server.version:
+        raise ValueError(f"checkpoint step {step} under "
+                         f"{sim.checkpoint_dir!r}: counters at version "
+                         f"{int(version)}, server state at {server.version}")
+    ev = tree["events"]
+    snaps = torch.tensor(ev["snapshots"], dtype=torch.float32, device=device)
+    spec = server.policy.spec
+    timeline.clear()
+    refs = [(snaps, i) if batched else spec.unflatten(snaps[i])
+            for i in range(len(ev["seq"]))]
+    timeline.extend_arrays(ev["t_done"], ev["seq"], ev["cid"],
+                           ev["version"], ev["ok"], refs)
+    result.dispatches = int(dispatches)
+    result.launched = int(launched)
+    result.dropped = int(dropped)
+    result.cohorts = int(cohorts)
+    result.times = [float(x) for x in tree["times"]]
+    result.accuracies = [float(x) for x in tree["accuracies"]]
+    result.digests = [[float(x) for x in row] for row in tree["digests"]]
+    rl = tree["receive_log"]
+    result.receive_log = [
+        {"t": float(rl["t"][i]), "tau": int(rl["tau"][i]),
+         "client": int(rl["client"][i])} for i in range(len(rl["t"]))]
+    return t, next_eval, int(seq)
+
+
+def _fedpsa_sketch(server_name: str, cfg: ModelConfig, calib_batch,
+                   psa_cfg, device):
+    """``(psa_cfg, the one-tree sketch function)`` of a FedPSA run, and
+    ``(psa_cfg, None)`` for the other policies."""
+    if server_name != "fedpsa":
+        return psa_cfg, None
+    if calib_batch is None:
+        raise ValueError("fedpsa needs calib_batch")
+    psa_cfg = psa_cfg or psa_lib.PSAConfig()
+    return psa_cfg, make_sketch_fn(cfg, calib_batch, psa_cfg, device)
+
+
+def _concurrency(sim: SimConfig) -> int:
+    """Clients in flight at once (the clients of a FedAvg round)."""
+    return max(1, int(round(sim.concurrency * sim.num_clients)))
+
+
+def _dispatcher(sim: SimConfig, streams, scheduler, server, result,
+                client_datasets, batched: bool):
+    """``(timeline, data_sizes, Dispatcher)`` of an async run or a sweep
+    (whose batched dispatcher snapshots the (S, d) lane stack; the RNG
+    streams are a standalone run's, so is its timeline)."""
+    timeline = Timeline()
+    data_sizes = np.array([len(d) for d in client_datasets], np.float64)
+    return timeline, data_sizes, Dispatcher(
+        sim, streams, scheduler, timeline, server, result, batched=batched,
+        data_sizes=data_sizes)
+
+
 def run_async(server_name: str, cfg: ModelConfig, init_params,
               client_datasets: List[ClientDataset], test_ds,
               sim: SimConfig, *, psa_cfg: Optional[psa_lib.PSAConfig] = None,
@@ -236,17 +443,19 @@ def run_async(server_name: str, cfg: ModelConfig, init_params,
     _check_ported(sim)
     engine = _resolve_engine(sim, cfg)
     batched = engine == "cohort"
+    streams = make_streams(sim)
+    scheduler = make_scheduler(sim)
+    if sim.checkpoint_dir and not scheduler.checkpointable:
+        raise ValueError(
+            f"scheduler {scheduler.name!r} keeps host-side state beyond its "
+            f"RNG and does not implement the state_arrays checkpoint "
+            f"round-trip; drop checkpoint_dir or use a checkpointable "
+            f"scheduler")
     device = setup_device(sim.device)
     params = tree_map(lambda x: torch.as_tensor(x, dtype=torch.float32,
                                                 device=device), init_params)
-    streams = make_streams(sim)
-    scheduler = make_scheduler(sim)
-    sketch_fn = None
-    if server_name == "fedpsa":
-        psa_cfg = psa_cfg or psa_lib.PSAConfig()
-        if calib_batch is None:
-            raise ValueError("fedpsa needs calib_batch")
-        sketch_fn = make_sketch_fn(cfg, calib_batch, psa_cfg, device)
+    psa_cfg, sketch_fn = _fedpsa_sketch(server_name, cfg, calib_batch,
+                                        psa_cfg, device)
     server = servers_lib.make_server(
         server_name, params, num_clients=sim.num_clients, psa_cfg=psa_cfg,
         sketch_fn=sketch_fn, **(server_kwargs or {}))
@@ -254,25 +463,45 @@ def run_async(server_name: str, cfg: ModelConfig, init_params,
                  if sim.record_trajectory else None)
     evaluate = _build_eval(cfg, test_ds, sim, device)
     result = SimResult(engine=engine)
-    concurrency = max(1, int(round(sim.concurrency * sim.num_clients)))
-    timeline = Timeline()
-    data_sizes = np.array([len(d) for d in client_datasets], np.float64)
-    dispatcher = Dispatcher(sim, streams, scheduler, timeline, server,
-                            result, batched=batched, data_sizes=data_sizes)
-    dispatcher.dispatch_many(np.zeros(concurrency))
+    timeline, data_sizes, dispatcher = _dispatcher(
+        sim, streams, scheduler, server, result, client_datasets, batched)
+    t0 = next_eval0 = 0.0
+    resumed = None
+    if sim.checkpoint_dir and sim.resume:
+        resumed = _ckpt_restore(sim, server, streams, timeline, scheduler,
+                                result, batched, device)
+    if resumed is None:
+        dispatcher.dispatch_many(np.zeros(_concurrency(sim)))
+    else:
+        t0, next_eval0, dispatcher.seq = resumed
+
+    ckpt = None
+    if sim.checkpoint_dir and sim.checkpoint_every > 0:
+        nxt = [(np.floor(t0 / sim.checkpoint_every) + 1)
+               * sim.checkpoint_every]
+
+        def ckpt(timeline_, t_, next_eval_):
+            if t_ < nxt[0]:
+                return
+            _ckpt_save(sim, server, streams, timeline_, scheduler, result,
+                       t_, next_eval_, dispatcher.seq)
+            while nxt[0] <= t_:
+                nxt[0] += sim.checkpoint_every
+
+    start = dict(t0=t0, next_eval0=next_eval0, ckpt=ckpt)
     if batched:
         sketch_rows = (make_sketch_fn_flat(cfg, calib_batch, psa_cfg,
                                            server.policy.spec, device)
                        if server.needs_sketch else None)
         t = _drain_cohort(server, cfg, client_datasets, sim,
                           dispatcher.dispatch_many, timeline, evaluate, result,
-                          data_sizes, server.client_align, sketch_rows,
-                          receive_hook, digest_fn, device)
+                          data_sizes, sketch_rows, digest_fn, device,
+                          receive_hook=receive_hook, **start)
     else:
         t = _drain_sequential(server, cfg, client_datasets, sim,
                               dispatcher.dispatch, timeline, evaluate, result,
                               data_sizes, server.client_align, sketch_fn,
-                              receive_hook, digest_fn)
+                              receive_hook, digest_fn, **start)
     result.final_accuracy = evaluate(server.params)
     result.times.append(min(t, sim.horizon))
     result.accuracies.append(result.final_accuracy)
@@ -283,11 +512,15 @@ def run_async(server_name: str, cfg: ModelConfig, init_params,
 
 def _drain_sequential(server, cfg, client_datasets, sim: SimConfig, dispatch,
                       timeline, evaluate, result: SimResult, data_sizes,
-                      align, sketch_fn, receive_hook, digest_fn=None) -> float:
+                      align, sketch_fn, receive_hook, digest_fn=None, *,
+                      t0: float = 0.0, next_eval0: float = 0.0,
+                      ckpt=None) -> float:
     """The reference loop: one local_update per completion."""
-    next_eval = 0.0
-    t = 0.0
+    next_eval = next_eval0
+    t = t0
     while timeline and t < sim.horizon:
+        if ckpt is not None:
+            ckpt(timeline, t, next_eval)
         ev = timeline.pop()
         t = ev.t_done
         if t > sim.horizon:
@@ -338,62 +571,119 @@ def _make_cohort_engine(cfg, client_datasets, spec, sim: SimConfig, device,
 def _gather_snapshots(snaps) -> torch.Tensor:
     """Stack dispatch snapshots into (B, d). Entries are (d,) global
     vectors or ``(rows, i)`` references into a previous flush's
-    ``receive_many`` snapshot list."""
+    ``receive_many`` snapshot list (or a restored (n, d) tensor)."""
     return torch.stack([s[0][s[1]] if isinstance(s, tuple) else s
                         for s in snaps])
 
 
-def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
-                  dispatch_many, timeline, evaluate, result: SimResult,
-                  data_sizes, align, sketch_rows, receive_hook, digest_fn,
-                  device) -> float:
-    """Batched drain: train completion waves as single device batches;
-    ``sketch_rows`` (fedpsa) sketches a wave's (B, d) client models in one
-    call.
+def _gather_snapshots_lanes(snaps) -> torch.Tensor:
+    """Lane-stacked ``_gather_snapshots``: entries are ``(S, d)`` stacks or
+    ``(rows (S, n, d), i)`` references into a previous flush's snapshots.
+    Returns ``(S, B, d)``."""
+    return torch.stack([s[0][:, s[1]] if isinstance(s, tuple) else s
+                        for s in snaps], dim=1)
 
-    A wave is the maximal timeline prefix with ``t_done < t_first +
-    latency_lo`` (capped at ``sim.max_cohort``). Any dispatch issued while
-    the wave is being received completes no earlier than ``t_first +
-    latency_lo`` — and at an equal timestamp sorts after the wave by
-    ``seq`` — so training the wave up front observes exactly the
-    snapshots, learning rates and seeds the sequential engine would have
-    used.
+
+def _pop_wave(timeline, sim: SimConfig):
+    """Pop the next wave: the maximal timeline prefix with ``t_done <
+    t_first + latency_lo``, capped at ``sim.max_cohort``. Returns ``(wave,
+    t_over)``: ``t_over`` is the ``t_done`` of an event past the horizon
+    that ends the run (popped and discarded, like the sequential engine's
+    pop-then-break); the wave is empty when the first event is past it."""
+    first = timeline.pop()
+    if first.t_done > sim.horizon:
+        return [], first.t_done
+    bound = first.t_done + sim.latency_lo
+    wave = [first]
+    while (timeline and timeline.head_t() < bound
+           and len(wave) < sim.max_cohort):
+        ev = timeline.pop()
+        if ev.t_done > sim.horizon:
+            return wave, ev.t_done
+        wave.append(ev)
+    return wave, None
+
+
+def _redispatch(pending, cur, snaps, upd, version: int, result,
+                dispatch_many) -> None:
+    """The replacement dispatches of a flush as one timeline run: each
+    snapshots the global model as of *its* event (``(snaps, row)`` after
+    the event's receive, ``cur`` before the first), at its version."""
+    vcur = version - int(np.sum(upd))  # version before the flush
+    oi = 0
+    ts_, snaps_, vers_ = [], [], []
+    for ev in pending:
+        if ev.ok:
+            cur = (snaps, oi)
+            vcur += int(upd[oi])
+            oi += 1
+        else:
+            result.dropped += 1
+        ts_.append(ev.t_done)
+        snaps_.append(cur)
+        vers_.append(vcur)
+    dispatch_many(ts_, snaps_, vers_)
+    pending.clear()
+
+
+def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
+                  dispatch_many, timeline, evaluate, result, data_sizes,
+                  sketch_rows, digest_fn, device, *, data_seeds=None,
+                  receive_hook=None, t0: float = 0.0, next_eval0: float = 0.0,
+                  ckpt=None) -> float:
+    """Batched drain: train completion waves (``_pop_wave``) as single
+    device batches; ``sketch_rows`` (fedpsa) sketches a wave's client
+    models in one call.
+
+    Any dispatch issued while a wave is being received completes no
+    earlier than ``t_first + latency_lo`` — and at an equal timestamp sorts
+    after the wave by ``seq`` — so training the wave up front observes
+    exactly the snapshots, learning rates and seeds the sequential engine
+    would have used.
+
+    A sweep (``data_seeds``, one per lane; ``server`` a
+    ``LanePolicyServer``, ``result`` a ``SweepResult``) runs the same waves
+    and flushes — the timeline is lane-invariant — with a lane axis on
+    every tensor: the (S, B, d) snapshot stack trains as one wave
+    (``CohortEngine.sweep_update``), each lane's seeds from its data seed,
+    and ``evaluate`` takes the (S, d) lane stack. A single run's
+    ``evaluate`` takes the params tree.
     """
     spec = server.policy.spec
     engine = _make_cohort_engine(cfg, client_datasets, spec, sim, device,
-                                 align=align)
+                                 align=server.client_align)
+    lanes = data_seeds is not None
+    if lanes:
+        seed_base = np.asarray([int(s) * 100003 for s in data_seeds],
+                               np.int64)[:, None]
+        gather, train = _gather_snapshots_lanes, engine.sweep_update
+        lane_accs, lane_digests = result.lane_accuracies, result.digests
+    else:
+        seed_base = np.int64(sim.seed * 100003)
+        gather, train = _gather_snapshots, engine.cohort_update
+        lane_accs, lane_digests = [result.accuracies], [result.digests]
 
-    next_eval = 0.0
-    t = 0.0
+    next_eval = next_eval0
+    t = t0
     while timeline and t < sim.horizon:
-        first = timeline.pop()
-        if first.t_done > sim.horizon:
-            t = first.t_done       # mirror the sequential pop-then-break
+        if ckpt is not None:
+            ckpt(timeline, t, next_eval)
+        wave, t_over = _pop_wave(timeline, sim)
+        if not wave:
+            t = t_over
             break
-        bound = first.t_done + sim.latency_lo
-        wave = [first]
-        t_over = None
-        while (timeline and timeline.head_t() < bound
-               and len(wave) < sim.max_cohort):
-            ev = timeline.pop()
-            if ev.t_done > sim.horizon:
-                t_over = ev.t_done  # discarded, like the sequential break
-                break
-            wave.append(ev)
 
         ok_events = [ev for ev in wave if ev.ok]
         deltas = w_stack = sketches = None
         if ok_events:
-            d0 = result.dispatches
-            snapshots = _gather_snapshots([ev.snapshot for ev in ok_events])
-            cids = [ev.cid for ev in ok_events]
-            lrs = [sim.lr * (sim.lr_decay ** (d0 + r))
-                   for r in range(len(ok_events))]
-            seeds = [sim.seed * 100003 + (d0 + r)
-                     for r in range(len(ok_events))]
-            deltas, w_stack = engine.cohort_update(snapshots, cids, lrs, seeds)
+            d0, B = result.dispatches, len(ok_events)
+            lrs = [sim.lr * (sim.lr_decay ** (d0 + r)) for r in range(B)]
+            seeds = seed_base + (d0 + np.arange(B, dtype=np.int64))
+            deltas, w_stack = train(gather([ev.snapshot for ev in ok_events]),
+                                    [ev.cid for ev in ok_events], lrs, seeds)
             if sketch_rows is not None:
-                sketches = sketch_rows(w_stack)
+                sketches = sketch_rows(w_stack.reshape(-1, spec.size)).view(
+                    *w_stack.shape[:-1], -1)
             result.cohorts += 1
 
         # Receives are deferred into ``pending`` and flushed as one batched
@@ -426,44 +716,34 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
                     receive_hook(server, spec.unflatten(w_stack[r0]),
                                  spec.unflatten(deltas[r0]), meta, ev.t_done)
                 upd, taus, snaps = server.receive_many(
-                    deltas[r0:r1], w_stack[r0:r1], [ev.cid for ev in ok],
+                    deltas[..., r0:r1, :], w_stack[..., r0:r1, :],
+                    [ev.cid for ev in ok],
                     [float(data_sizes[ev.cid]) for ev in ok],
                     [ev.version for ev in ok],
-                    None if sketches is None else sketches[r0:r1])
+                    None if sketches is None else sketches[..., r0:r1, :])
                 if digest_fn is not None:
-                    rows = torch.stack(snaps).cpu().numpy()
-                    result.digests.extend(digest_fn(rows).tolist())
+                    rows = (snaps if lanes else torch.stack(snaps)).cpu()
+                    for out, r in zip(lane_digests,
+                                      rows.reshape(-1, *rows.shape[-2:])):
+                        out.extend(digest_fn(r.numpy()).tolist())
                 for ev, tau in zip(ok, taus):
                     result.receive_log.append(
                         {"t": ev.t_done, "tau": tau, "client": ev.cid})
                 result.dispatches += len(ok)
                 next_row = r1
-            vcur = server.version - int(np.sum(upd))  # version pre-flush
-            oi = 0
-            # replacement dispatches as one timeline run; each snapshots
-            # the global vector as of *its* event (snaps rows)
-            ts_, snaps_, vers_ = [], [], []
-            for ev in pending:
-                if ev.ok:
-                    cur = (snaps, oi)
-                    vcur += int(upd[oi])
-                    oi += 1
-                else:
-                    result.dropped += 1
-                ts_.append(ev.t_done)
-                snaps_.append(cur)
-                vers_.append(vcur)
-            dispatch_many(ts_, snaps_, vers_)
-            pending.clear()
+            _redispatch(pending, cur, snaps, upd, server.version, result,
+                        dispatch_many)
 
         for ev in wave:
             t = ev.t_done
             if next_eval <= t:
                 flush()
                 while next_eval <= t:
-                    acc = evaluate(server.params)
+                    accs = (evaluate(server.flat_params) if lanes
+                            else [evaluate(server.params)])
                     result.times.append(next_eval)
-                    result.accuracies.append(acc)
+                    for out, acc in zip(lane_accs, accs):
+                        out.append(float(acc))
                     next_eval += sim.eval_every
             pending.append(ev)
             if receive_hook is not None:
@@ -475,20 +755,260 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
     return t
 
 
+# ---------------------------------------------------------------------------
+# Sweep lanes: S variants of one async policy over one shared timeline
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SweepConfig:
+    """S experiment variants ("lanes") of one batched simulation.
+
+    All lanes share one event timeline (``SimConfig.timeline_seed``,
+    falling back to ``SimConfig.seed``): latency draws, client sampling,
+    dropout, wave boundaries and version bookkeeping are the same in every
+    lane. What may vary per lane:
+
+    * ``model_seeds`` — per-lane model-init seeds (``init_params`` is used
+      for every lane when None); a lane's weights are
+      ``init_params(torch.Generator().manual_seed(seed), cfg)``,
+    * ``data_seeds`` — per-lane client batch-shuffle seeds (``SimConfig
+      .seed`` for every lane when None),
+    * ``policy_params`` — per-lane dicts of timeline-preserving policy
+      hyperparameters (``federated.policies.PolicyParams`` field names:
+      alpha, a, server_lr, beta, gamma, delta, eps, use_thermometer,
+      dist_mode — the asyncfeded l2/cosine metric, "l2"/"cosine" accepted).
+
+    Shape-determining parameters (buffer_size, queue_len, sketch_k,
+    num_clients) and the client sketch program (use_sensitivity) are
+    structural: lanes share them (pass them via psa_cfg/server_kwargs).
+    """
+    num_lanes: Optional[int] = None
+    model_seeds: Optional[List[int]] = None
+    data_seeds: Optional[List[int]] = None
+    policy_params: Optional[List[Optional[dict]]] = None
+
+    def resolve(self, base_seed: int):
+        given = [x for x in (self.model_seeds, self.data_seeds,
+                             self.policy_params) if x is not None]
+        lens = {len(x) for x in given}
+        if self.num_lanes is not None:
+            lens.add(int(self.num_lanes))
+        if len(lens) > 1:
+            raise ValueError(
+                f"inconsistent lane counts in SweepConfig: {sorted(lens)}")
+        S = lens.pop() if lens else 1
+        if S < 1:
+            raise ValueError("a sweep needs at least one lane")
+        data_seeds = (list(self.data_seeds) if self.data_seeds is not None
+                      else [base_seed] * S)
+        hypers = (list(self.policy_params)
+                  if self.policy_params is not None else [None] * S)
+        model_seeds = (list(self.model_seeds)
+                       if self.model_seeds is not None else None)
+        return S, model_seeds, data_seeds, hypers
+
+
+@dataclass
+class SweepResult:
+    """A batched ``SimResult``: shared timeline counters and per-lane
+    streams. ``lane_accuracies[s]`` is lane s's learning curve over the
+    shared ``times`` grid, ``digests[s]`` its per-receive digest stream
+    (with ``record_trajectory``); ``lane(s)`` views one lane as a
+    ``SimResult``."""
+    num_lanes: int = 1
+    times: List[float] = field(default_factory=list)
+    lane_accuracies: List[List[float]] = field(default_factory=list)
+    final_accuracy: List[float] = field(default_factory=list)
+    versions: int = 0
+    dispatches: int = 0
+    launched: int = 0
+    dropped: int = 0
+    cohorts: int = 0
+    engine: str = "cohort"
+    receive_log: List[dict] = field(default_factory=list)
+    digests: List[List[List[float]]] = field(default_factory=list)
+
+    def lane(self, s: int) -> SimResult:
+        return SimResult(
+            times=list(self.times), accuracies=list(self.lane_accuracies[s]),
+            final_accuracy=self.final_accuracy[s], versions=self.versions,
+            dispatches=self.dispatches, launched=self.launched,
+            dropped=self.dropped, cohorts=self.cohorts, engine=self.engine,
+            receive_log=list(self.receive_log),
+            digests=[list(d) for d in self.digests[s]])
+
+    @property
+    def aulc(self) -> List[float]:
+        return [self.lane(s).aulc for s in range(self.num_lanes)]
+
+    def accuracy_mean_std(self):
+        a = np.asarray(self.final_accuracy, np.float64)
+        return float(a.mean()), float(a.std())
+
+
+def run_sweep(server_name: str, cfg: ModelConfig, init_params,
+              client_datasets: List[ClientDataset], test_ds,
+              sim: SimConfig, sweep: SweepConfig, *,
+              psa_cfg: Optional[psa_lib.PSAConfig] = None,
+              calib_batch: Optional[dict] = None,
+              server_kwargs: Optional[dict] = None) -> SweepResult:
+    """Run S variants of one async algorithm as one batched simulation.
+
+    One host event timeline drives every lane (see ``SweepConfig``); per
+    wave the cohort engine trains the ``(S, B, d)`` snapshot stack as one
+    wave of S*B members (``CohortEngine.sweep_update``), FedPSA sketches
+    the S*B client models in one ``sens_sketch`` launch, and the lane
+    server (``servers.LanePolicyServer``) ingests each lane's rows. Lane s
+    reproduces the standalone run with ``SimConfig(seed=data_seeds[s],
+    timeline_seed=<shared>)``, that lane's init and its hyper overrides,
+    within the lane tolerance (rtol 1e-5, atol 1e-4 on the digests;
+    ``tests/test_torch_sweep.py``, and ``chip_smoke.py`` at full width on
+    the card). Bit for bit only where no op's rounding depends on the
+    wave's width: FedPSA's sketch pass over S*B members runs through
+    cuBLAS, which rounds differently at another width.
+    """
+    if server_name == "fedavg":
+        raise ValueError("run_sweep batches the async policies; run the "
+                         "synchronous fedavg per seed instead")
+    if sim.mesh is not None:
+        raise ValueError("run_sweep is single-device; drop SimConfig.mesh")
+    if sim.checkpoint_dir:
+        raise ValueError("checkpointing supports single runs, not sweeps")
+    _check_ported(sim)
+    if _resolve_engine(sim, cfg) != "cohort":
+        raise ValueError(
+            "run_sweep requires the batched cohort engine (engine='cohort' "
+            "and a registered model family)")
+    S, model_seeds, data_seeds, lane_hypers = sweep.resolve(sim.seed)
+    device = setup_device(sim.device)
+    if model_seeds is not None:
+        inits = [model_lib.init_params(torch.Generator().manual_seed(int(s)),
+                                       cfg) for s in model_seeds]
+    else:
+        inits = [init_params] * S
+    params_lanes = [tree_map(lambda x: torch.as_tensor(
+        x, dtype=torch.float32, device=device), p) for p in inits]
+
+    streams = make_streams(sim)
+    scheduler = make_scheduler(sim)
+    psa_cfg, sketch_fn = _fedpsa_sketch(server_name, cfg, calib_batch,
+                                        psa_cfg, device)
+    server = servers_lib.make_lane_server(
+        server_name, params_lanes, lane_hypers, num_clients=sim.num_clients,
+        psa_cfg=psa_cfg, sketch_fn=sketch_fn, **(server_kwargs or {}))
+    spec = server.policy.spec
+    digest_fn = make_digest_fn(spec.size) if sim.record_trajectory else None
+    evaluate = _build_eval_lanes(cfg, test_ds, sim, spec, device)
+    result = SweepResult(num_lanes=S, lane_accuracies=[[] for _ in range(S)],
+                         digests=[[] for _ in range(S)])
+    timeline, data_sizes, dispatcher = _dispatcher(
+        sim, streams, scheduler, server, result, client_datasets, True)
+    dispatcher.dispatch_many(np.zeros(_concurrency(sim)))
+    sketch_rows = (make_sketch_fn_flat(cfg, calib_batch, psa_cfg, spec,
+                                       device)
+                   if server.needs_sketch else None)
+    t = _drain_cohort(server, cfg, client_datasets, sim,
+                      dispatcher.dispatch_many, timeline, evaluate, result,
+                      data_sizes, sketch_rows, digest_fn, device,
+                      data_seeds=data_seeds)
+    result.final_accuracy = [float(a) for a in evaluate(server.flat_params)]
+    result.times.append(min(t, sim.horizon))
+    for s in range(S):
+        result.lane_accuracies[s].append(result.final_accuracy[s])
+    result.versions = server.version
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Synchronous FedAvg
+# ---------------------------------------------------------------------------
+
+def run_fedavg(cfg: ModelConfig, init_params,
+               client_datasets: List[ClientDataset], test_ds,
+               sim: SimConfig, *, prox: float = 0.0) -> SimResult:
+    """Synchronous FedAvg: per round sample ``concurrency`` of the clients
+    (from their own ``STREAM_SYNC_CHOICE`` stream), wait for the slowest,
+    and add the deltas weighted by client data size (FedProx with ``prox >
+    0``). On the cohort engine a round trains as one wave from the flat
+    global vector, and the apply is ``flat + w @ deltas``."""
+    _check_ported(sim)
+    engine = _resolve_engine(sim, cfg)
+    batched = engine == "cohort"
+    device = setup_device(sim.device)
+    params = tree_map(lambda x: torch.as_tensor(x, dtype=torch.float32,
+                                                device=device), init_params)
+    streams = make_streams(sim)
+    # round sampling has its own stream: the bare dispatch stream belongs
+    # to the async schedulers
+    choice_rng = np.random.RandomState(
+        _subseed(streams.tseed, STREAM_SYNC_CHOICE))
+    evaluate = _build_eval(cfg, test_ds, sim, device)
+    result = SimResult(engine=engine)
+    m = _concurrency(sim)
+    data_sizes = np.array([len(d) for d in client_datasets], np.float64)
+    spec = FlatSpec(params)
+    if batched:
+        cohort = _make_cohort_engine(cfg, client_datasets, spec, sim, device,
+                                     prox=prox)
+        flat = spec.flatten(params)
+    t = 0.0
+    next_eval = 0.0
+    rnd = 0
+    while t < sim.horizon:
+        while next_eval <= t:
+            acc = evaluate(spec.unflatten(flat) if batched else params)
+            result.times.append(next_eval)
+            result.accuracies.append(acc)
+            next_eval += sim.eval_every
+        chosen = choice_rng.choice(sim.num_clients, size=m, replace=False)
+        result.launched += len(chosen)
+        round_time = float(streams.latency.sample_for(chosen).max())
+        if streams.use_trace or streams.use_avail:
+            ok = (streams.trace.on_at(chosen, np.full(m, t))
+                  if streams.use_trace
+                  else streams.avail_rng.rand(m) < streams.avail[chosen])
+            result.dropped += int(np.sum(~ok))
+            active = [int(c) for c, o in zip(chosen, ok) if o]
+        else:
+            active = [int(c) for c in chosen]
+        lr = sim.lr * (sim.lr_decay ** rnd)
+        if active:
+            sizes = np.asarray([data_sizes[c] for c in active], np.float32)
+            w = torch.from_numpy(sizes / np.sum(sizes)).to(device)
+            seeds = [sim.seed * 100003 + rnd * 51 + c for c in active]
+            if batched:
+                deltas, _ = cohort.cohort_update(
+                    flat.expand(len(active), -1), active,
+                    [lr] * len(active), seeds)
+                flat = flat + w @ deltas
+                result.cohorts += 1
+            else:
+                deltas = [client_lib.local_update(
+                    params, cfg, client_datasets[c], epochs=sim.local_epochs,
+                    batch_size=sim.batch_size, lr=lr, seed=s, prox=prox)[0]
+                    for c, s in zip(active, seeds)]
+                params = tree_map(
+                    lambda p, *ds: p + torch.sum(torch.stack(ds) * w.view(
+                        (-1,) + (1,) * p.dim()), 0), params, *deltas)
+        t += round_time
+        rnd += 1
+        result.dispatches += len(active)
+    result.final_accuracy = evaluate(spec.unflatten(flat) if batched
+                                     else params)
+    result.times.append(min(t, sim.horizon))
+    result.accuracies.append(result.final_accuracy)
+    result.versions = rnd
+    return result
+
+
 ALGORITHMS = ("fedavg", "fedasync", "fedbuff", "fedpsa", "ca2fl", "fedfa",
               "fedpac", "asyncfeded")
-
-
-def run_fedavg(*args, **kw) -> SimResult:
-    raise _unported("synchronous FedAvg (run_fedavg)", "Queue 1 item 6")
-
-
-def run_sweep(*args, **kw):
-    raise _unported("sweep lanes (run_sweep)", "Queue 1 item 7")
 
 
 def run_algorithm(name: str, cfg: ModelConfig, init_params, client_datasets,
                   test_ds, sim: SimConfig, **kw) -> SimResult:
     if name == "fedavg":
+        kw.pop("psa_cfg", None)
+        kw.pop("calib_batch", None)
         return run_fedavg(cfg, init_params, client_datasets, test_ds, sim, **kw)
     return run_async(name, cfg, init_params, client_datasets, test_ds, sim, **kw)

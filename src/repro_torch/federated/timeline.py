@@ -1,8 +1,8 @@
 """Run-merged event timeline: the simulator's event queue.
 
 A copy of the reference's ``repro.federated.timeline`` (the cohort
-engine's ``peek_wave_cids`` and the checkpoint helpers ``events``/``clear``
-arrive with those ports), pinned to it by the CPU tests.
+engine's ``peek_wave_cids`` arrives with the population path), pinned to
+it by the CPU tests.
 
 The legacy timeline was a ``heapq`` of ``_Event`` tuples — one python push
 per dispatch, one pop per completion. At C=10^5-10^6 with thousands of
@@ -113,3 +113,18 @@ class Timeline:
             heapq.heappush(self._heap, (run.t[j], run.seq[j], run, j))
         self._n -= 1
         return ev
+
+    def events(self) -> List[_Event]:
+        """All in-flight events in ``(t_done, seq)`` order (checkpointing)."""
+        out = []
+        for _, _, run, i in self._heap:
+            for j in range(i, run.seq.shape[0]):
+                out.append(_Event(float(run.t[j]), int(run.seq[j]),
+                                  int(run.cid[j]), run.snaps[j],
+                                  int(run.version[j]), bool(run.ok[j])))
+        out.sort(key=lambda e: (e.t_done, e.seq))
+        return out
+
+    def clear(self) -> None:
+        self._heap.clear()
+        self._n = 0

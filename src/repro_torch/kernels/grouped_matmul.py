@@ -15,7 +15,7 @@ output in the promoted dtype (bf16 x f32 -> f32); an optional per-group
 The kernel reads both operands through their strides, so transposed views
 cost no copy; bf16 operands are cast to f32 first (exact).
 
-The kernel splits K into ``split_k(G, M, N, K)`` slices: pass 1 computes
+The kernel splits K into ``split_k(M, N, K)`` slices: pass 1 computes
 each (group, 64 x 64 tile, slice) block, and for more than one slice a
 second pass sums the slices' f32 partials (a ``torch.empty`` workspace on
 the current stream) in the fixed order s = 0 .. S-1. No atomics, so
@@ -46,16 +46,22 @@ TILE = 64          # output tile edge of a pass-1 block
 SLAB = 32          # K depth of one shared-memory slab
 MIN_SLICE = 256    # K depth below which a slice is not worth its partials
 SMS = 132          # streaming multiprocessors of the H100 SXM
+# groups that split_k sizes the split for: the smallest wave of the image
+# bucket grid (federated.cohort.bucket_size), the cohort main path's usual G
+FILL_GROUPS = 4
 
 
-def split_k(G: int, M: int, N: int, K: int) -> Tuple[int, int]:
-    """(S, slice): the K slices of one call, a function of the shape alone.
+def split_k(M: int, N: int, K: int) -> Tuple[int, int]:
+    """(S, slice): the K slices of one group's product, a function of its
+    (M, N, K) alone, so a member's sums come out the same in a wave of any
+    width G (a sweep lane equals its standalone run).
 
-    Enough (group, tile, slice) blocks for two per SM, each slice a
-    multiple of the slab and at least ``MIN_SLICE`` deep (the last one
-    too), S * slice >= K > (S - 1) * slice; S = 1 when the tiles already
-    fill the card or K is too short to split."""
-    tiles = G * -(-M // TILE) * -(-N // TILE)
+    Enough (group, tile, slice) blocks for two per SM at ``FILL_GROUPS``
+    groups, each slice a multiple of the slab and at least ``MIN_SLICE``
+    deep (the last one too), S * slice >= K > (S - 1) * slice; S = 1 when
+    that many groups' tiles already fill the card or K is too short to
+    split. Wider waves get more blocks, not fewer slices."""
+    tiles = FILL_GROUPS * -(-M // TILE) * -(-N // TILE)
     S = max(1, min(-(-2 * SMS // tiles), K // MIN_SLICE))
     while True:
         depth = -(-K // S)
@@ -71,7 +77,7 @@ def pass1_blocks(G: int, M: int, N: int, K: int) -> int:
     the kernel's own launcher (builds the library, so it needs nvcc)."""
     blocks = _L()
     lib = _build.load("grouped_matmul", _SIG)
-    _build.check(lib.grouped_matmul_blocks(G, M, N, split_k(G, M, N, K)[0],
+    _build.check(lib.grouped_matmul_blocks(G, M, N, split_k(M, N, K)[0],
                                            ctypes.byref(blocks)),
                  "grouped_matmul_blocks")
     return blocks.value
@@ -119,7 +125,7 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
         raise ValueError(f"grouped_matmul: unsupported device {dev}")
     G, M, K = lhs.shape
     N = rhs.shape[2]
-    S, depth = split_k(G, M, N, K)
+    S, depth = split_k(M, N, K)
     if G * S > MAX_G or -(-M // TILE) > MAX_G:
         raise ValueError(f"grouped_matmul: G={G} or M={M} exceeds the grid")
     out = torch.empty((G, M, N), device=dev,

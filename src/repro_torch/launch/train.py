@@ -7,10 +7,16 @@ Runs one (algorithm x Dirichlet-alpha x latency setting) cell on the
 synthetic stand-in datasets, on the CUDA card by default (``--device
 cpu`` runs the kernels' plain versions), and writes the learning curve and
 summary JSON under ``--out``. Initial weights come from a
-``torch.Generator`` seeded with ``--seed``. Ported: ``fedpsa`` and
-``fedbuff`` on the cohort engine (the default, as in the reference) and
-the sequential engine, on the paper's image models; the rest raises
-``NotImplementedError`` naming ROADMAP.md.
+``torch.Generator`` seeded with ``--seed``. Every algorithm of the
+reference runs (``--alg``: synchronous ``fedavg`` and the seven async
+policies) on the cohort engine (the default, as in the reference) and the
+sequential engine, on the paper's image models; ``--arch`` of another
+family and ``--mesh`` are not ported (ROADMAP.md).
+
+``--sweep seeds=0,1,2`` (or ``--sweep gamma=0.1,1,5``, any
+``PolicyParams`` field) runs the variants as lanes of one batched
+simulation over a shared event timeline (``run_sweep``) and prints each
+lane's and the mean and std of the final accuracy.
 """
 from __future__ import annotations
 
@@ -26,7 +32,9 @@ from repro_torch.core.psa import PSAConfig
 from repro_torch.data import (ClientDataset, dirichlet_partition,
                               iid_partition, make_calibration_batch,
                               make_classification, train_test_split)
-from repro_torch.federated.simulator import ALGORITHMS, SimConfig, run_algorithm
+from repro_torch.federated.simulator import (ALGORITHMS, SimConfig,
+                                             SweepConfig, run_algorithm,
+                                             run_sweep)
 from repro_torch.models import model as model_lib
 
 
@@ -54,7 +62,7 @@ def build_task(model_name: str, num_samples: int, alpha: float,
     return cfg, clients, test, calib
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--alg", default="fedpsa", choices=ALGORITHMS)
     ap.add_argument("--arch", "--model", dest="model",
@@ -80,8 +88,14 @@ def main():
     ap.add_argument("--sketch-k", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--sweep", default=None, metavar="SPEC",
+                    help="run S variants as one batched simulation "
+                         "(run_sweep; lanes share the event timeline): "
+                         "'seeds=0,1,2' (per-lane model and shuffle seeds) "
+                         "or a policy hyperparameter grid such as "
+                         "'alpha=0.3,0.6,0.9' (PolicyParams field names)")
     ap.add_argument("--out", default="artifacts/runs_torch")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg, clients, test, calib = build_task(
         args.model, args.samples, args.alpha, args.clients, args.seed,
@@ -93,12 +107,16 @@ def main():
                     seed=args.seed, engine=args.engine, device=args.device)
     psa = PSAConfig(buffer_size=args.buffer, queue_len=args.queue,
                     gamma=args.gamma, delta=args.delta, sketch_k=args.sketch_k)
+    name = (f"{args.alg}_{args.model}_a{args.alpha}_{args.latency}"
+            f"{int(args.lat_hi)}_s{args.seed}")
+    os.makedirs(args.out, exist_ok=True)
+    if args.sweep:
+        _sweep(args, name, cfg, params, clients, test, sim, psa, calib)
+        return
     t0 = time.time()
     res = run_algorithm(args.alg, cfg, params, clients, test, sim,
                         psa_cfg=psa, calib_batch=calib)
     wall = time.time() - t0
-    name = (f"{args.alg}_{args.model}_a{args.alpha}_{args.latency}"
-            f"{int(args.lat_hi)}_s{args.seed}")
     rec = {
         "alg": args.alg, "model": args.model, "alpha": args.alpha,
         "latency": [args.latency, args.lat_lo, args.lat_hi],
@@ -107,12 +125,49 @@ def main():
         "times": res.times, "accuracies": res.accuracies,
         "wall_s": round(wall, 1), "engine": res.engine, "device": args.device,
     }
-    os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, name + ".json")
     with open(path, "w") as f:
         json.dump(rec, f, indent=1)
     print(f"[train] {name}: final={res.final_accuracy:.4f} aulc={res.aulc:.4f} "
           f"({wall:.0f}s on {args.device}) -> {path}")
+
+
+
+def _sweep(args, name, cfg, params, clients, test, sim, psa, calib):
+    key, _, vals = args.sweep.partition("=")
+    if not vals:
+        raise SystemExit("--sweep wants 'seeds=...' or '<hyper>=v1,v2'")
+    if key == "seeds":
+        seeds = [int(v) for v in vals.split(",")]
+        sweep = SweepConfig(model_seeds=seeds, data_seeds=seeds)
+        lane_tags = [f"seed{s}" for s in seeds]
+    else:
+        grid = [float(v) for v in vals.split(",")]
+        sweep = SweepConfig(policy_params=[{key: v} for v in grid])
+        lane_tags = [f"{key}{v:g}" for v in grid]
+    t0 = time.time()
+    res = run_sweep(args.alg, cfg, params, clients, test, sim, sweep,
+                    psa_cfg=psa, calib_batch=calib)
+    wall = time.time() - t0
+    mean, std = res.accuracy_mean_std()
+    rec = {
+        "alg": args.alg, "model": args.model, "alpha": args.alpha,
+        "latency": [args.latency, args.lat_lo, args.lat_hi],
+        "sweep": args.sweep, "lanes": lane_tags,
+        "final_accuracy": res.final_accuracy, "aulc": res.aulc,
+        "final_accuracy_mean": mean, "final_accuracy_std": std,
+        "versions": res.versions, "dispatches": res.dispatches,
+        "times": res.times, "lane_accuracies": res.lane_accuracies,
+        "wall_s": round(wall, 1), "engine": res.engine, "device": args.device,
+    }
+    name += f"_sweep-{key}{len(lane_tags)}"
+    path = os.path.join(args.out, name + ".json")
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+    for tag, acc in zip(lane_tags, res.final_accuracy):
+        print(f"[train]   lane {tag}: final={acc:.4f}")
+    print(f"[train] {name}: mean={mean:.4f}+-{std:.4f} ({wall:.0f}s on "
+          f"{args.device}, one batched simulation) -> {path}")
 
 
 if __name__ == "__main__":

@@ -19,6 +19,13 @@ kernel's group axis. A weight shared by all members (``w_members=False``)
 is one ``(B*M, K) @ (K, N)`` matmul in either mode, as in the reference,
 and operands without the member axis are a plain 2-D product.
 
+The CNN's convolutions go through ``member_conv2d``: the members' channel
+groups side by side in one grouped convolution (one group when the
+operands carry no member axis). Its forward and input gradient are
+cuDNN's; its weight gradient is the product of the output gradient with
+the unfolded input, per member, routed like a member-batched dense
+product (see ``MemberConv2d``).
+
 The mode is a context (``routing``) entered around the code that builds
 the products; it is held in a ``ContextVar``, so threads do not see each
 other's mode.
@@ -30,6 +37,7 @@ import contextvars
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.grouped_matmul import grouped_matmul
 
@@ -106,3 +114,58 @@ def member_dot(x: torch.Tensor, w: torch.Tensor, ncon: int = 1, *,
     else:
         out = torch.matmul(x3, w3)
     return out.reshape((B,) + free + wshape)
+
+
+class MemberConv2d(torch.autograd.Function):
+    """Stride-1 grouped convolution: ``x (n, G*C_in, H, W)``, ``w (G*C_out,
+    C_in, kh, kw)``, ``groups = G``.
+
+    The forward and the input gradient are cuDNN's. The weight gradient is
+    not: under ``cudnn.deterministic`` (which resume and lane parity need)
+    cuDNN's float32 weight-gradient algorithms for the CNN's shapes miss a
+    float64 reference by up to thousands of ``u = 2**-24`` of the sum of
+    the terms' magnitudes, where the forward and the input gradient stay
+    within a few (``chip_smoke.py``'s ``[lane-ops]`` probe). So it is
+    ``dW_g = gy_g (C_out, n*L) @ unfold(x)_g (n*L, C_in*kh*kw)`` for each
+    member g: through ``grouped_matmul`` in the ``"grouped"`` mode, whose
+    split depends on one member's shape alone, so a member's gradient is
+    the same bits in a wave of any width; through ``torch.matmul``
+    otherwise."""
+
+    @staticmethod
+    def forward(ctx, x, w, groups: int, padding: int):
+        ctx.save_for_backward(x, w)
+        ctx.groups, ctx.padding = groups, padding
+        ctx.grouped = _MODE.get() == "grouped"
+        return F.conv2d(x, w, padding=padding, groups=groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        G, p = ctx.groups, ctx.padding
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(x.shape, w, gy, padding=p,
+                                            groups=G)
+        if ctx.needs_input_grad[1]:
+            n = x.shape[0]
+            c_in, kh, kw = w.shape[1:]
+            # the input's kh x kw windows as a strided view (n, G, c_in,
+            # Ho, Wo, kh, kw), gathered into (G, n*Ho*Wo, c_in*kh*kw) by one
+            # copy (F.unfold launches an im2col kernel per image)
+            win = F.pad(x, (p, p, p, p)).unfold(2, kh, 1).unfold(3, kw, 1)
+            Ho, Wo = win.shape[2:4]
+            rhs = win.reshape(n, G, c_in, Ho, Wo, kh, kw) \
+                .permute(1, 0, 3, 4, 2, 5, 6).reshape(G, n * Ho * Wo, -1)
+            lhs = gy.reshape(n, G, -1, Ho * Wo).permute(1, 2, 0, 3) \
+                .reshape(G, -1, n * Ho * Wo)
+            mm = grouped_matmul if ctx.grouped else torch.matmul
+            dw = mm(lhs, rhs).reshape(w.shape)
+        return dx, dw, None, None
+
+
+def member_conv2d(x: torch.Tensor, w: torch.Tensor, groups: int = 1,
+                  padding: int = 0) -> torch.Tensor:
+    """``F.conv2d(x, w, padding=padding, groups=groups)`` (stride 1) with
+    ``MemberConv2d``'s weight gradient."""
+    return MemberConv2d.apply(x, w, groups, padding)

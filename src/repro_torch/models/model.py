@@ -12,8 +12,10 @@ member-batched forwards (``members=True``): every parameter carries a
 leading member axis, ``(B, *shape)``, and so does the data, ``(B, n,
 ...)``. The dense layers go through ``member_math.member_dot``, which
 routes a member-batched product to the grouped kernel or to a plain
-matmul; per-member convolutions are one grouped ``F.conv2d`` (``groups =
-B``) over the members' channels side by side, ``(n, B*C, H, W)``.
+matmul; per-member convolutions are one grouped convolution
+(``member_math.member_conv2d``, ``groups = B``) over the members' channels
+side by side, ``(n, B*C, H, W)``, and a single model's is its one-group
+case.
 
 The dense decoder LM (``family == "dense"``) keeps the reference's
 stacked-superblock layout: ``params["blocks"]["p{i}"]`` leaves carry a
@@ -38,7 +40,7 @@ import torch.nn.functional as F
 from repro_torch.common.tree import tree_map
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.member_math import member_dot
+from repro_torch.models.member_math import member_conv2d, member_dot
 
 
 def _dense_init(gen: torch.Generator, shape, std: float, device) -> torch.Tensor:
@@ -121,7 +123,8 @@ def cnn_forward(params, x, cfg: ModelConfig, members: bool = False):
     x = x.permute(0, 3, 1, 2)
     for i in range(len(cfg.cnn_channels)):
         p = params[f"conv{i}"]
-        x = F.conv2d(x, p["w"].permute(3, 2, 0, 1), padding=cfg.cnn_kernel // 2)
+        x = member_conv2d(x, p["w"].permute(3, 2, 0, 1),
+                          padding=cfg.cnn_kernel // 2)
         x = torch.relu(x + p["b"][:, None, None])
         x = F.max_pool2d(x, 2, 2)
     x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
@@ -137,7 +140,7 @@ def _cnn_forward_members(params, x, cfg: ModelConfig):
         p = params[f"conv{i}"]
         _, _, _, c_in, c_out = p["w"].shape
         w = p["w"].permute(0, 4, 3, 1, 2).reshape(B * c_out, c_in, k, k)
-        x = F.conv2d(x, w, padding=k // 2, groups=B)
+        x = member_conv2d(x, w, groups=B, padding=k // 2)
         x = torch.relu(x + p["b"].reshape(-1)[:, None, None])
         x = F.max_pool2d(x, 2, 2)
     h, w_ = x.shape[2], x.shape[3]

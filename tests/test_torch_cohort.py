@@ -2,6 +2,9 @@
 
 * ``member_dot``: both routing modes give the reference's values and
   gradients, member-batched, with shared weights and with ``ncon=2``;
+* ``member_conv2d``: both modes give XLA's grouped convolution's value
+  and gradients; its weight gradient goes through the grouped kernel
+  under ``"grouped"``, and a member's is the same bits at any width;
 * ``CohortEngine.cohort_update`` against the reference's on the same numpy
   init and data (``paper-synthetic-mlp`` and a narrow CNN; ragged sizes,
   prox/align variants), in both member-kernel modes; padding rows are
@@ -31,6 +34,7 @@ from repro_torch.configs import get_config as tget
 from repro_torch.convert import params_from_numpy
 from repro_torch.federated.cohort import CohortEngine, bucket_size
 from repro_torch.models import member_math as tmm
+from torch_threads import one_torch_thread  # noqa: F401
 
 NARROW_CNN = dict(cnn_channels=(4, 8), input_hw=(8, 8, 3), mlp_hidden=(16,))
 TOL = 1e-5          # the reference suite's cohort parity gate
@@ -111,6 +115,80 @@ def test_grouped_mode_goes_through_the_kernel_both_ways(monkeypatch):
     with tmm.routing("grouped"):
         tmm.member_dot(x, w, x_members=True, w_members=True).sum().backward()
     assert len(calls) == 5
+
+
+# --- member_conv2d ---------------------------------------------------------
+
+# (groups, images, channels in, channels out, height = width, kernel)
+CONV_CASES = {"one_group": (1, 3, 3, 4, 8, 5), "members": (3, 2, 2, 5, 6, 5),
+              "kernel3": (4, 2, 3, 2, 5, 3)}
+
+
+def _ref_conv(x, w, groups, pad):
+    """The reference's value and grads of sum(tanh(conv)^2): XLA's grouped
+    convolution (``feature_group_count``), as ``jax.vmap`` batches the
+    reference model's per-member convolution."""
+    def loss(x1, w1):
+        y = jax.lax.conv_general_dilated(
+            x1, w1, (1, 1), [(pad, pad)] * 2, feature_group_count=groups,
+            dimension_numbers=("NCHW", "OIHW", "NCHW"),
+            precision=jax.lax.Precision.HIGHEST)
+        return jnp.sum(jnp.tanh(y) ** 2)
+
+    val, (gx, gw) = jax.value_and_grad(loss, argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(w))
+    return np.asarray(val), np.asarray(gx), np.asarray(gw)
+
+
+def _conv_inputs(case):
+    G, n, c_in, c_out, hw, k = CONV_CASES[case]
+    rng = np.random.RandomState(len(case))
+    return (rng.randn(n, G * c_in, hw, hw).astype(np.float32),
+            rng.randn(G * c_out, c_in, k, k).astype(np.float32), G, k // 2)
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+@pytest.mark.parametrize("mode", tmm.MODES)
+def test_member_conv2d_value_and_grad_match_reference(case, mode):
+    """The forward, input gradient and weight gradient (the port's own:
+    the output gradient times the input's windows) against XLA's grouped
+    convolution, relative to the largest value, at the cohort gate."""
+    x, w, G, pad = _conv_inputs(case)
+    want = _ref_conv(x, w, G, pad)
+    tx, tw = _t(x).requires_grad_(True), _t(w).requires_grad_(True)
+    with tmm.routing(mode):
+        y = tmm.member_conv2d(tx, tw, groups=G, padding=pad)
+        loss = torch.sum(torch.tanh(y) ** 2)
+        gx, gw = torch.autograd.grad(loss, (tx, tw))
+    for got, ref in zip((loss, gx, gw), want):
+        got = got.detach().numpy()
+        scale = np.max(np.abs(ref)) + 1e-9
+        assert np.max(np.abs(got - ref)) / scale < TOL
+
+
+def test_member_conv2d_weight_grad_routes_and_ignores_width(monkeypatch):
+    """Under "grouped" the weight gradient is one grouped_matmul call (the
+    forward and the input gradient none), under "vmap" none; a member's
+    weight gradient is the same bits in a wave three times as wide."""
+    calls = []
+    real = tmm.grouped_matmul
+    monkeypatch.setattr(tmm, "grouped_matmul",
+                        lambda a, b: calls.append(a.shape) or real(a, b))
+    x, w, _, pad = _conv_inputs("members")
+    gy = np.random.RandomState(7).randn(2, 15, 6, 6).astype(np.float32)
+    wide = {}
+    for mode in tmm.MODES:
+        for G in (1, 3):
+            tw = _t(w[:5 * G]).requires_grad_(True)
+            with tmm.routing(mode):
+                y = tmm.member_conv2d(_t(x[:, :2 * G]), tw, groups=G,
+                                      padding=pad)
+                (wide[mode, G],) = torch.autograd.grad(y, tw, _t(gy[:, :5 * G]))
+        assert len(calls) == (2 if mode == "grouped" else 0)
+    assert torch.equal(wide["grouped", 3][:5], wide["grouped", 1])
+    np.testing.assert_allclose(wide["vmap", 3].numpy(),
+                               wide["grouped", 3].numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 # --- CohortEngine.cohort_update --------------------------------------------

@@ -32,6 +32,7 @@ from repro_torch.federated import simulator as tsim
 from repro_torch.federated.simulator import SimConfig, run_algorithm
 from repro_torch.kernels import ops
 from repro_torch.models import member_math as tmm
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 # tests/test_golden.py's world (the constants the digests were made with)

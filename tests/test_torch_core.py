@@ -24,6 +24,7 @@ from repro_torch.core import sensitivity as tsens
 from repro_torch.core import sketch as tsk
 from repro_torch.core import thermometer as tthermo
 from repro_torch.models import model as TM
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _mlp_world(seed=0):

@@ -25,6 +25,7 @@ from repro.kernels.flash_attention import flash_attention as r_flash
 from repro.kernels.ref import flash_attention_ref
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 # tests/test_flash_attention.py's shapes, then Sq != Sk (top-left causal)
 SHAPES = [

@@ -30,6 +30,7 @@ from repro_torch.kernels import grouped_matmul as tgm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import sens_sketch as tss
 from repro_torch.models import model as TM
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _pair(x, dtype):
@@ -342,32 +343,34 @@ def test_grouped_matmul_dtype_promotion(dtypes):
                     np.asarray(ref.grouped_matmul_ref(ja, jb), np.float32)) < 5e-3
 
 
-# (G, M, N, K) -> (S, slice): the cohort main path's fc0 forward, dW and dx
-# at G = 4 and 8, fc1's forward, the edge shapes and long-K cases
-SPLIT_K = {(4, 64, 384, 4096): (11, 384), (8, 64, 384, 4096): (6, 704),
-           (4, 4096, 384, 64): (1, 64), (8, 4096, 384, 64): (1, 64),
-           (4, 64, 4096, 384): (1, 384), (8, 64, 4096, 384): (1, 384),
-           (4, 64, 192, 384): (1, 384), (1, 8, 16, 16): (1, 32),
-           (3, 130, 96, 200): (1, 224), (5, 1, 3, 7): (1, 32),
-           (4, 32, 64, 256): (1, 256), (2, 64, 64, 530): (1, 544),
-           (2, 64, 64, 600): (2, 320), (3, 40, 72, 5000): (10, 512)}
+# (M, N, K) -> (S, slice): the cohort main path's fc0 forward, dW and dx,
+# fc1's forward, the CNN's conv weight gradients (conv0, conv1 at 64 and
+# 32 images), the edge shapes and long-K cases
+SPLIT_K = {(64, 384, 4096): (11, 384), (4096, 384, 64): (1, 64),
+           (64, 4096, 384): (1, 384), (64, 192, 384): (1, 384),
+           (64, 75, 65536): (33, 2016), (64, 1600, 16384): (3, 5472),
+           (64, 75, 32768): (32, 1024), (64, 1600, 8192): (3, 2752),
+           (8, 16, 16): (1, 32), (130, 96, 200): (1, 224), (1, 3, 7): (1, 32),
+           (32, 64, 256): (1, 256), (64, 64, 530): (1, 544),
+           (64, 64, 600): (2, 320), (40, 72, 5000): (10, 512)}
 
 
 @pytest.mark.parametrize("shape", sorted(SPLIT_K))
 def test_grouped_matmul_split_k_is_pinned(shape):
-    """The split count is a function of the shape alone: pinned values,
+    """The split count is a function of one group's shape alone (so a
+    member's sums do not depend on the wave's width G): pinned values,
     S >= 1, S = 1 for short K, the same on repeated calls, slices that
     cover K and are each at least MIN_SLICE deep (the last one too)."""
-    G, M, N, K = shape
-    S, depth = tgm.split_k(G, M, N, K)
-    assert (S, depth) == SPLIT_K[shape] == tgm.split_k(G, M, N, K)
+    M, N, K = shape
+    S, depth = tgm.split_k(M, N, K)
+    assert (S, depth) == SPLIT_K[shape] == tgm.split_k(M, N, K)
     assert S >= 1 and depth % tgm.SLAB == 0
     assert (S - 1) * depth < K <= S * depth
     if K < 2 * tgm.MIN_SLICE:
         assert S == 1
     if S > 1:
         assert K - (S - 1) * depth >= tgm.MIN_SLICE
-        tiles = G * -(-M // tgm.TILE) * -(-N // tgm.TILE)
+        tiles = tgm.FILL_GROUPS * -(-M // tgm.TILE) * -(-N // tgm.TILE)
         assert tiles < 2 * tgm.SMS
 
 
@@ -481,7 +484,7 @@ def test_grouped_matmul_cuda_matches_plain_on_card():
     g = T(rng.randn(4, 64, 384).astype(np.float32))
     cases = [(x, w), (x.transpose(1, 2), g), (g, w.transpose(1, 2))]
     cases += [tuple(T(v) for v in _gm_inputs(*s, 7)) for s in GM_SHAPES]
-    assert tgm.split_k(3, 40, 72, 5000) == (10, 512)
+    assert tgm.split_k(40, 72, 5000) == (10, 512)
     cases.append(tuple(T(v) for v in _gm_inputs(3, 40, 5000, 72, 8)))
     for a, b in cases:
         got = tgm.grouped_matmul(a, b)
@@ -489,7 +492,7 @@ def test_grouped_matmul_cuda_matches_plain_on_card():
                         tgm.grouped_matmul_plain(a, b).cpu().numpy()) < 1e-5
         assert torch.equal(got, tgm.grouped_matmul(a, b))
     valid = T(np.array([1.0, 0.0, 1.0, 0.0], np.float32))
-    assert tgm.split_k(4, 64, 384, 4096)[0] > 1
+    assert tgm.split_k(64, 384, 4096)[0] > 1
     xm = x.clone()
     xm[3] = float("inf")                   # garbage in a masked group
     got = tgm.grouped_matmul(xm, w, valid)

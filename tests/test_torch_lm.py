@@ -32,6 +32,7 @@ from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "phi4-mini-3.8b"
 SMOKE = ARCH + "-smoke"

@@ -31,6 +31,7 @@ from repro_torch.core.psa import PSAConfig
 from repro_torch.federated import policies as tpol
 from repro_torch.federated import servers as tsrv
 from repro_torch.kernels import sens_sketch as tss
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-6, 1e-7
 NUM_CLIENTS = 5

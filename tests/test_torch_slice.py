@@ -10,6 +10,10 @@
   committed asyncfeded digest streams of the metrics with no golden
   (cosine, sketch) are what the reference's live run gives; the port
   reproduces them on the CPU on both engines (and on a card, ``gpu``);
+* the committed synchronous-FedAvg fixture is the reference's live
+  ``run_fedavg`` on the golden world (with the digest of each model it
+  evaluated), and the port's ``run_fedavg`` reproduces it on both
+  engines;
 * unported paths raise, a CUDA request without a card raises, the CLI
   defaults to the reference's cohort engine, and the port imports neither
   ``jax`` nor ``repro``.
@@ -39,9 +43,10 @@ from repro_torch.federated import latency as tlat
 from repro_torch.federated import scheduler as tsched
 from repro_torch.federated.servers import make_server
 from repro_torch.federated import timeline as ttl
-from repro_torch.federated.simulator import (SimConfig, run_algorithm,
-                                             run_sweep)
+from repro_torch.federated.simulator import SimConfig, run_algorithm
 from repro_torch.launch.train import build_task as t_build_task
+from torch_eval_digests import eval_digests
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
@@ -51,6 +56,11 @@ FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures",
 # on the golden world (regenerate with `python tests/test_torch_slice.py`)
 ASYNCFEDED_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures",
                                   "asyncfeded_{}_digests.json")
+# synchronous FedAvg on the golden world, as the reference's live run gives
+# it (regenerated by the same command)
+FEDAVG_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures",
+                              "fedavg_golden_world.json")
+FEDAVG_KEYS = ("final_accuracy", "versions", "dispatches", "launched")
 # tests/test_golden.py's world (the constants the digests were made with)
 WORLD = dict(model="paper-synthetic-mlp", samples=1_500, classes=10, dim=32,
              clients=8, alpha=0.3, seed=0)
@@ -321,6 +331,66 @@ def test_asyncfeded_metric_run_matches_fixture_on_card(torch_world, metric):
         assert (counts["grouped_matmul"] > 0) == (mk == "grouped")
 
 
+def _reference_fedavg():
+    """The reference's sequential ``run_fedavg`` on the golden world from
+    the legacy-threefry init: the learning curve, the digest of the model
+    each evaluation saw, and the counters."""
+    from repro.federated import SimConfig as RSim, run_algorithm as r_run
+    _, rtrain, rtest, rparts, _ = _world(rdata)
+    rclients = [rdata.ClientDataset(rtrain.subset(ix)) for ix in rparts]
+    with eval_digests() as seen:
+        res = r_run("fedavg", rget(WORLD["model"]), _reference_init(),
+                    rclients, rtest, RSim(engine="sequential", **SIM))
+    return {"world": WORLD, "sim": SIM, "policy": "fedavg",
+            "times": res.times, "accuracies": res.accuracies,
+            "digests": seen["ref"],
+            **{k: getattr(res, k) for k in FEDAVG_KEYS}}
+
+
+def _load_fedavg():
+    with open(FEDAVG_FIXTURE) as f:
+        return json.load(f)
+
+
+def _check_fedavg(res, digests, want):
+    """Times and counters exact, accuracies within 2e-3, the evaluated
+    models' digests at the golden tolerance."""
+    assert res.times == want["times"]
+    for key in ("versions", "dispatches", "launched"):
+        assert getattr(res, key) == want[key], key
+    np.testing.assert_allclose(res.accuracies, want["accuracies"], atol=2e-3)
+    np.testing.assert_allclose(res.final_accuracy, want["final_accuracy"],
+                               atol=2e-3)
+    assert len(digests) == len(want["digests"]) == len(want["times"])
+    np.testing.assert_allclose(digests, want["digests"], rtol=RTOL, atol=ATOL)
+
+
+def test_fedavg_fixture_is_the_reference_run():
+    want, fixture = _reference_fedavg(), _load_fedavg()
+    assert fixture["world"] == WORLD and fixture["sim"] == SIM
+    assert fixture["times"] == want["times"]
+    for key in FEDAVG_KEYS:
+        assert fixture[key] == want[key], key
+    np.testing.assert_allclose(fixture["accuracies"], want["accuracies"],
+                               atol=1e-6)
+    np.testing.assert_allclose(fixture["digests"], want["digests"],
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("engine", ["sequential", "cohort-vmap",
+                                    "cohort-grouped"])
+def test_fedavg_run_matches_fixture(torch_world, engine):
+    cfg, clients, test, calib = torch_world
+    eng, *mk = engine.split("-")
+    with eval_digests() as seen:
+        res = run_algorithm("fedavg", cfg, load_npz_params(FIXTURE), clients,
+                            test, SimConfig(engine=eng, device="cpu",
+                                            member_kernel=(mk or ["vmap"])[0],
+                                            **SIM))
+    assert res.engine == eng
+    _check_fedavg(res, seen["port"], _load_fedavg())
+
+
 def test_dropout_run_matches_reference(torch_world):
     """A run with client dropouts (the availability stream and held-slot
     re-dispatch) against the reference's live sequential run."""
@@ -352,8 +422,7 @@ def test_cuda_without_a_card_raises(torch_world, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["mesh", "shard_size", "shard_size_cohort",
-                                  "checkpoint", "fedavg", "fedasync", "sweep",
-                                  "token_arch", "cohort_family"])
+                                  "fedasync", "token_arch", "cohort_family"])
 def test_unported_paths_raise(torch_world, case):
     cfg, clients, test, calib = torch_world
     sim = SimConfig(engine="sequential", device="cpu", **SIM)
@@ -362,23 +431,16 @@ def test_unported_paths_raise(torch_world, case):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tget("fed-lm-smoke")
         return
-    if case == "sweep":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_sweep("fedbuff", cfg, None, clients, test, sim, None)
-        return
     sim = {"mesh": dataclasses.replace(sim, mesh=object()),
            "shard_size": dataclasses.replace(sim, shard_size=3),
            "shard_size_cohort": dataclasses.replace(sim, shard_size=3,
                                                     engine="cohort"),
-           "checkpoint": dataclasses.replace(sim, checkpoint_dir="ckpt")
            }.get(case, sim)
     if case == "fedasync":
         # every policy is ported; its server on a mesh is not (item 9)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_server("fedasync", load_npz_params(FIXTURE), mesh=object())
         return
-    if case == "fedavg":
-        name = case
     if case == "cohort_family":  # a family the port's registry lacks
         cfg = dataclasses.replace(cfg, family="dense")
         sim = dataclasses.replace(sim, engine="cohort")
@@ -423,8 +485,12 @@ def test_cli_default_engine_runs(tmp_path, monkeypatch, capsys):
 
 
 if __name__ == "__main__":
-    # regenerate the asyncfeded digest fixtures from the reference
+    # regenerate the asyncfeded digest fixtures and the FedAvg fixture from
+    # the reference
     for m in ("cosine", "sketch"):
         with open(ASYNCFEDED_FIXTURE.format(m), "w") as fh:
             json.dump(_reference_asyncfeded(m), fh, indent=1)
             fh.write("\n")
+    with open(FEDAVG_FIXTURE, "w") as fh:
+        json.dump(_reference_fedavg(), fh, indent=1)
+        fh.write("\n")
