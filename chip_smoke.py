@@ -67,6 +67,28 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    of each), a 3-lane FedPSA sweep (data seeds [0, 0, 1], gamma [5, 1, 5])
    and ``run_fedavg``, with exact launch counts, s/receive, peak device
    memory and lane 0's digest gap to the standalone run;
+7d. ``[population]``, the population path (lazy populations, streaming
+   client shards, the side-stream prefetch): the path's kernels against
+   their plain versions at its shapes (``grouped_matmul`` at G = 256 and
+   768, ``sens_sketch`` over waves of 256 and 768 MLP members, its ticket
+   buffer zero after growing, ``buffer_agg`` at d = 4,522), timed; (a) the
+   smoke presets' fedasync, fedbuff and fedpsa runs (cohort/grouped,
+   golden init) against the reference's digests in ``tests/torch_fixtures/
+   population_digests.json`` (RTOL/ATOL) with the store's stats exact,
+   prefetch on bit-equal to off, launch counts exact and ``grouped_matmul``
+   equal to the monolithic engine's over ``pop[c]`` clients, and a
+   profiled prefetching run whose kernels all ran on one stream while its
+   side stream ran copies only; (b) phase 7c's full-width CIFAR FedPSA run
+   through a list source of 8-client shards with prefetch on, within the
+   golden tolerance of 7c's monolithic run (bit-equality printed), launch
+   counts equal; (c) ``pop-100k`` and ``pop-1m`` at the reference
+   population benchmark's load, fedasync and fedpsa, each profiled:
+   s/receive, waves, peak host RSS and device memory, the store's bytes
+   within the preset's ``resident_mb`` plus one wave's rows, stats, device
+   busy share, and pop-1m fedpsa bit-equal with prefetch on and off;
+   then pop-1m fedasync and fedpsa unprofiled, prefetch off and on in
+   alternating order (s/receive of each run and the medians; all
+   bit-equal);
 8. profile: the first 2,000 virtual units of both main paths, and one
    serve prefill plus decode, under ``torch.profiler``: the device's busy
    share of the wall time and the CUDA kernels by total time (printed; a
@@ -85,6 +107,7 @@ and prints no result. It imports no JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -1549,7 +1572,8 @@ def phase_full_width(torch, smi: str) -> dict:
       (``_lane_op_gaps``);
     * ``run_fedavg``.
 
-    Returns the 3-lane sweep's and FedAvg's launch counts by path name."""
+    Returns the 3-lane sweep's and FedAvg's launch counts by path name, and
+    the first FedPSA run with the flag on (result, launch counts)."""
     from repro_torch.core.psa import PSAConfig
     from repro_torch.federated import simulator
     cfg, clients, test, calib, params = _main_world(torch)
@@ -1688,7 +1712,570 @@ def phase_full_width(torch, smi: str) -> dict:
     finally:
         simulator._make_cohort_engine = make_engine
         simulator.setup_device = setup
-    return {"sweep": sweep_counts, "fedavg": counts}
+    return {"sweep": sweep_counts, "fedavg": counts}, runs["on"][::2]
+
+
+# ---------------------------------------------------------------------------
+# [population]: lazy populations and streaming client shards
+# ---------------------------------------------------------------------------
+
+POP_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures",
+                           "population_digests.json")
+POP_POLICIES = ("fedasync", "fedbuff", "fedpsa")
+# grouped_matmul launches per local step of paper-synthetic-mlp under
+# member_kernel="grouped": forward, dW and dx of its three dense layers,
+# less the first layer's dx (its input is data)
+MLP_GM_PER_STEP = 3 * 3 - 1
+# (c) the reference population benchmark's sizing
+# (benchmarks/population_throughput.py): 1,024 in flight, latency U(100,
+# 500), 2 local epochs of batch 32, about 1,000 receives
+POP_LATENCY = (100.0, 500.0)
+POP_RECEIVES = 1_000
+# (preset, policy, prefetch): each preset's own prefetch setting, and
+# pop-1m fedpsa without it too
+POP_SCALE_RUNS = (("pop-100k", "fedasync", False),
+                  ("pop-100k", "fedpsa", False),
+                  ("pop-1m", "fedasync", True), ("pop-1m", "fedpsa", True),
+                  ("pop-1m", "fedpsa", False))
+# pop-1m without the profiler, prefetch off and on in alternating order
+POP_PAIR_ORDER = (False, True, True, False, False, True)
+TRACE_PATH = os.path.join(ROOT, "build", "chip_smoke_population_trace.json")
+
+
+class _PeakRss:
+    """Peak resident set size of this process over a ``with`` block,
+    sampled from /proc/self/statm every 20 ms by a thread of its own."""
+
+    def __init__(self):
+        import threading
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._read()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def _read(self) -> int:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * self.page
+
+    def _loop(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._read())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._read())
+        return False
+
+
+def _capture_stores():
+    """(list, restore): every ``ClientSlabStore.build`` lands in the list
+    until ``restore()``."""
+    from repro_torch.data.loader import ClientSlabStore
+    made, orig = [], ClientSlabStore.build.__func__
+
+    def spy(cls, datasets, **kw):
+        made.append(orig(cls, datasets, **kw))
+        return made[-1]
+
+    ClientSlabStore.build = classmethod(spy)
+
+    def restore():
+        ClientSlabStore.build = classmethod(orig)
+
+    return made, restore
+
+
+def _store_text(store) -> str:
+    st = store.stats
+    return (f"store hits={st['hits']} row_fetches={st['row_fetches']} "
+            f"shard_loads={st['shard_loads']} evictions={st['evictions']} "
+            f"prefetch issued={st['prefetch_issued']} "
+            f"hits={st['prefetch_hits']} wasted={st['prefetch_wasted']} "
+            f"peak_bytes={store.peak_bytes / 2**20:.3f}MiB")
+
+
+def _streams_of(torch, prof) -> dict:
+    """{stream: {category: events}} of a trace's device events (kernels,
+    copies, memsets), from its chrome trace."""
+    os.makedirs(os.path.dirname(TRACE_PATH), exist_ok=True)
+    prof.export_chrome_trace(TRACE_PATH)
+    with open(TRACE_PATH) as fh:
+        events = json.load(fh)["traceEvents"]
+    os.remove(TRACE_PATH)
+    out = {}
+    for e in events:
+        cat = e.get("cat", "")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            stream = e.get("args", {}).get("stream")
+            by = out.setdefault(stream, {})
+            by[cat] = by.get(cat, 0) + 1
+    return out
+
+
+def _check_side_stream(torch, prof, what: str) -> None:
+    """The prefetch's side stream ran copies only: every kernel of the
+    trace ran on one stream, and some host-to-device copies ran on
+    another."""
+    streams = _streams_of(torch, prof)
+    kern = [s for s, by in streams.items() if by.get("kernel")]
+    side = {s: by for s, by in streams.items() if s not in kern}
+    log(f"[population] {what} trace by stream: {streams}")
+    if len(kern) != 1:
+        raise AssertionError(f"{what}: kernels ran on streams {kern}, not "
+                             f"on one")
+    if not any(by.get("gpu_memcpy") for by in side.values()):
+        raise AssertionError(f"{what}: no copy ran beside the kernels' "
+                             f"stream (no side-stream prefetch in the trace)")
+    if any(by.get("gpu_memset") for by in side.values()):
+        raise AssertionError(f"{what}: a memset ran on the side stream")
+    log(f"[population] {what}: all kernels on stream {kern[0]}; the side "
+        f"stream(s) {sorted(side)} ran "
+        f"{sum(by.get('gpu_memcpy', 0) for by in side.values())} copies and "
+        f"no kernel")
+
+
+def _population_kernels(torch, dev, smi: str) -> dict:
+    """The path's kernels against their plain versions at this slice's
+    shapes, and their times: ``grouped_matmul`` at G = 256 (a full wave,
+    ``max_cohort``) and 768 (a 3-lane sweep of such waves) over the MLP's
+    products at M = 32 (its ``bs_pad``), ``sens_sketch`` over waves of 256
+    and 768 members of the MLP (d = 4,522), and ``buffer_agg`` at L = 5, d
+    = 4,522. Returns each kernel's timed case; the times hide the host's
+    queueing (``_time_ms``'s ``hide_host``: these launches are shorter
+    than the host's time to queue them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.common.tree import FlatSpec
+    from repro_torch.kernels import buffer_agg as ba
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import sens_sketch as ss
+    from repro_torch.models.model import init_params
+    rng = np.random.default_rng(7)
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    spec = FlatSpec(init_params(torch.Generator().manual_seed(0),
+                                get_config("paper-synthetic-mlp")))
+    d, M, out = spec.size, 32, {}
+    widths = (32, 64, 32, 10)
+    for G in (256, 768):
+        for K, N in zip(widths[:-1], widths[1:]):
+            x = _rand(torch, rng, (G, M, K), dev)
+            w = _rand(torch, rng, (G, K, N), dev)
+            g = _rand(torch, rng, (G, M, N), dev)
+            for what, a, b in (("fwd", x, w), ("dW", x.transpose(1, 2), g),
+                               ("dx", g, w.transpose(1, 2))):
+                got = gm.grouped_matmul(a, b)
+                err, rel = _gm_rel(torch, got, gm.grouped_matmul_plain(a, b))
+                S = gm.split_k(a.shape[1], b.shape[2], a.shape[2])[0]
+                log(f"[population] grouped_matmul G={G} {what} "
+                    f"{tuple(a.shape[1:])}@{tuple(b.shape[1:])} split {S} "
+                    f"max|err|={err:.3e} rel={rel:.3e} tol=1e-05")
+                if not (rel <= 1e-5 and S == 1):
+                    raise AssertionError(f"grouped_matmul G={G} {what}: rel "
+                                         f"{rel}, split {S}")
+    G, (K, N) = 256, (32, 64)
+    x, w = _rand(torch, rng, (G, M, K), dev), _rand(torch, rng, (G, K, N), dev)
+    flops = 2 * G * M * K * N
+    byts = 4 * G * (M * K + K * N + M * N)
+    b_ms, f_ms = byts / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    out["grouped_matmul"] = dict(
+        shape=f"G={G} ({M}, {K})@({K}, {N}) f32 (the MLP's fc0 forward, a "
+              f"full wave)",
+        max_abs_err=_gm_rel(torch, gm.grouped_matmul(x, w),
+                            gm.grouped_matmul_plain(x, w))[0],
+        ms=_time_ms(torch, lambda: gm.grouped_matmul(x, w), 100, flush,
+                    hide_host=True),
+        plain_ms=_time_ms(torch, lambda: gm.grouped_matmul_plain(x, w), 20,
+                          flush, hide_host=True),
+        library_ms=_time_ms(torch, lambda: torch.bmm(x, w), 100, flush,
+                            hide_host=True),
+        bound_ms=max(b_ms, f_ms),
+        bound_by="bytes" if b_ms >= f_ms else "operations")
+
+    k = 16
+    for B in (256, 768):
+        t, g, f = _sketch_rows(torch, rng, dev, B, d)
+        table = ss.layout_table(spec.sizes, 42, k, str(dev))
+        got = ss.sens_sketch_rows(t, g, f, table)
+        want = ss.sens_sketch_rows_plain(t, g, f, table)
+        torch.cuda.synchronize()
+        share = float(((got - want).abs() / _sketch_tol(torch, t, g, f, k))
+                      .max())
+        tickets = ss._TICKETS[t.device]
+        zero = bool((tickets == 0).all())
+        log(f"[population] sens_sketch wave of B={B} at d={d} k={k}: "
+            f"max|err|={float((got - want).abs().max()):.3e}, worst at "
+            f"{share:.3f} of its tolerance; tickets {tickets.shape[0]} "
+            f"{'all zero' if zero else 'NOT zero'} after the launch")
+        if not (share <= 1.0 and zero and tickets.shape[0] >= B):
+            raise AssertionError(f"sens_sketch B={B}: {share} of tolerance, "
+                                 f"tickets {tickets.shape[0]} zero={zero}")
+        if B == 256:
+            bound, by = _sketch_bound(B * d, k, B)
+            out["sens_sketch"] = dict(
+                shape=f"a wave of {B} members of paper-synthetic-mlp (d={d},"
+                      f" 6 leaves) k={k}",
+                max_abs_err=float((got - want).abs().max()),
+                ms=_time_ms(torch, lambda: ss.sens_sketch_rows(t, g, f, table),
+                            100, flush, hide_host=True),
+                plain_ms=_time_ms(torch, lambda: ss.sens_sketch_rows_plain(
+                    t, g, f, table), 10, flush, hide_host=True),
+                library_ms=None, bound_ms=bound, bound_by=by)
+
+    L = 5
+    wts = torch.softmax(_rand(torch, rng, (L,), dev), 0)
+    g, u = _rand(torch, rng, (d,), dev), _rand(torch, rng, (L, d), dev)
+    got, want = ba.buffer_agg(wts, g, u), ba.buffer_agg_plain(wts, g, u)
+    err = float((got - want).abs().max())
+    tol = 1e-6 * (1.0 + float(want.abs().max())) * L
+    log(f"[population] buffer_agg L={L} d={d} max|err|={err:.3e} "
+        f"tol={tol:.3e}")
+    if not err <= tol:
+        raise AssertionError(f"buffer_agg L={L} d={d}: {err} > {tol}")
+    b_ms = (L + 2) * d * 4 / HBM_BYTES_PER_S * 1e3
+    f_ms = 2 * L * d / FP32_FLOPS_PER_S * 1e3
+    out["buffer_agg"] = dict(
+        shape=f"L={L} d={d}", max_abs_err=err,
+        ms=_time_ms(torch, lambda: ba.buffer_agg(wts, g, u), 200, flush,
+                    hide_host=True),
+        plain_ms=_time_ms(torch, lambda: ba.buffer_agg_plain(wts, g, u), 200,
+                          flush, hide_host=True),
+        library_ms=_time_ms(torch, lambda: torch.addmv(g, u.t(), wts), 200,
+                            flush, hide_host=True),
+        bound_ms=max(b_ms, f_ms),
+        bound_by="bytes" if b_ms >= f_ms else "operations")
+    for name, r in out.items():
+        lib = r["library_ms"]
+        lib = "none" if lib is None else f"{lib * 1e3:.1f}us"
+        log(f"[population] {name} at {r['shape']}: {r['ms'] * 1e3:.1f}us "
+            f"(plain {r['plain_ms'] * 1e3:.1f}us, library {lib}, bound "
+            f"{r['bound_ms'] * 1e3:.2f}us by {r['bound_by']}) on {smi}")
+    return out
+
+
+def _pop_world(preset_name: str, test_rows: int):
+    from repro_torch.configs import get_population_preset
+    from repro_torch.data import make_calibration_batch
+    pop = get_population_preset(preset_name).population(seed=0)
+    test = pop.test_dataset(test_rows)
+    return pop, test, make_calibration_batch(test, 64)
+
+
+def _population_parity(torch, smi: str) -> dict:
+    """(a) The smoke presets (pop-smoke, pop-1m-smoke): fedasync, fedbuff
+    and fedpsa on the cohort engine under ``"grouped"`` from the golden
+    init, each three ways: streaming with prefetch off (digests against
+    the reference's in ``POP_FIXTURE`` at RTOL/ATOL, the store's stats
+    exact), with prefetch on (bit-equal to off; stats printed), and the
+    monolithic engine over ``pop[c]`` clients (its ``grouped_matmul``
+    count); launch counts exact. Then one profiled prefetching
+    pop-1m-smoke run: no kernel on the side stream. Returns the last
+    prefetching run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import load_npz_params
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated import simulator
+    with open(POP_FIXTURE) as fh:
+        fixture = json.load(fh)
+    cfg = get_config(fixture["model"])
+    params = load_npz_params(os.path.join(ROOT, "tests", "torch_fixtures",
+                                          fixture["init"]))
+    engines = []
+    make_engine = simulator._make_cohort_engine
+
+    def capture_engine(*a, **kw):
+        engines.append(make_engine(*a, **kw))
+        return engines[-1]
+
+    stores, restore = _capture_stores()
+    simulator._make_cohort_engine = capture_engine
+    counts = None
+    try:
+        for preset, runs in fixture["runs"].items():
+            pop, test, calib = _pop_world(preset, 512)
+            clients = [pop[c] for c in range(len(pop))]
+            for name in POP_POLICIES:
+                want = runs[name]
+                kw = (dict(psa_cfg=PSAConfig(), calib_batch=calib)
+                      if name == "fedpsa" else {})
+                sim = simulator.SimConfig(device="cuda", **runs["sim"])
+                got = {}
+                for label, src, s in (
+                        ("prefetch off", pop, sim),
+                        ("prefetch on", pop, dataclasses.replace(
+                            sim, prefetch=True)),
+                        ("monolithic", clients, dataclasses.replace(
+                            sim, shard_size=0))):
+                    engines.clear()
+                    stores.clear()
+                    res, wall, mem, c = _timed_run(
+                        torch, lambda: simulator.run_algorithm(
+                            name, cfg, params, src, test, s, **kw))
+                    got[label] = (res, c, engines[0], list(stores), wall, mem)
+                what = f"{preset} {name}"
+                res, c, engine, (store,), wall, mem = got["prefetch off"]
+                dig = np.asarray(res.digests)
+                ref = np.asarray(want["digests"])
+                if dig.shape != ref.shape:
+                    raise AssertionError(f"{what}: {dig.shape} != {ref.shape}")
+                np.testing.assert_allclose(dig, ref, rtol=RTOL, atol=ATOL)
+                for key, v in want["final"].items():
+                    if key != "final_accuracy" and getattr(res, key) != v:
+                        raise AssertionError(f"{what}: {key} "
+                                             f"{getattr(res, key)} != {v}")
+                st = {k: store.stats[k] for k in want["stats"]}
+                if st != want["stats"]:
+                    raise AssertionError(f"{what}: store stats {st} != "
+                                         f"{want['stats']}")
+                wl = {**_want_launches(name, "l2", res),
+                      "grouped_matmul": MLP_GM_PER_STEP * engine.steps_run}
+                res_on, c_on, _, (store_on,), wall_on, _ = got["prefetch on"]
+                res_m, c_m, _, _, wall_m, _ = got["monolithic"]
+                if res_on.digests != res.digests or \
+                        res_on.accuracies != res.accuracies:
+                    raise AssertionError(
+                        f"{what}: prefetch on differs from off: "
+                        f"{_gap_profile(res_on.digests, res.digests)}")
+                if not (c == wl == c_on and
+                        c_m["grouped_matmul"] == c["grouped_matmul"]):
+                    raise AssertionError(
+                        f"{what}: launches off {c} on {c_on} want {wl}, "
+                        f"monolithic {c_m}")
+                if store_on.stats["prefetch_issued"] < 1:
+                    raise AssertionError(f"{what}: prefetch never issued")
+                rel = float(np.max(np.abs(dig - ref) / (np.abs(ref)
+                                                        + ATOL / RTOL)))
+                log(f"[population] {what} cohort/grouped: {len(dig)} "
+                    f"digests match the reference (max rel {rel:.2e}), "
+                    f"stats exact {st}; prefetch on bit-equal; monolithic "
+                    f"{_gap_profile(res_m.digests, res.digests)}; "
+                    f"cohorts={res.cohorts} versions={res.versions} "
+                    f"launches={c} (monolithic grouped_matmul "
+                    f"{c_m['grouped_matmul']}); s/receive off "
+                    f"{wall / res.dispatches:.4f} on "
+                    f"{wall_on / res.dispatches:.4f} monolithic "
+                    f"{wall_m / res.dispatches:.4f}; prefetch on "
+                    f"{_store_text(store_on)}; {mem} on {smi}")
+                counts = c_on
+        # one prefetching pop-1m-smoke run under the profiler
+        from torch.profiler import ProfilerActivity, profile
+        preset = "pop-1m-smoke"
+        runs = fixture["runs"][preset]
+        pop, test, calib = _pop_world(preset, 512)
+        sim = simulator.SimConfig(device="cuda",
+                                  **{**runs["sim"], "prefetch": True})
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            simulator.run_algorithm("fedpsa", cfg, params, pop, test, sim,
+                                    psa_cfg=PSAConfig(), calib_batch=calib)
+            torch.cuda.synchronize()
+        _check_side_stream(torch, prof, f"{preset} fedpsa prefetch on")
+    finally:
+        simulator._make_cohort_engine = make_engine
+        restore()
+    return counts
+
+
+def _population_full_width(torch, smi: str, mono) -> dict:
+    """(b) Phase 7c's CIFAR world and window (FedPSA, cohort/grouped,
+    horizon ``POLICY_HORIZON``) through a list source of 8-client shards
+    (2 resident, promote 2) with prefetch on: within the golden tolerance
+    of phase 7c's monolithic run (``mono``: result, launch counts), bit-
+    equality printed, launch counts exact at the monolithic run's."""
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated import simulator
+    cfg, clients, test, calib, params = _main_world(torch)
+    sim = simulator.SimConfig(
+        engine="cohort", member_kernel="grouped", record_trajectory=True,
+        shard_size=8, shard_cache=2, shard_promote=2, prefetch=True,
+        **{**MAIN_SIM, "horizon": POLICY_HORIZON})
+    stores, restore = _capture_stores()
+    try:
+        res, wall, mem, counts = _timed_run(
+            torch, lambda: simulator.run_algorithm(
+                "fedpsa", cfg, params, clients, test, sim,
+                psa_cfg=PSAConfig(), calib_batch=calib))
+    finally:
+        restore()
+    (store,) = stores
+    want, want_counts = mono
+    got, ref = np.asarray(res.digests), np.asarray(want.digests)
+    if got.shape != ref.shape:
+        raise AssertionError(f"streaming CIFAR: {got.shape} != {ref.shape}")
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+    if counts != want_counts:
+        raise AssertionError(f"streaming CIFAR: launches {counts} != the "
+                             f"monolithic run's {want_counts}")
+    log(f"[population] CIFAR d={CIFAR_D} fedpsa cohort/grouped streamed "
+        f"({store.num_shards} shards of 8, 2 resident, promote 2, prefetch "
+        f"on): receives={res.dispatches} versions={res.versions} "
+        f"cohorts={res.cohorts}; vs the monolithic run "
+        f"{_gap_profile(res.digests, want.digests)}; launches={counts} (the "
+        f"monolithic run's); wall={wall:.2f}s s/receive="
+        f"{wall / res.dispatches:.4f} {mem}; {_store_text(store)} on {smi}")
+    return counts
+
+
+def _population_scale(torch, smi: str) -> dict:
+    """(c) pop-100k and pop-1m at the reference population benchmark's
+    load, fedasync and fedpsa, cohort/grouped, each under a device-only
+    profile (busy share; and a prefetching run's side stream ran copies
+    only), with wall s/receive, peak host RSS, peak device memory and the
+    store's bytes against the preset's ``resident_mb``; pop-1m fedpsa with
+    prefetch on and off must be bit-equal. Returns each run's counts."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config, get_population_preset
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated import simulator
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+    cfg = get_config("paper-synthetic-mlp")
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    out, digests = {}, {}
+    for preset_name, name, prefetch in POP_SCALE_RUNS:
+        preset = get_population_preset(preset_name)
+        t_set = time.perf_counter()
+        pop, test, calib = _pop_world(preset_name, 1024)
+        sim = _pop_sim(simulator, preset, prefetch)
+        t_set = time.perf_counter() - t_set
+        kw = (dict(psa_cfg=PSAConfig(), calib_batch=calib)
+              if name == "fedpsa" else {})
+        stores, restore = _capture_stores()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        try:
+            with _PeakRss() as rss, \
+                    profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = simulator.run_algorithm(name, cfg, params, pop, test,
+                                              sim, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            restore()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        (store,) = stores
+        what = f"{preset_name} {name} prefetch {'on' if prefetch else 'off'}"
+        busy = _device_busy(torch, prof, what, wall, top=6)
+        if prefetch:
+            _check_side_stream(torch, prof, what)
+        bound = preset.resident_mb * 2**20
+        held = bound + sim.max_cohort * store.row_bytes
+        if store.device_bytes > bound or store.peak_bytes > held:
+            raise AssertionError(
+                f"{what}: the store held {store.peak_bytes} B (cached "
+                f"{store.device_bytes} B), bound {bound:.0f} B + a wave's "
+                f"row block = {held:.0f} B")
+        want = {**_want_launches(name, "l2", res), "grouped_matmul":
+                counts["grouped_matmul"]}
+        dig = np.asarray(res.digests)
+        if counts != want or not np.isfinite(dig).all() or \
+                counts["grouped_matmul"] < 1:
+            raise AssertionError(f"{what}: launches {counts} != {want} or "
+                                 f"digests not finite")
+        digests[(preset_name, name, prefetch)] = res
+        out[what] = counts
+        log(f"[population] {what} C={preset.num_clients:,} in flight "
+            f"{preset.n_inflight} cohort/grouped: receives={res.dispatches} "
+            f"cohorts={res.cohorts} members/wave="
+            f"{res.dispatches / max(res.cohorts, 1):.1f} "
+            f"versions={res.versions} final={res.final_accuracy:.4f}; "
+            f"wall={wall:.3f}s (profiled) s/receive="
+            f"{wall / res.dispatches:.5f}, set-up {t_set:.2f}s; device busy "
+            f"{100 * busy:.1f}%; peak host RSS {rss.peak / 2**20:.1f}MiB "
+            f"(at start {rss.start / 2**20:.1f}MiB); "
+            f"peak device memory {peak / 2**20:.1f}MiB (live at start "
+            f"{live / 2**20:.1f}MiB); store peak "
+            f"{store.peak_bytes / 2**20:.3f}MiB, cached "
+            f"{store.device_bytes / 2**20:.3f}MiB against resident_mb "
+            f"{preset.resident_mb:.1f}; {_store_text(store)}; "
+            f"launches={counts} on {smi}")
+        del store, stores, res, prof
+    on = digests[("pop-1m", "fedpsa", True)]
+    off = digests[("pop-1m", "fedpsa", False)]
+    if on.digests != off.digests or on.accuracies != off.accuracies:
+        raise AssertionError(f"pop-1m fedpsa prefetch on vs off: "
+                             f"{_gap_profile(on.digests, off.digests)}")
+    log(f"[population] pop-1m fedpsa prefetch on and off bit-equal "
+        f"({len(on.digests)} digests, accuracies {on.accuracies})")
+    _prefetch_pairs(torch, smi, cfg, params)
+    return out
+
+
+def _pop_sim(simulator, preset, prefetch: bool):
+    """A preset's SimConfig at the reference population benchmark's load
+    (``POP_LATENCY``, about ``POP_RECEIVES`` receives), cohort/grouped."""
+    lo, hi = POP_LATENCY
+    horizon = lo + POP_RECEIVES * 0.5 * (lo + hi) / preset.n_inflight
+    return simulator.SimConfig(
+        local_epochs=2, batch_size=32, horizon=horizon, eval_every=horizon,
+        latency_lo=lo, latency_hi=hi, seed=0, eval_batches=2,
+        engine="cohort", member_kernel="grouped", record_trajectory=True,
+        device="cuda", **{**preset.sim_kwargs(), "prefetch": prefetch})
+
+
+def _prefetch_pairs(torch, smi: str, cfg, params) -> None:
+    """pop-1m fedasync and fedpsa without the profiler, prefetch off and on
+    in ``POP_PAIR_ORDER``: each run's wall s/receive and the medians (the
+    prefetch's effect, compared within this call); every run must be
+    bit-equal to the first."""
+    from repro_torch.configs import get_population_preset
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated import simulator
+    preset = get_population_preset("pop-1m")
+    for name in ("fedasync", "fedpsa"):
+        per_receive, first = {False: [], True: []}, None
+        for prefetch in POP_PAIR_ORDER:
+            pop, test, calib = _pop_world("pop-1m", 1024)
+            sim = _pop_sim(simulator, preset, prefetch)
+            kw = (dict(psa_cfg=PSAConfig(), calib_batch=calib)
+                  if name == "fedpsa" else {})
+            gc.collect()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = simulator.run_algorithm(name, cfg, params, pop, test, sim,
+                                          **kw)
+            torch.cuda.synchronize()
+            per_receive[prefetch].append((time.perf_counter() - t0)
+                                         / res.dispatches)
+            first = first or res
+            if res.digests != first.digests:
+                gap = _gap_profile(res.digests, first.digests)
+                raise AssertionError(f"pop-1m {name} prefetch={prefetch}: "
+                                     f"{gap}")
+        off, on = (float(np.median(per_receive[k])) for k in (False, True))
+        log(f"[population] pop-1m {name} unprofiled s/receive, order "
+            f"{['on' if p else 'off' for p in POP_PAIR_ORDER]}: off "
+            f"{[round(x, 6) for x in per_receive[False]]}, on "
+            f"{[round(x, 6) for x in per_receive[True]]}; medians off "
+            f"{off:.6f} on {on:.6f} (on/off {on / off:.3f}); all runs "
+            f"bit-equal; on {smi}")
+
+
+def phase_population(torch, dev, smi: str, mono) -> tuple:
+    """[population]: the slice's kernel shapes, (a) fixture parity on the
+    smoke presets, (b) the full-width CIFAR run streamed, (c) pop-100k and
+    pop-1m. Returns (kernel cases, launch counts by path)."""
+    t0 = time.perf_counter()
+    cases = _population_kernels(torch, dev, smi)
+    t1 = time.perf_counter()
+    paths = {"population-smoke": _population_parity(torch, smi)}
+    t2 = time.perf_counter()
+    paths["population-cifar"] = _population_full_width(torch, smi, mono)
+    t3 = time.perf_counter()
+    scale = _population_scale(torch, smi)
+    paths["population"] = scale["pop-1m fedpsa prefetch on"]
+    t4 = time.perf_counter()
+    log(f"[population] phase {t4 - t0:.1f}s: kernels {t1 - t0:.1f}s, (a) "
+        f"{t2 - t1:.1f}s, (b) {t3 - t2:.1f}s, (c) {t4 - t3:.1f}s")
+    return cases, paths
 
 
 def _profile_run(torch, engine: str) -> None:
@@ -1718,10 +2305,11 @@ PORT_KERNELS = {"grouped_matmul": ("grouped_matmul_kernel", "splitk_reduce"),
                 "sens_sketch": ("sens_sketch",), "buffer_agg": ("buffer_agg",)}
 
 
-def _device_busy(torch, prof, what: str, wall: float, top: int = 12) -> None:
+def _device_busy(torch, prof, what: str, wall: float, top: int = 12) -> float:
     """Print the union of the trace's device intervals as a share of
     ``wall``, the CUDA kernels by total time, and each of the port's
-    kernels' share of device time (all its instantiations)."""
+    kernels' share of device time (all its instantiations); return that
+    share."""
     from torch.autograd import DeviceType
     spans, by_name = [], {}
     for e in prof.events():
@@ -1740,7 +2328,7 @@ def _device_busy(torch, prof, what: str, wall: float, top: int = 12) -> None:
         f"{sum(n for n, _ in by_name.values())} device events")
     if not spans:
         log(f"[profile] {what}: the trace holds no device events")
-        return
+        return 0.0
     total = sum(us for _, us in by_name.values())
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"[profile]   {100 * us / total:5.1f}% {us / 1e3:9.1f}ms "
@@ -1753,6 +2341,7 @@ def _device_busy(torch, prof, what: str, wall: float, top: int = 12) -> None:
             log(f"[profile]   port kernel {kernel}: {100 * us / total:.1f}% of "
                 f"device time, {us / 1e3:.1f}ms over "
                 f"{sum(n for n, _ in hits)} launches")
+    return busy / 1e6 / wall
 
 
 def phase_profile(torch):
@@ -1927,8 +2516,11 @@ def main() -> int:
     phase_sweeps_golden(torch)
     phase_resume_fedavg(torch)
     by_path = {"sequential": phase_main(torch),
-               "cohort": phase_main_cohort(torch), **phase_policies(torch),
-               **phase_full_width(torch, smi)}
+               "cohort": phase_main_cohort(torch), **phase_policies(torch)}
+    full_width, mono = phase_full_width(torch, smi)
+    pop_cases, pop_paths = phase_population(torch, dev, smi, mono)
+    del mono
+    by_path.update(full_width, **pop_paths)
     # the timed serve runs come before any profiler session, so no profiler
     # state is live while they run
     serve_check = phase_serve_checks(torch, dev)
@@ -1954,6 +2546,7 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": r["shape"],
+                        "population_shape": pop_cases[k],
                         **{x: r[x] for x in ("device_ms", "host_us", "design",
                                              "cases", "probe") if x in r}})
     from repro_torch.kernels import flash_attention as fa

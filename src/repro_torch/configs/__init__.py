@@ -9,6 +9,9 @@ from __future__ import annotations
 
 from repro_torch.configs import phi4_mini_38b
 from repro_torch.configs.paper_models import CONFIGS as _PAPER
+from repro_torch.configs.population import (POPULATION_PRESETS,  # noqa: F401
+                                            PopulationPreset,
+                                            get_population_preset)
 from repro_torch.models.config import ModelConfig
 
 CONFIGS = {**_PAPER, phi4_mini_38b.CONFIG.name: phi4_mini_38b.CONFIG}

@@ -1,5 +1,6 @@
-"""Client partitioning: Dirichlet label-skew (the paper's protocol) and IID.
-A copy of the reference's ``repro.data.partition`` image path."""
+"""Client partitioning: Dirichlet label-skew (the paper's protocol), IID,
+and the log-normal client sizes of a lazy population. A copy of the
+reference's ``repro.data.partition`` image path."""
 from __future__ import annotations
 
 from typing import List
@@ -30,6 +31,20 @@ def dirichlet_partition(ds: SyntheticClassification, num_clients: int,
         if min(sizes) >= min_size:
             return [np.asarray(sorted(ix)) for ix in idx_by_client]
     raise RuntimeError("dirichlet_partition failed to satisfy min_size")
+
+
+def skewed_client_sizes(num_clients: int, *, mean: int = 64,
+                        spread: float = 0.6, lo: int = 16, hi: int = 512,
+                        seed: int = 0) -> np.ndarray:
+    """Per-client dataset sizes for a lazy population: log-normal around
+    ``mean`` (clipped to [lo, hi]) so a minority of clients hold most of the
+    data — the size analogue of the Dirichlet label-skew protocol. One
+    vectorized draw, O(C) at C=10^6; deterministic in (args, seed)."""
+    if not (0 < lo <= mean <= hi):
+        raise ValueError(f"need 0 < lo <= mean <= hi, got {lo}/{mean}/{hi}")
+    rng = np.random.RandomState(seed)
+    raw = np.exp(rng.normal(np.log(float(mean)), spread, size=num_clients))
+    return np.clip(np.round(raw), lo, hi).astype(np.int64)
 
 
 def iid_partition(ds: SyntheticClassification, num_clients: int,

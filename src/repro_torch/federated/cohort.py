@@ -19,8 +19,11 @@ batch tails are masked inside the loss (``registry.masked_batch``), and a
 padded step has learning rate 0, so it is an exact no-op. The engine ends a
 wave after the last step on which any member has a non-zero learning rate;
 the steps it skips are such no-ops. Wave sizes pad up to the ``bucket_size``
-grid with zero-parameter members on client 0's data at learning rate 0,
-as in the reference.
+grid with zero-parameter members at learning rate 0, as in the reference:
+on client 0's data in ``CohortEngine``, on zero rows in
+``StreamingCohortEngine`` (the engine over a ``data.loader.ClientSlabStore``
+for populations too large to stack, which trains each wave on the rows
+the store gathers for it).
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ import torch
 
 from repro_torch.common.tree import (FlatSpec, tree_leaves, tree_sq_norm,
                                      tree_sub, tree_unflatten_like)
-from repro_torch.data.loader import StackedClients, epoch_batch_indices
+from repro_torch.data.loader import (ClientSlabStore, StackedClients,
+                                     epoch_batch_indices)
 from repro_torch.federated.client import _head
 from repro_torch.models import member_math, registry
 from repro_torch.models.config import ModelConfig
@@ -64,6 +68,14 @@ class CohortEngine:
                  spec: FlatSpec, *, local_epochs: int = 5,
                  batch_size: int = 64, prox: float = 0.0, align: float = 0.0,
                  member_kernel: str = "vmap", device="cpu"):
+        self._configure(cfg, spec, stacked.sizes, local_epochs=local_epochs,
+                        batch_size=batch_size, prox=prox, align=align,
+                        member_kernel=member_kernel, device=device)
+        self.x, self.y = stacked.to_device(self.device)
+
+    def _configure(self, cfg: ModelConfig, spec: FlatSpec, sizes, *,
+                   local_epochs: int, batch_size: int, prox: float,
+                   align: float, member_kernel: str, device) -> None:
         fam = registry.get_family(cfg)
         if member_kernel not in member_math.MODES:
             raise ValueError(f"member_kernel must be one of "
@@ -78,8 +90,7 @@ class CohortEngine:
         self.align = float(align)
         self.member_kernel = member_kernel
         self.device = torch.device(device)
-        self.sizes = np.asarray(stacked.sizes, np.int64)
-        self.x, self.y = stacked.to_device(self.device)
+        self.sizes = np.asarray(sizes, np.int64)
         # per-client steps under the drop-last rule; waves run in the
         # global max frame and mask the tail
         bs_c = np.minimum(self.batch_size, self.sizes)
@@ -116,33 +127,7 @@ class CohortEngine:
         ``params_stack`` (B, d) holds each member's dispatch snapshot (its
         anchor for prox/align); ``lrs``/``seeds`` are per-member, what the
         sequential loop would have used for that dispatch."""
-        B = int(params_stack.shape[0])
-        if B < 1:
-            raise ValueError("cohort_update needs at least one member")
-        cids = np.asarray(cids, np.int64)
-        idx, valid, counts, nvalid = self._schedules(cids, np.asarray(seeds))
-        # per-(member, step) learning rate: the member's lr on real steps,
-        # 0 on padded steps (making them exact no-ops)
-        lr_steps = (np.asarray(lrs, np.float64)[:, None]
-                    * (nvalid > 0.0)).astype(np.float32)
-        Bp = bucket_size(B, self._data_kind)
-        if Bp > B:
-            pad = Bp - B
-
-            def padded(a, fill=0):
-                return np.concatenate(
-                    [a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
-
-            params_stack = torch.cat([params_stack, params_stack.new_zeros(
-                (pad, params_stack.shape[1]))])
-            cids, idx, valid, lr_steps = map(padded,
-                                             (cids, idx, valid, lr_steps))
-            counts = padded(counts, 1)
-        live = np.flatnonzero((lr_steps > 0.0).any(axis=0))
-        n_steps = int(live[-1]) + 1 if live.size else 0
-        w = self._train(params_stack, cids, idx, valid, counts, lr_steps,
-                        n_steps)
-        return (w - params_stack)[:B], w[:B]
+        return self._update(params_stack, cids, lrs, seeds, lanes=1)
 
     def sweep_update(self, params_stack: torch.Tensor, cids: Sequence[int],
                      lrs: Sequence[float], seeds_per_lane
@@ -151,26 +136,67 @@ class CohortEngine:
 
         ``params_stack`` is the ``(S, B, d)`` stack of per-lane dispatch
         snapshots; ``cids``/``lrs`` are shared across lanes (the event
-        timeline is lane-invariant) and tiled S times; ``seeds_per_lane``
-        is ``(S, B)``. Returns ``(deltas, new_params)``, both ``(S, B,
-        d)``. Members are independent, so lane s is ``cohort_update`` on
-        that lane's snapshots and seeds; the wave pads to
-        ``bucket_size(S*B)`` (the grouped kernel's G) and runs the same
-        local steps as one lane alone, so it adds no launches."""
+        timeline is lane-invariant); ``seeds_per_lane`` is ``(S, B)``.
+        Returns ``(deltas, new_params)``, both ``(S, B, d)``. Members are
+        independent, so lane s is ``cohort_update`` on that lane's
+        snapshots and seeds; the wave pads to ``bucket_size(S*B)`` (the
+        grouped kernel's G) and runs the same local steps as one lane
+        alone, so it adds no launches. The lanes index the wave's B clients'
+        rows, which are gathered once."""
         S, B, d = (int(n) for n in params_stack.shape)
-        deltas, w = self.cohort_update(
-            params_stack.reshape(S * B, d), np.tile(np.asarray(cids), S),
-            np.tile(np.asarray(lrs, np.float64), S),
-            np.asarray(seeds_per_lane).reshape(S * B))
+        deltas, w = self._update(
+            params_stack.reshape(S * B, d), cids, lrs,
+            np.asarray(seeds_per_lane).reshape(S * B), lanes=S)
         return deltas.view(S, B, d), w.view(S, B, d)
 
-    def _train(self, params_stack, cids, idx, valid, counts, lr_steps,
+    def _wave_rows(self, cids: np.ndarray, lanes: int, pad: int):
+        """``(x, y, rows)``: the slab the wave's members index, and each
+        padded member's row in it (the wave's clients once per lane, then
+        the pads on client 0)."""
+        rows = np.concatenate([np.tile(cids, lanes),
+                               np.zeros(pad, np.int64)])
+        return self.x, self.y, rows
+
+    def _update(self, params_stack: torch.Tensor, cids, lrs, seeds, *,
+                lanes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Train ``lanes`` copies of a wave of B clients as one wave of
+        ``lanes * B`` members (``params_stack`` and ``seeds`` lane-major);
+        returns (deltas, new_params), both ``(lanes * B, d)``."""
+        n = int(params_stack.shape[0])
+        if n < 1:
+            raise ValueError("cohort_update needs at least one member")
+        cids = np.asarray(cids, np.int64)
+        idx, valid, counts, nvalid = self._schedules(np.tile(cids, lanes),
+                                                     np.asarray(seeds))
+        # per-(member, step) learning rate: the member's lr on real steps,
+        # 0 on padded steps (making them exact no-ops)
+        lr_steps = (np.tile(np.asarray(lrs, np.float64), lanes)[:, None]
+                    * (nvalid > 0.0)).astype(np.float32)
+        pad = bucket_size(n, self._data_kind) - n
+        if pad > 0:
+            def padded(a, fill=0):
+                return np.concatenate(
+                    [a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+
+            params_stack = torch.cat([params_stack, params_stack.new_zeros(
+                (pad, params_stack.shape[1]))])
+            idx, valid, lr_steps = map(padded, (idx, valid, lr_steps))
+            counts = padded(counts, 1)
+        live = np.flatnonzero((lr_steps > 0.0).any(axis=0))
+        n_steps = int(live[-1]) + 1 if live.size else 0
+        x, y, rows = self._wave_rows(cids, lanes, pad)
+        w = self._train(params_stack, x, y, rows, idx, valid, counts,
+                        lr_steps, n_steps)
+        return (w - params_stack)[:n], w[:n]
+
+    def _train(self, params_stack, x, y, rows, idx, valid, counts, lr_steps,
                n_steps: int) -> torch.Tensor:
-        """Run local steps 0 .. n_steps-1 of the padded wave; (Bp, d)."""
+        """Run local steps 0 .. n_steps-1 of the padded wave, member i on
+        ``x[rows[i]]``/``y[rows[i]]``; (Bp, d)."""
         dev = self.device
         fam, cfg = self._fam, self.cfg
         anchor = self.spec.unflatten(params_stack)
-        cid_t = torch.as_tensor(cids, device=dev)[:, None]
+        row_t = torch.as_tensor(rows, device=dev)[:, None]
         idx_t = torch.as_tensor(idx, device=dev)
         valid_t = torch.as_tensor(valid, device=dev)
         counts_t = torch.as_tensor(counts, device=dev)
@@ -179,7 +205,7 @@ class CohortEngine:
         with member_math.routing(self.member_kernel):
             for s in range(n_steps):
                 bi = idx_t[:, s]
-                batch = fam.masked_batch(self.x[cid_t, bi], self.y[cid_t, bi],
+                batch = fam.masked_batch(x[row_t, bi], y[row_t, bi],
                                          valid_t[:, s], counts_t[:, s])
                 req = [l.detach().requires_grad_(True) for l in leaves]
                 p = tree_unflatten_like(anchor, req)
@@ -198,3 +224,40 @@ class CohortEngine:
                 self.steps_run += 1
         return self.spec.flatten(tree_unflatten_like(anchor, leaves),
                                  members=True)
+
+
+class StreamingCohortEngine(CohortEngine):
+    """The cohort engine over streamed client slabs (population scale).
+
+    The same member program as ``CohortEngine``, except that the data
+    arrives per wave: instead of indexing a resident ``(C, n_max, ...)``
+    slab by client id, each wave trains on the ``(B, n_max, ...)`` rows
+    that its ``data.loader.ClientSlabStore`` gathers (cached device shards
+    and on-demand row uploads), gathered once for all lanes of a sweep.
+    Members train on exactly the rows the monolithic slab holds for them
+    and the batch schedules come from the same ``epoch_batch_indices``
+    stream, so the two engines agree; pads train on zero rows at learning
+    rate 0. Memory is bounded by the store's shard geometry, not by C.
+    """
+
+    def __init__(self, cfg: ModelConfig, store: ClientSlabStore,
+                 spec: FlatSpec, *, local_epochs: int = 5,
+                 batch_size: int = 64, prox: float = 0.0, align: float = 0.0,
+                 member_kernel: str = "vmap", device="cpu"):
+        self._configure(cfg, spec, store.sizes, local_epochs=local_epochs,
+                        batch_size=batch_size, prox=prox, align=align,
+                        member_kernel=member_kernel, device=device)
+        self.store = store
+
+    def _wave_rows(self, cids: np.ndarray, lanes: int, pad: int):
+        """The wave's gathered rows (int32 labels widened here, on the
+        current stream), a zero row after them for the pads, and each
+        member's row: the B clients' once per lane, then the pads'."""
+        x, y = self.store.gather(cids)
+        B = len(cids)
+        rows = np.tile(np.arange(B, dtype=np.int64), lanes)
+        if pad > 0:
+            x = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
+            y = torch.cat([y, y.new_zeros((1,) + y.shape[1:])])
+            rows = np.concatenate([rows, np.full(pad, B, np.int64)])
+        return x, y.long(), rows

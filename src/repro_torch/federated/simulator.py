@@ -27,9 +27,16 @@ each buffered apply (every receive under fedfa; once per lane in a
 sweep), ``sens_sketch`` for FedPSA's sketches and asyncfeded's
 ``metric="sketch"``, and ``grouped_matmul`` under
 ``member_kernel="grouped"``; ``device="cpu"`` runs their plain versions.
-Paths that are not ported yet (sharded meshes, streaming shards) raise
-``NotImplementedError`` naming ROADMAP.md; none of them falls back to
-another path.
+
+Client sources: a list of ``ClientDataset``s, or a lazy population
+(``data.synthetic.SyntheticPopulation``: ``sizes``, ``member_rows`` and
+``__getitem__``, never stacked). A population, or ``SimConfig.shard_size >
+0``, runs the cohort engine over streamed client shards
+(``data.loader.ClientSlabStore`` behind ``cohort.StreamingCohortEngine``,
+with ``shard_cache``, ``shard_promote`` and ``prefetch``); the sequential
+engine takes a population's clients through ``__getitem__``. The sharded
+server (``SimConfig.mesh``) is not ported yet and raises
+``NotImplementedError`` naming ROADMAP.md; no path falls back to another.
 """
 from __future__ import annotations
 
@@ -43,11 +50,12 @@ from repro_torch.checkpoint import store
 from repro_torch.common.device import setup_device
 from repro_torch.common.tree import FlatSpec, tree_leaves, tree_map
 from repro_torch.core import psa as psa_lib
-from repro_torch.data.loader import ClientDataset, StackedClients
+from repro_torch.data.loader import (ClientDataset, ClientSlabStore,
+                                     StackedClients)
 from repro_torch.federated import client as client_lib
 from repro_torch.federated import policies as pol
 from repro_torch.federated import servers as servers_lib
-from repro_torch.federated.cohort import CohortEngine
+from repro_torch.federated.cohort import CohortEngine, StreamingCohortEngine
 from repro_torch.federated.latency import STREAM_SYNC_CHOICE, _subseed
 from repro_torch.federated.scheduler import (Dispatcher, make_scheduler,
                                              make_streams)
@@ -88,7 +96,24 @@ class SimConfig:
     # "grouped" runs them through the grouped_matmul kernel, forward and
     # backward.
     member_kernel: str = "vmap"        # "vmap" | "grouped"
-    shard_size: int = 0                # > 0 (streaming slabs) is not ported
+    # Streaming client slabs (population scale): ``shard_size > 0`` switches
+    # the cohort engine from the monolithic device slab to
+    # ``data.loader.ClientSlabStore`` — fixed-size client shards uploaded
+    # per wave behind a bounded LRU, so resident client data is
+    # O(shard_cache * shard_size * n_max), independent of C. A lazy
+    # population (not a list) streams too (auto shard size when 0).
+    shard_size: int = 0                # clients per shard; 0 = monolithic
+    shard_cache: int = 32              # max resident shards (LRU)
+    shard_promote: int = 8             # cache a shard once a wave wants
+    #                                    this many of its clients
+    # Prefetch (streaming engine only): right after a wave's replacement
+    # dispatches are inserted, the next wave's members are read off the
+    # timeline (``Timeline.peek_wave_cids``) and their shards and rows are
+    # materialized and copied to the card on the store's worker thread and
+    # side stream (copies only), overlapping the device's work. Rows are a
+    # pure function of the client id, so results are bit-identical with
+    # prefetch on or off.
+    prefetch: bool = False
     # Periodic snapshots (checkpoint.store layout): every
     # ``checkpoint_every`` virtual-time units the run persists the server
     # state, the host RNG streams, the in-flight events with their dispatch
@@ -142,9 +167,6 @@ def _unported(what: str, item: str):
 def _check_ported(sim: SimConfig) -> None:
     if sim.mesh is not None:
         raise _unported("SimConfig.mesh (the sharded server)", "Queue 1 item 9")
-    if sim.shard_size > 0:
-        raise _unported("SimConfig.shard_size > 0 (streaming slabs)",
-                        "Queue 1 item 8")
 
 
 def _resolve_engine(sim: SimConfig, cfg: ModelConfig) -> str:
@@ -427,7 +449,7 @@ def _dispatcher(sim: SimConfig, streams, scheduler, server, result,
     (whose batched dispatcher snapshots the (S, d) lane stack; the RNG
     streams are a standalone run's, so is its timeline)."""
     timeline = Timeline()
-    data_sizes = np.array([len(d) for d in client_datasets], np.float64)
+    data_sizes = _data_sizes(client_datasets)
     return timeline, data_sizes, Dispatcher(
         sim, streams, scheduler, timeline, server, result, batched=batched,
         data_sizes=data_sizes)
@@ -558,14 +580,41 @@ def _drain_sequential(server, cfg, client_datasets, sim: SimConfig, dispatch,
     return t
 
 
+def _data_sizes(client_datasets) -> np.ndarray:
+    """(C,) per-client sample counts — reading ``.sizes`` when the client
+    source is a lazy population (no per-client dataset objects to len())."""
+    sizes = getattr(client_datasets, "sizes", None)
+    if sizes is not None:
+        return np.asarray(sizes, np.float64)
+    return np.array([len(d) for d in client_datasets], np.float64)
+
+
+def _wants_streaming(sim: SimConfig, client_datasets) -> bool:
+    """The streaming slab path: explicitly via ``sim.shard_size > 0``, or
+    implicitly when the client source is a lazy population object rather
+    than a list of materialized ``ClientDataset``s."""
+    return sim.shard_size > 0 or not isinstance(client_datasets, (list, tuple))
+
+
 def _make_cohort_engine(cfg, client_datasets, spec, sim: SimConfig, device,
                         *, prox: float = 0.0, align: float = 0.0):
-    """The wave-training engine over the monolithic data slab, placed on
-    the run's device once."""
+    """The wave-training engine, placed on the run's device: over the
+    monolithic data slab by default, over streamed client shards when
+    configured (see ``SimConfig.shard_size``)."""
+    kw = dict(local_epochs=sim.local_epochs, batch_size=sim.batch_size,
+              prox=prox, align=align, member_kernel=sim.member_kernel,
+              device=device)
+    if _wants_streaming(sim, client_datasets):
+        if sim.mesh is not None:
+            raise ValueError("streaming client slabs are single-device; "
+                             "drop SimConfig.mesh or shard_size")
+        store = ClientSlabStore.build(
+            client_datasets, shard_size=sim.shard_size,
+            cache_shards=sim.shard_cache, promote=sim.shard_promote,
+            device=device)
+        return StreamingCohortEngine(cfg, store, spec, **kw)
     stacked = StackedClients.from_datasets(client_datasets)
-    return CohortEngine(cfg, stacked, spec, local_epochs=sim.local_epochs,
-                        batch_size=sim.batch_size, prox=prox, align=align,
-                        member_kernel=sim.member_kernel, device=device)
+    return CohortEngine(cfg, stacked, spec, **kw)
 
 
 def _gather_snapshots(snaps) -> torch.Tensor:
@@ -652,6 +701,10 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
     spec = server.policy.spec
     engine = _make_cohort_engine(cfg, client_datasets, spec, sim, device,
                                  align=server.client_align)
+    # prefetch has a target on the streaming engine only (the monolithic
+    # slab is device-resident already)
+    store = getattr(engine, "store", None)
+    prefetch_store = store if sim.prefetch else None
     lanes = data_seeds is not None
     if lanes:
         seed_base = np.asarray([int(s) * 100003 for s in data_seeds],
@@ -663,96 +716,113 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
         gather, train = _gather_snapshots, engine.cohort_update
         lane_accs, lane_digests = [result.accuracies], [result.digests]
 
-    next_eval = next_eval0
-    t = t0
-    while timeline and t < sim.horizon:
-        if ckpt is not None:
-            ckpt(timeline, t, next_eval)
-        wave, t_over = _pop_wave(timeline, sim)
-        if not wave:
-            t = t_over
-            break
+    try:
+        next_eval = next_eval0
+        t = t0
+        while timeline and t < sim.horizon:
+            if ckpt is not None:
+                ckpt(timeline, t, next_eval)
+            wave, t_over = _pop_wave(timeline, sim)
+            if not wave:
+                t = t_over
+                break
 
-        ok_events = [ev for ev in wave if ev.ok]
-        deltas = w_stack = sketches = None
-        if ok_events:
-            d0, B = result.dispatches, len(ok_events)
-            lrs = [sim.lr * (sim.lr_decay ** (d0 + r)) for r in range(B)]
-            seeds = seed_base + (d0 + np.arange(B, dtype=np.int64))
-            deltas, w_stack = train(gather([ev.snapshot for ev in ok_events]),
-                                    [ev.cid for ev in ok_events], lrs, seeds)
-            if sketch_rows is not None:
-                sketches = sketch_rows(w_stack.reshape(-1, spec.size)).view(
-                    *w_stack.shape[:-1], -1)
-            result.cohorts += 1
+            ok_events = [ev for ev in wave if ev.ok]
+            deltas = w_stack = sketches = None
+            if ok_events:
+                d0, B = result.dispatches, len(ok_events)
+                lrs = [sim.lr * (sim.lr_decay ** (d0 + r)) for r in range(B)]
+                seeds = seed_base + (d0 + np.arange(B, dtype=np.int64))
+                deltas, w_stack = train(
+                    gather([ev.snapshot for ev in ok_events]),
+                    [ev.cid for ev in ok_events], lrs, seeds)
+                if sketch_rows is not None:
+                    sketches = sketch_rows(
+                        w_stack.reshape(-1, spec.size)).view(
+                            *w_stack.shape[:-1], -1)
+                result.cohorts += 1
 
-        # Receives are deferred into ``pending`` and flushed as one batched
-        # ingest (``receive_many``) — early only when an eval boundary needs
-        # the intermediate global model, or per event when a receive_hook
-        # must observe pre-receive server state. Replacement dispatches
-        # happen inside the flush, each snapshotting the global vector as
-        # of *its* event, so RNG order and snapshots match the sequential
-        # engine exactly.
-        pending = []
-        next_row = 0
+            # Receives are deferred into ``pending`` and flushed as one
+            # batched ingest (``receive_many``) — early only when an eval
+            # boundary needs the intermediate global model, or per event
+            # when a receive_hook must observe pre-receive server state.
+            # Replacement dispatches happen inside the flush, each
+            # snapshotting the global vector as of *its* event, so RNG
+            # order and snapshots match the sequential engine exactly.
+            pending = []
+            next_row = 0
 
-        def flush():
-            nonlocal next_row
-            if not pending:
-                return
-            ok = [ev for ev in pending if ev.ok]
-            r0, r1 = next_row, next_row + len(ok)
-            cur = server.flat_params   # pre-flush vector, for leading dropouts
-            snaps = None
-            upd = np.zeros((0,), bool)
-            if ok:
+            def flush():
+                nonlocal next_row
+                if not pending:
+                    return
+                ok = [ev for ev in pending if ev.ok]
+                r0, r1 = next_row, next_row + len(ok)
+                # the pre-flush vector, for leading dropouts
+                cur = server.flat_params
+                snaps = None
+                upd = np.zeros((0,), bool)
+                if ok:
+                    if receive_hook is not None:
+                        ev = ok[0]
+                        meta = {"tau": server.version - ev.version,
+                                "client_id": ev.cid,
+                                "data_size": float(data_sizes[ev.cid])}
+                        if sketches is not None:
+                            meta["sketch"] = sketches[r0]
+                        receive_hook(server, spec.unflatten(w_stack[r0]),
+                                     spec.unflatten(deltas[r0]), meta,
+                                     ev.t_done)
+                    upd, taus, snaps = server.receive_many(
+                        deltas[..., r0:r1, :], w_stack[..., r0:r1, :],
+                        [ev.cid for ev in ok],
+                        [float(data_sizes[ev.cid]) for ev in ok],
+                        [ev.version for ev in ok],
+                        None if sketches is None else sketches[..., r0:r1, :])
+                    if digest_fn is not None:
+                        rows = (snaps if lanes else torch.stack(snaps)).cpu()
+                        for out, r in zip(lane_digests,
+                                          rows.reshape(-1, *rows.shape[-2:])):
+                            out.extend(digest_fn(r.numpy()).tolist())
+                    for ev, tau in zip(ok, taus):
+                        result.receive_log.append(
+                            {"t": ev.t_done, "tau": tau, "client": ev.cid})
+                    result.dispatches += len(ok)
+                    next_row = r1
+                _redispatch(pending, cur, snaps, upd, server.version, result,
+                            dispatch_many)
+
+            for ev in wave:
+                t = ev.t_done
+                if next_eval <= t:
+                    flush()
+                    while next_eval <= t:
+                        accs = (evaluate(server.flat_params) if lanes
+                                else [evaluate(server.params)])
+                        result.times.append(next_eval)
+                        for out, acc in zip(lane_accs, accs):
+                            out.append(float(acc))
+                        next_eval += sim.eval_every
+                pending.append(ev)
                 if receive_hook is not None:
-                    ev = ok[0]
-                    meta = {"tau": server.version - ev.version,
-                            "client_id": ev.cid,
-                            "data_size": float(data_sizes[ev.cid])}
-                    if sketches is not None:
-                        meta["sketch"] = sketches[r0]
-                    receive_hook(server, spec.unflatten(w_stack[r0]),
-                                 spec.unflatten(deltas[r0]), meta, ev.t_done)
-                upd, taus, snaps = server.receive_many(
-                    deltas[..., r0:r1, :], w_stack[..., r0:r1, :],
-                    [ev.cid for ev in ok],
-                    [float(data_sizes[ev.cid]) for ev in ok],
-                    [ev.version for ev in ok],
-                    None if sketches is None else sketches[..., r0:r1, :])
-                if digest_fn is not None:
-                    rows = (snaps if lanes else torch.stack(snaps)).cpu()
-                    for out, r in zip(lane_digests,
-                                      rows.reshape(-1, *rows.shape[-2:])):
-                        out.extend(digest_fn(r.numpy()).tolist())
-                for ev, tau in zip(ok, taus):
-                    result.receive_log.append(
-                        {"t": ev.t_done, "tau": tau, "client": ev.cid})
-                result.dispatches += len(ok)
-                next_row = r1
-            _redispatch(pending, cur, snaps, upd, server.version, result,
-                        dispatch_many)
-
-        for ev in wave:
-            t = ev.t_done
-            if next_eval <= t:
-                flush()
-                while next_eval <= t:
-                    accs = (evaluate(server.flat_params) if lanes
-                            else [evaluate(server.params)])
-                    result.times.append(next_eval)
-                    for out, acc in zip(lane_accs, accs):
-                        out.append(float(acc))
-                    next_eval += sim.eval_every
-            pending.append(ev)
-            if receive_hook is not None:
-                flush()
-        flush()
-        if t_over is not None:
-            t = t_over
-            break
-    return t
+                    flush()
+            flush()
+            # the wave's replacements are inserted: the next wave's member
+            # set is determined, so overlap its materialization and upload
+            # with the device work still queued
+            if prefetch_store is not None and t_over is None \
+                    and t < sim.horizon:
+                nxt = timeline.peek_wave_cids(sim.latency_lo,
+                                              sim.max_cohort, sim.horizon)
+                if nxt.size:
+                    prefetch_store.prefetch(nxt)
+            if t_over is not None:
+                t = t_over
+                break
+        return t
+    finally:
+        if store is not None:
+            store.close()
 
 
 # ---------------------------------------------------------------------------
@@ -945,7 +1015,7 @@ def run_fedavg(cfg: ModelConfig, init_params,
     evaluate = _build_eval(cfg, test_ds, sim, device)
     result = SimResult(engine=engine)
     m = _concurrency(sim)
-    data_sizes = np.array([len(d) for d in client_datasets], np.float64)
+    data_sizes = _data_sizes(client_datasets)
     spec = FlatSpec(params)
     if batched:
         cohort = _make_cohort_engine(cfg, client_datasets, spec, sim, device,

@@ -1,8 +1,8 @@
 """Run-merged event timeline: the simulator's event queue.
 
-A copy of the reference's ``repro.federated.timeline`` (the cohort
-engine's ``peek_wave_cids`` arrives with the population path), pinned to
-it by the CPU tests.
+A copy of the reference's ``repro.federated.timeline``, pinned to it by
+the CPU tests; ``peek_wave_cids`` replicates the port's own wave rule
+(``simulator._pop_wave``) for the slab store's prefetch.
 
 The legacy timeline was a ``heapq`` of ``_Event`` tuples — one python push
 per dispatch, one pop per completion. At C=10^5-10^6 with thousands of
@@ -113,6 +113,39 @@ class Timeline:
             heapq.heappush(self._heap, (run.t[j], run.seq[j], run, j))
         self._n -= 1
         return ev
+
+    def peek_wave_cids(self, latency_lo: float, max_cohort: int,
+                       horizon: float) -> np.ndarray:
+        """Client ids of the OK events the NEXT wave would train, without
+        consuming anything — a non-destructive replica of the cohort
+        drain's wave rule (``simulator._pop_wave``: maximal prefix with
+        ``t_done < t_first + latency_lo``, capped at ``max_cohort``,
+        truncated at the horizon). The moment a wave's replacement
+        dispatches are inserted, the next wave's member set is determined,
+        which is what makes shard prefetch possible. Walks a shallow copy
+        of the run-cursor heap: no event is popped and no run is
+        mutated."""
+        heap = list(self._heap)      # cursor tuples are immutable; runs
+        if not heap:                 # are shared read-only
+            return np.empty(0, np.int64)
+        t, _s, run, i = heapq.heappop(heap)
+        if t > horizon:
+            return np.empty(0, np.int64)
+        bound = t + latency_lo
+        out, count = [], 0
+        while True:
+            if run.ok[i]:
+                out.append(int(run.cid[i]))
+            count += 1
+            j = i + 1
+            if j < run.seq.shape[0]:
+                heapq.heappush(heap, (run.t[j], run.seq[j], run, j))
+            if not heap or count >= max_cohort:
+                break
+            t, _s, run, i = heapq.heappop(heap)
+            if t >= bound or t > horizon:
+                break
+        return np.asarray(out, np.int64)
 
     def events(self) -> List[_Event]:
         """All in-flight events in ``(t_done, seq)`` order (checkpointing)."""

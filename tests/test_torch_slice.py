@@ -14,7 +14,10 @@
   ``run_fedavg`` on the golden world (with the digest of each model it
   evaluated), and the port's ``run_fedavg`` reproduces it on both
   engines;
-* unported paths raise, a CUDA request without a card raises, the CLI
+* the committed population fixture (the smoke presets' streaming runs) is
+  what the reference's live runs give;
+* unported paths raise (streaming slabs are ported, a mesh with them still
+  raises), a CUDA request without a card raises, the CLI
   defaults to the reference's cohort engine, and the port imports neither
   ``jax`` nor ``repro``.
 """
@@ -46,6 +49,9 @@ from repro_torch.federated import timeline as ttl
 from repro_torch.federated.simulator import SimConfig, run_algorithm
 from repro_torch.launch.train import build_task as t_build_task
 from torch_eval_digests import eval_digests
+from test_torch_population import (POP_FIXTURE, check_population_fixture,
+                                   load_population_fixture,
+                                   reference_population_digests)
 from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -391,6 +397,14 @@ def test_fedavg_run_matches_fixture(torch_world, engine):
     _check_fedavg(res, seen["port"], _load_fedavg())
 
 
+def test_population_fixture_is_the_reference_run():
+    """The committed population fixture (the smoke presets' fedasync,
+    fedbuff and fedpsa runs that chip_smoke.py holds the card to) is what
+    the reference's live runs give."""
+    check_population_fixture(load_population_fixture(),
+                             reference_population_digests())
+
+
 def test_dropout_run_matches_reference(torch_world):
     """A run with client dropouts (the availability stream and held-slot
     re-dispatch) against the reference's live sequential run."""
@@ -431,10 +445,14 @@ def test_unported_paths_raise(torch_world, case):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tget("fed-lm-smoke")
         return
+    # streaming slabs are ported (tests/test_torch_population.py); the
+    # sharded server is not, with or without them
     sim = {"mesh": dataclasses.replace(sim, mesh=object()),
-           "shard_size": dataclasses.replace(sim, shard_size=3),
+           "shard_size": dataclasses.replace(sim, shard_size=3,
+                                             mesh=object()),
            "shard_size_cohort": dataclasses.replace(sim, shard_size=3,
-                                                    engine="cohort"),
+                                                    engine="cohort",
+                                                    mesh=object()),
            }.get(case, sim)
     if case == "fedasync":
         # every policy is ported; its server on a mesh is not (item 9)
@@ -444,7 +462,8 @@ def test_unported_paths_raise(torch_world, case):
     if case == "cohort_family":  # a family the port's registry lacks
         cfg = dataclasses.replace(cfg, family="dense")
         sim = dataclasses.replace(sim, engine="cohort")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    item = "item 9" if sim.mesh is not None else ""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         run_algorithm(name, cfg, load_npz_params(FIXTURE), clients, test, sim)
 
 
@@ -464,7 +483,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert len(files) > 20
     scanned = {os.path.relpath(f, ROOT).replace(os.sep, "/") for f in files}
     for mod in ("models/layers.py", "kernels/flash_attention.py",
-                "launch/serve.py", "configs/phi4_mini_38b.py"):
+                "launch/serve.py", "configs/phi4_mini_38b.py",
+                "configs/population.py", "data/loader.py"):
         assert f"src/repro_torch/{mod}" in scanned, mod
     for path in files:
         for mod in _imports(path):
@@ -485,12 +505,15 @@ def test_cli_default_engine_runs(tmp_path, monkeypatch, capsys):
 
 
 if __name__ == "__main__":
-    # regenerate the asyncfeded digest fixtures and the FedAvg fixture from
-    # the reference
+    # regenerate the asyncfeded digest fixtures, the FedAvg fixture and the
+    # population fixture from the reference
     for m in ("cosine", "sketch"):
         with open(ASYNCFEDED_FIXTURE.format(m), "w") as fh:
             json.dump(_reference_asyncfeded(m), fh, indent=1)
             fh.write("\n")
     with open(FEDAVG_FIXTURE, "w") as fh:
         json.dump(_reference_fedavg(), fh, indent=1)
+        fh.write("\n")
+    with open(POP_FIXTURE, "w") as fh:
+        json.dump(reference_population_digests(), fh, indent=1)
         fh.write("\n")
