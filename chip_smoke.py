@@ -86,9 +86,25 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    s/receive, waves, peak host RSS and device memory, the store's bytes
    within the preset's ``resident_mb`` plus one wave's rows, stats, device
    busy share, and pop-1m fedpsa bit-equal with prefetch on and off;
-   then pop-1m fedasync and fedpsa unprofiled, prefetch off and on in
-   alternating order (s/receive of each run and the medians; all
-   bit-equal);
+   then pop-1m fedasync and fedpsa unprofiled, prefetch off, then on
+   (s/receive of each run; bit-equal);
+7e. ``[mesh]``, the mesh-sharded server and the data-parallel cohort
+   engine, each job's ranks spawned by this script on the one card (the
+   ``--mesh-rank`` entry): first the width probe behind the engine's
+   split rule (cuDNN's grouped convolution, shares of 4 and 8 members
+   bit-equal to a call of 8 or 16); (a) the golden world, cohort/grouped, nine runs on 1
+   NCCL rank bit-equal to phase 5 and on 2 gloo ranks within the golden
+   tolerance, fedpsa on 4 gloo ranks (d = 4,522 padded by 2); (b) phase
+   7c's full-width window, FedPSA and asyncfeded l2, on 1 NCCL and 2 gloo
+   ranks, each bit-equal to the single-device run (the lane tolerance is
+   the gate); every rank's launch counts exact, every rank returning the
+   same run, s/receive, each rank's peak memory and the collectives a
+   receive; (c) the 2-rank golden FedPSA run again with rank 0 under a
+   device-only profile: every port kernel on one stream; gloo's host time
+   a collective on CUDA tensors; (d) full-width waves of 8 and 16 members
+   through the cohort engine on 2 gloo ranks with the mesh and without
+   it: every rank splits each wave, to the single-device bits, with
+   the same launches; then 2 NCCL ranks on the one card, which must fail;
 8. profile: the first 2,000 virtual units of both main paths, and one
    serve prefill plus decode, under ``torch.profiler``: the device's busy
    share of the wall time and the CUDA kernels by total time (printed; a
@@ -108,6 +124,7 @@ and prints no result. It imports no JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -115,6 +132,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -912,7 +930,9 @@ def phase_golden(torch):
     on the cohort engine with both member kernels: the committed goldens
     (``tests/golden/<policy>.json``), and asyncfeded's cosine and sketch
     metrics against the reference's digest streams committed under
-    ``tests/torch_fixtures/`` (with their per-receive coefficients)."""
+    ``tests/torch_fixtures/`` (with their per-receive coefficients).
+    Returns each (policy, metric)'s cohort/grouped run and its golden, the
+    references of ``[mesh]``."""
     from repro_torch.core.psa import PSAConfig
     from repro_torch.federated.simulator import SimConfig, run_algorithm
     from repro_torch.kernels import ops
@@ -921,6 +941,7 @@ def phase_golden(torch):
     cases += [("asyncfeded", m, os.path.join(
         "torch_fixtures", f"asyncfeded_{m}_digests.json"))
         for m in ("cosine", "sketch")]
+    refs = {}
     for name, metric, path in cases:
         with open(os.path.join(ROOT, "tests", path)) as fh:
             golden = json.load(fh)
@@ -934,7 +955,10 @@ def phase_golden(torch):
             sim = SimConfig(engine=engine, member_kernel=mk, device="cuda",
                             record_trajectory=True, **GOLDEN_SIM)
             ops.reset_launch_counts()
+            t0 = time.perf_counter()
             res = run_algorithm(name, cfg, params, clients, test, sim, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
             counts = ops.launch_counts()
             got, want = np.asarray(res.digests), np.asarray(golden["digests"])
             if got.shape != want.shape:
@@ -964,6 +988,23 @@ def phase_golden(torch):
                 f"versions={res.versions} dispatches={res.dispatches} "
                 f"final={res.final_accuracy:.4f} aulc={res.aulc:.4f} "
                 f"launches={counts}")
+            if (engine, mk) == ("cohort", "grouped"):
+                refs[name, metric] = {
+                    **_run_ref(res, counts, wall),
+                    "file_digests": golden["digests"],
+                    "file_final": {k: golden["final"][k] for k in (
+                        "versions", "dispatches", "dropped", "launched")},
+                    **({"weights": golden["weights"]}
+                       if "weights" in golden else {})}
+    return refs
+
+
+def _run_ref(res, counts: dict, wall: float) -> dict:
+    """A single-device run as ``[mesh]`` holds a mesh run to it."""
+    return {"digests": res.digests, "accuracies": res.accuracies,
+            "counts": counts, "s_per_receive": wall / res.dispatches,
+            **{k: getattr(res, k) for k in (
+                "versions", "dispatches", "dropped", "launched")}}
 
 
 # tests/test_golden.py's sweep lanes: one timeline-preserving override per
@@ -1207,7 +1248,10 @@ def phase_resume_fedavg(torch):
             f"fixture; launches={counts}")
 
 
+@functools.lru_cache(maxsize=1)
 def _main_world(torch):
+    """The full-width CIFAR world and its init, built once a process (the
+    runs only read it)."""
     from repro_torch.launch.train import build_task
     from repro_torch.models.model import init_params
     cfg, clients, test, calib = build_task("paper-cifar10-cnn", 10_000,
@@ -1572,8 +1616,9 @@ def phase_full_width(torch, smi: str) -> dict:
       (``_lane_op_gaps``);
     * ``run_fedavg``.
 
-    Returns the 3-lane sweep's and FedAvg's launch counts by path name, and
-    the first FedPSA run with the flag on (result, launch counts)."""
+    Returns the 3-lane sweep's and FedAvg's launch counts by path name,
+    the first FedPSA run with the flag on (result, launch counts), and its
+    wall seconds."""
     from repro_torch.core.psa import PSAConfig
     from repro_torch.federated import simulator
     cfg, clients, test, calib, params = _main_world(torch)
@@ -1712,7 +1757,8 @@ def phase_full_width(torch, smi: str) -> dict:
     finally:
         simulator._make_cohort_engine = make_engine
         simulator.setup_device = setup
-    return {"sweep": sweep_counts, "fedavg": counts}, runs["on"][::2]
+    return ({"sweep": sweep_counts, "fedavg": counts}, runs["on"][::2],
+            runs["on"][1])
 
 
 # ---------------------------------------------------------------------------
@@ -2278,6 +2324,499 @@ def phase_population(torch, dev, smi: str, mono) -> tuple:
     return cases, paths
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: the mesh-sharded policy server and the data-parallel cohort
+# engine, one process a rank (spawned from this script)
+# ---------------------------------------------------------------------------
+
+MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh")
+# each rank's process group times out a collective after this long, so a
+# collective that only some ranks reach fails the phase instead of hanging
+MESH_GROUP_TIMEOUT_S = 120
+MESH_GOLDEN = [(n, "l2") for n in POLICIES] + [("asyncfeded", "cosine"),
+                                                ("asyncfeded", "sketch")]
+# the full-width runs: phase 7c's FedPSA window, and asyncfeded l2 on it
+MESH_FULL = (("fedpsa", "l2"), ("asyncfeded", "l2"))
+# full-width waves of B members, each trained by the cohort engine with the
+# mesh and without it: on 2 ranks they split into shares of 4 and 8 members
+# (the runs' waves rarely reach 8 members after padding)
+MESH_SPLIT_B = (8, 16)
+# (ranks, backend, golden cases, full-width cases, split waves, a traced
+# golden fedpsa run on rank 0, collective costs) of each job, in the order
+# they run
+MESH_JOBS = (
+    (1, "nccl", MESH_GOLDEN, MESH_FULL, (), False, False),
+    (2, "gloo", MESH_GOLDEN, MESH_FULL, MESH_SPLIT_B, True, True),
+    (4, "gloo", [("fedpsa", "l2")], (), (), False, False),
+)
+
+
+def _mesh_count_collectives(dist) -> dict:
+    """Count every all_reduce and all_gather call (and the bytes each
+    rank sends) from here on, by wrapping ``torch.distributed``'s
+    functions; returns the live counters."""
+    counts = {"all_reduce": 0, "all_gather": 0, "bytes": 0}
+    for name in ("all_reduce", "all_gather"):
+        fn = getattr(dist, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            t = a[1] if _name == "all_gather" else a[0]
+            counts[_name] += 1
+            counts["bytes"] += t.numel() * t.element_size()
+            return _fn(*a, **kw)
+
+        setattr(dist, name, counted)
+    return counts
+
+
+def _mesh_collective_costs(torch, dist, group) -> dict:
+    """Host time of one scalar all_reduce of a CUDA tensor, read back on
+    the host as the policy steps' sums are not, and of an all_gather of a
+    CIFAR half-vector (each rank's shard at n = 2), each over 50 calls."""
+    out = {}
+    x = torch.ones((1,), device="cuda")
+    v = torch.ones((CIFAR_D // 2,), device="cuda")
+    parts = [torch.empty_like(v) for _ in range(dist.get_world_size(group))]
+    for name, fn in (("all_reduce_scalar_ms",
+                      lambda: dist.all_reduce(x, group=group)),
+                     ("all_gather_half_cifar_ms",
+                      lambda: dist.all_gather(parts, v, group=group))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - t0) / 50
+    return out
+
+
+def _mesh_port_streams(torch, prof) -> dict:
+    """{stream: {"port": port-kernel events, "other": other kernels,
+    "copies": copies}} of a device-only trace."""
+    os.makedirs(MESH_DIR, exist_ok=True)
+    path = os.path.join(MESH_DIR, f"trace{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    os.remove(path)
+    needles = [x for v in PORT_KERNELS.values() for x in v]
+    out = {}
+    for e in events:
+        cat = e.get("cat", "")
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        by = out.setdefault(str(e.get("args", {}).get("stream")),
+                            {"port": 0, "other": 0, "copies": 0})
+        if cat != "kernel":
+            by["copies"] += 1
+        elif any(x in e.get("name", "") for x in needles):
+            by["port"] += 1
+        else:
+            by["other"] += 1
+    return out
+
+
+def _mesh_split_case(torch, world, mesh, B: int) -> dict:
+    """One full-width wave of B members (clients 0..B-1, learning rate
+    0.05) through the cohort engine with ``mesh`` and without it: each
+    engine's ``split_waves``, launches on this rank and seconds, and
+    whether the two gave the same bits. The device is set up as a run sets
+    it (``setup_device``: cuDNN deterministic), and each engine's wave runs
+    twice, the second timed."""
+    from repro_torch.common.tree import FlatSpec
+    from repro_torch.data.loader import StackedClients
+    from repro_torch.federated import simulator
+    from repro_torch.federated.cohort import CohortEngine
+    cfg, clients, _, _, params = world
+    simulator.setup_device("cuda")
+    spec = FlatSpec(params)
+    stacked = StackedClients.from_datasets(clients)
+    sim = simulator.SimConfig()
+    w0 = spec.flatten(params)[None].repeat(B, 1)
+    out, got = {"B": B}, {}
+    for name, m in (("mesh", mesh), ("one", None)):
+        engine = CohortEngine(cfg, stacked, spec, local_epochs=sim.local_epochs,
+                              batch_size=sim.batch_size,
+                              member_kernel="grouped", device="cuda", mesh=m)
+        for _ in range(2):
+            got[name], wall, _, counts = _timed_run(
+                torch, lambda: engine.cohort_update(
+                    w0, np.arange(B), [0.05] * B, 1000 + np.arange(B)))
+        out[name] = {"split_waves": engine.split_waves, "s": wall,
+                     "steps": engine.steps_run, "launches": counts}
+    pairs = list(zip(got["mesh"], got["one"]))
+    out["equal"] = all(torch.equal(a, b) for a, b in pairs)
+    out["max_diff"] = max(float((a - b).abs().max()) for a, b in pairs)
+    return out
+
+
+def _mesh_rank_main(rank: int, n: int, jobdir: str) -> int:
+    """One rank of a ``[mesh]`` job (``python3 chip_smoke.py --mesh-rank R N
+    DIR``): the process group and mesh, then the job's runs, each with its
+    launch counts, into ``DIR/rank{R}.json``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated import simulator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_fed_mesh
+    with open(os.path.join(jobdir, "job.json")) as fh:
+        job = json.load(fh)
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        job["backend"], init_method=f"file://{jobdir}/rendezvous", rank=rank,
+        world_size=n,
+        timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+    out = {"runs": []}
+    try:
+        mesh = make_fed_mesh(n)
+        collectives = _mesh_count_collectives(dist)
+        engines = []
+        make_engine = simulator._make_cohort_engine
+
+        def capture_engine(*a, **kw):
+            engines.append(make_engine(*a, **kw))
+            return engines[-1]
+
+        simulator._make_cohort_engine = capture_engine
+        golden = _golden_world()
+        full = (_main_world(torch) if job["full"] or job["split"]
+                else None)
+        out["split"] = [_mesh_split_case(torch, full, mesh, B)
+                        for B in job["split"]]
+        # the traced run comes last: a profiler session slows the runs
+        # after it
+        for kind, name, metric, trace in (
+                [("golden", n_, m, False) for n_, m in job["golden"]]
+                + [("full", n_, m, False) for n_, m in job["full"]]
+                + ([("golden", "fedpsa", "l2", True)] if job["trace"]
+                   else [])):
+            cfg, clients, test, calib, params = (golden if kind == "golden"
+                                                 else full)
+            base = (GOLDEN_SIM if kind == "golden"
+                    else {**MAIN_SIM, "horizon": POLICY_HORIZON})
+            sim = simulator.SimConfig(
+                engine="cohort", member_kernel="grouped",
+                record_trajectory=True, mesh=mesh,
+                **{**base, "device": "cuda"})
+            kw = {}
+            if name == "fedpsa":
+                kw = dict(psa_cfg=PSAConfig(**(GOLDEN_PSA if kind == "golden"
+                                               else {})), calib_batch=calib)
+            if metric != "l2":
+                kw["server_kwargs"] = {"metric": metric}
+            engines.clear()
+            for k in ("all_reduce", "all_gather", "bytes"):
+                collectives[k] = 0
+
+            def run():
+                return simulator.run_algorithm(name, cfg, params, clients,
+                                               test, sim, **kw)
+
+            streams = None
+            if trace and rank == 0:
+                from torch.profiler import ProfilerActivity, profile
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    res, wall, mem, counts = _timed_run(torch, run)
+                streams = _mesh_port_streams(torch, prof)
+            else:
+                res, wall, mem, counts = _timed_run(torch, run)
+            out["runs"].append({
+                "kind": kind, "name": name, "metric": metric,
+                "digests": res.digests, "accuracies": res.accuracies,
+                "final_accuracy": res.final_accuracy, "aulc": res.aulc,
+                "weights": [e.get("weight") for e in res.server_log
+                            if "weight" in e],
+                **{k: getattr(res, k) for k in (
+                    "versions", "dispatches", "dropped", "launched",
+                    "cohorts", "engine")},
+                "steps_run": engines[0].steps_run,
+                "split_waves": engines[0].split_waves, "counts": counts,
+                "wall": wall, "mem": mem, "traced": trace and rank == 0,
+                "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                "collectives": dict(collectives), "streams": streams})
+            del res
+        if job["costs"]:
+            out["costs"] = _mesh_collective_costs(torch, dist,
+                                                  mesh.get_group("d"))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(jobdir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def _mesh_spawn(n: int, backend: str, job: dict, timeout: float) -> tuple:
+    """Run a job on ``n`` rank processes of this script; returns (each
+    rank's results or None, each rank's exit code, each rank's log tail,
+    seconds). Ranks still running at ``timeout`` are killed."""
+    import shutil
+    jobdir = os.path.join(MESH_DIR, f"n{n}-{backend}")
+    shutil.rmtree(jobdir, ignore_errors=True)
+    os.makedirs(jobdir)
+    with open(os.path.join(jobdir, "job.json"), "w") as fh:
+        json.dump({"backend": backend, **job}, fh)
+    logs = [open(os.path.join(jobdir, f"rank{r}.log"), "w") for r in range(n)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         str(n), jobdir], stdout=logs[r], stderr=subprocess.STDOUT,
+        start_new_session=True) for r in range(n)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+        for fh in logs:
+            fh.close()
+    secs = time.perf_counter() - t0
+    results, tails = [], []
+    for r in range(n):
+        path = os.path.join(jobdir, f"rank{r}.json")
+        results.append(json.load(open(path)) if os.path.exists(path)
+                       else None)
+        with open(os.path.join(jobdir, f"rank{r}.log")) as fh:
+            tails.append(fh.read()[-3000:])
+    shutil.rmtree(jobdir, ignore_errors=True)
+    return results, [p.returncode for p in procs], tails, secs
+
+
+def _mesh_check_run(what: str, run: dict, ref: dict, exact: bool,
+                    want_counts: dict) -> str:
+    """Hold one rank's run to its reference: bit-equal digests and
+    accuracies (``exact``), else the golden or lane tolerance, which
+    ``ref["tol"]`` names; the counters; the launch counts."""
+    got, want = np.asarray(run["digests"]), np.asarray(ref["digests"])
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: digests {got.shape} != {want.shape}")
+    if exact:
+        if run["digests"] != ref["digests"] or \
+                run["accuracies"] != ref["accuracies"]:
+            raise AssertionError(f"{what}: not bit-equal to the "
+                                 f"single-device run: "
+                                 f"{_gap_profile(got, want)}")
+        gap = "bit-equal"
+    elif ref["tol"] == "lane":
+        share = _lane_gap(got, want)
+        if not share <= 1.0:
+            raise AssertionError(f"{what}: {share:.3e} x the lane tolerance "
+                                 f"({_gap_profile(got, want)})")
+        gap = (f"{share:.3e} of the lane tolerance (rtol {LANE_RTOL}, atol "
+               f"{LANE_ATOL}); {_gap_profile(got, want)}")
+    else:
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        rel = float(np.max(np.abs(got - want) / (np.abs(want) + ATOL / RTOL)))
+        gap = f"max rel {rel:.2e} (golden tolerance)"
+    for key in ("versions", "dispatches", "dropped", "launched"):
+        if key in ref and run[key] != ref[key]:
+            raise AssertionError(f"{what}: {key} {run[key]} != {ref[key]}")
+    got_counts = {k: run["counts"][k] for k in want_counts}
+    if got_counts != want_counts:
+        raise AssertionError(f"{what}: launches {got_counts} != "
+                             f"{want_counts}")
+    return gap
+
+
+def _mesh_check_split(n: int, backend: str, results: list, smi: str) -> None:
+    """Each full-width split case on every rank: the mesh engine split its
+    wave each of the two times and the single-device engine did not, to the same bits, with
+    the same launch counts, so the data-parallel path ran on the card."""
+    for r, rank in enumerate(results):
+        for case in rank["split"]:
+            what = f"[mesh] n={n} {backend} rank {r} wave of {case['B']}"
+            mesh, one = case["mesh"], case["one"]
+            log(f"{what}: split {mesh['split_waves']} (one device "
+                f"{one['split_waves']}), bit-equal {case['equal']} (max "
+                f"|diff| {case['max_diff']:.3e}), {mesh['steps']} steps, "
+                f"{mesh['s']:.3f}s against {one['s']:.3f}s on one device, "
+                f"launches {mesh['launches']} on {smi}")
+            if (mesh["split_waves"], one["split_waves"]) != (2, 0):
+                raise AssertionError(f"{what}: split waves {mesh['split_waves']}"
+                                     f" (want 2) and {one['split_waves']} on "
+                                     f"one device (want 0)")
+            if not case["equal"]:
+                raise AssertionError(f"{what}: not bit-equal to one device "
+                                     f"(max |diff| {case['max_diff']:.3e})")
+            if mesh["launches"] != one["launches"]:
+                raise AssertionError(f"{what}: launches {mesh['launches']} "
+                                     f"!= {one['launches']} on one device")
+
+
+def _mesh_width_probe(torch) -> None:
+    """The cohort engine splits a wave over ranks only into shares of whole
+    buckets (4 members), because cuDNN picks its grouped convolution's
+    algorithm by the group count. The CNN's two convolutions at the batch
+    of a local step, forward and input gradient of G = 8 and 16 members in
+    one call against shares of 1, 2, 4 (and 8) members at each offset:
+    shares of whole buckets must be bit-equal (the split relies on it);
+    the others are printed."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for G in (8, 16):
+        for name, (c_in, c_out, hw) in (("conv0", (3, 64, 32)),
+                                        ("conv1", (64, 64, 16))):
+            x = torch.randn(64, G * c_in, hw, hw, device="cuda",
+                            generator=gen)
+            w = 0.05 * torch.randn(G * c_out, c_in, 5, 5, device="cuda",
+                                   generator=gen)
+            gy = torch.randn(64, G * c_out, hw, hw, device="cuda",
+                             generator=gen)
+            fwd = F.conv2d(x, w, padding=2, groups=G)
+            dgrad = torch.nn.grad.conv2d_input(x.shape, w, gy, padding=2,
+                                               groups=G)
+            gaps = {}
+            for m in (1, 2, 4, 8)[:G.bit_length() - 1]:
+                worst = [0.0, 0.0]
+                for lo in range(0, G, m):
+                    xs = x[:, lo * c_in:(lo + m) * c_in].contiguous()
+                    ws = w[lo * c_out:(lo + m) * c_out].contiguous()
+                    gs = gy[:, lo * c_out:(lo + m) * c_out].contiguous()
+                    f = F.conv2d(xs, ws, padding=2, groups=m)
+                    dx = torch.nn.grad.conv2d_input(xs.shape, ws, gs,
+                                                    padding=2, groups=m)
+                    worst[0] = max(worst[0], float((f - fwd[:, lo * c_out:(
+                        lo + m) * c_out]).abs().max()))
+                    worst[1] = max(worst[1], float((dx - dgrad[:, lo * c_in:(
+                        lo + m) * c_in]).abs().max()))
+                gaps[m] = worst
+            log(f"[mesh] {name} cuDNN grouped convolution, shares of m "
+                f"members vs one call of {G}: max |diff| (forward, input "
+                f"gradient) { {m: [f'{v:.3e}' for v in g] for m, g in gaps.items()} }")
+            bad = {m: g for m, g in gaps.items() if m >= 4 and g != [0.0, 0.0]}
+            if bad:
+                raise AssertionError(f"{name}: shares of whole buckets are "
+                                     f"not bit-equal to the wave of {G}: "
+                                     f"{bad}")
+
+
+def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict) -> dict:
+    """``[mesh]``: the port's mesh path, each job's ranks spawned from this
+    script on the one card (``MESH_JOBS``): (a) the golden world, cohort
+    engine with ``"grouped"``: 1 rank on NCCL bit-equal to phase 5's
+    single-device runs, 2 ranks on gloo at the golden tolerance
+    (asyncfeded's cosine and sketch metrics against their fixtures), and
+    fedpsa on 4 gloo ranks (d = 4,522 padded by 2), after the width probe
+    behind the engine's split rule (``_mesh_width_probe``); (b) the
+    full-width CIFAR window of phase 7c: FedPSA and asyncfeded l2, 1 NCCL
+    rank
+    bit-equal to the single-device runs, 2 gloo ranks within the lane
+    tolerance; (c) the 2-rank golden FedPSA run once more, rank 0 under a
+    device-only profile: every port kernel on one stream; (d) full-width
+    waves of 8 and 16 members on the 2 gloo ranks, with the mesh and
+    without it: split on every rank, bit-equal, the same launches
+    (``_mesh_check_split``). Every rank's launch counts are exact (``buffer_agg`` an apply on its shard,
+    ``sens_sketch`` as on one device, ``grouped_matmul`` the single-device
+    run's), every rank returns the same run. Then 2 NCCL ranks on the one
+    card must fail. Returns the launch counts of the 2-rank full-width
+    FedPSA run, rank 0."""
+    from repro_torch.federated import simulator
+    t_phase = time.perf_counter()
+    cfg, clients, test, calib, params = _main_world(torch)
+    sim = simulator.SimConfig(engine="cohort", member_kernel="grouped",
+                              record_trajectory=True,
+                              **{**MAIN_SIM, "horizon": POLICY_HORIZON})
+    res, wall, _, counts = _timed_run(torch, lambda: simulator.run_algorithm(
+        "asyncfeded", cfg, params, clients, test, sim))
+    full_ref = {**full_ref, ("asyncfeded", "l2"): _run_ref(res, counts, wall)}
+    del cfg, clients, test, calib, params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    _mesh_width_probe(torch)
+    out = {}
+    for n, backend, gold, full, split, trace, costs in MESH_JOBS:
+        job = {"golden": gold, "full": full, "split": split, "trace": trace,
+               "costs": costs}
+        results, codes, tails, secs = _mesh_spawn(n, backend, job, 600)
+        if any(c != 0 for c in codes) or any(r is None for r in results):
+            for r, t in enumerate(tails):
+                log(f"[mesh] n={n} {backend} rank {r} exit {codes[r]}:\n{t}")
+            raise AssertionError(f"[mesh] n={n} {backend}: ranks exited "
+                                 f"{codes}")
+        log(f"[mesh] n={n} {backend}: {len(results[0]['runs'])} runs on "
+            f"{n} rank(s) in {secs:.1f}s (processes included) on {smi}")
+        for i, run in enumerate(results[0]["runs"]):
+            key = (run["name"], run["metric"])
+            what = (f"mesh n={n} {backend} {run['kind']} "
+                    f"{run['name']}/{run['metric']}")
+            ref = (golden_ref if run["kind"] == "golden" else full_ref)[key]
+            if run["kind"] == "golden" and n > 1:
+                ref = {**ref, "digests": ref["file_digests"], "tol": "golden",
+                       **ref["file_final"]}
+            elif run["kind"] == "full":
+                ref = {**ref, "tol": "lane"}
+            res_like = types.SimpleNamespace(**{k: run[k] for k in (
+                "dispatches", "versions", "cohorts", "engine")})
+            want = {**_want_launches(run["name"], run["metric"], res_like),
+                    "grouped_matmul": ref["counts"]["grouped_matmul"]}
+            for r, rank in enumerate(results):
+                other = rank["runs"][i]
+                for k in ("digests", "accuracies", "versions", "cohorts"):
+                    if other[k] != run[k]:
+                        raise AssertionError(f"{what}: rank {r}'s {k} differ "
+                                             f"from rank 0's")
+                gap = _mesh_check_run(f"{what} rank {r}", other, ref,
+                                      n == 1, want)
+            if run["kind"] == "golden" and n > 1 and "weights" in ref:
+                np.testing.assert_allclose(run["weights"], ref["weights"],
+                                           rtol=1e-4)
+            walls = [rk["runs"][i]["wall"] for rk in results]
+            col = run["collectives"]
+            log(f"[mesh] {what}: {gap}; receives={run['dispatches']} "
+                f"versions={run['versions']} cohorts={run['cohorts']} "
+                f"split waves by rank "
+                f"{[rk['runs'][i]['split_waves'] for rk in results]} "
+                f"s/receive={max(walls) / run['dispatches']:.4f} "
+                f"(single device {ref.get('s_per_receive', float('nan')):.4f})"
+                f"{' profiled' if run['traced'] else ''} peak MiB by rank "
+                f"{[round(rk['runs'][i]['peak_mib'], 1) for rk in results]} "
+                f"launches every rank {want} collectives a receive "
+                f"all_reduce={col['all_reduce'] / run['dispatches']:.2f} "
+                f"all_gather={col['all_gather'] / run['dispatches']:.2f} "
+                f"({col['bytes'] / run['dispatches'] / 2**20:.3f} MiB sent) "
+                f"on {smi}")
+            if run["kind"] == "full" and run["name"] == "fedpsa" and n == 2:
+                out = run["counts"]
+            if run["streams"] is not None:
+                port = [s for s, by in run["streams"].items() if by["port"]]
+                log(f"[mesh] {what} rank 0 trace by stream: "
+                    f"{run['streams']}")
+                if len(port) != 1:
+                    raise AssertionError(f"{what}: port kernels ran on "
+                                         f"streams {port}, not on one")
+                log(f"[mesh] {what}: every port kernel on stream {port[0]}")
+        _mesh_check_split(n, backend, results, smi)
+        if "costs" in results[0]:
+            log(f"[mesh] n={n} {backend} collective costs by rank (host ms a "
+                f"call, CUDA tensors): {[rk['costs'] for rk in results]}")
+    # NCCL refuses two ranks on one card: the job must fail with NCCL's
+    # own error, not hang and not run on another backend
+    results, codes, tails, secs = _mesh_spawn(
+        2, "nccl", {"golden": [("fedbuff", "l2")], "full": [], "split": [],
+                    "trace": False, "costs": False}, 180)
+    if all(c == 0 for c in codes) or any(c == -9 for c in codes) or \
+            not any("Duplicate GPU" in t for t in tails):
+        raise AssertionError(f"[mesh] 2 NCCL ranks on one card: exit codes "
+                             f"{codes} (want NCCL's duplicate-GPU failure, "
+                             f"not a run, a hang or another error): {tails}")
+    last = [t.strip().splitlines()[-1] if t.strip() else "" for t in tails]
+    log(f"[mesh] 2 NCCL ranks on one card failed as expected in "
+        f"{secs:.1f}s: exit codes {codes}; {last}")
+    log(f"[mesh] the whole phase took {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
 def _profile_run(torch, engine: str) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.psa import PSAConfig
@@ -2497,6 +3036,10 @@ def phase_serve(torch, dev, smi: str):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        # one rank of a [mesh] job that this script spawned
+        return _mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2512,15 +3055,17 @@ def main() -> int:
     phase_build()
     errs = phase_parity(torch, dev)
     timing = phase_timing(torch, dev)
-    phase_golden(torch)
+    golden_ref = phase_golden(torch)
     phase_sweeps_golden(torch)
     phase_resume_fedavg(torch)
     by_path = {"sequential": phase_main(torch),
                "cohort": phase_main_cohort(torch), **phase_policies(torch)}
-    full_width, mono = phase_full_width(torch, smi)
+    full_width, mono, mono_wall = phase_full_width(torch, smi)
+    full_ref = {("fedpsa", "l2"): _run_ref(mono[0], mono[1], mono_wall)}
     pop_cases, pop_paths = phase_population(torch, dev, smi, mono)
     del mono
     by_path.update(full_width, **pop_paths)
+    by_path["mesh-n2-cifar"] = phase_mesh(torch, smi, golden_ref, full_ref)
     # the timed serve runs come before any profiler session, so no profiler
     # state is live while they run
     serve_check = phase_serve_checks(torch, dev)

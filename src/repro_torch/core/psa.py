@@ -17,6 +17,15 @@ through the ``buffer_agg`` kernel and returns a fresh global vector.
 Also here, as in the reference: the distance-metric staleness family of
 ``asyncfeded`` (``distance_staleness_scale``, ``sketch_distance_scale``)
 and ``magnitude_sketch``, the ``sens_sketch`` kernel with g = 1, F = 0.
+
+Every contraction over the flat parameter axis in the server's code goes
+through ``common.sharding``, so the same code runs on one shard of the
+mesh-sharded server (``federated.servers.ShardedPolicyServer``): sums
+through ``param_axis_sum(s)`` (one fixed order, so the single-device bits
+on any rank count), and the magnitude sketches through the
+``sens_sketch`` kernel on the local shard, hashed from the shard's global
+index (``param_axis_offset``), with the partials summed across the shards
+(``param_axis_reduce``) before any norm.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.common import sharding
 from repro_torch.common.tree import FlatSpec, ring_update
 from repro_torch.core import aggregation, sketch, thermometer
 from repro_torch.core.sensitivity import grad_and_fisher
@@ -134,7 +144,8 @@ def server_receive(state: PSAState, update_vec: torch.Tensor,
     u = update_vec.float()
     slot = ring_update(state.buffer, u, state.count)
     state.kappas[slot] = kappa
-    thermometer.push(state.thermo, torch.sum(torch.square(u)))  # Eq. 16
+    thermometer.push(state.thermo,
+                     sharding.param_axis_sum(torch.square(u)))  # Eq. 16
     state.count += 1
     return state
 
@@ -219,14 +230,17 @@ def distance_staleness_scale(global_vec: torch.Tensor, wi: torch.Tensor,
     l2 (``dist_mode=0``):  s = alpha * min(1, ||dw|| / (||w_i - w|| + eps));
     cosine (``dist_mode=1``):
         s = alpha * 0.5 * (1 + <dw, w_i - w> / (||dw||*||w_i - w|| + eps)).
-    ``dist_mode`` is a host value, so the branch costs no sync."""
+    ``dist_mode`` is a host value, so the branch costs no sync. On a shard,
+    the sums complete across the shards in one ``all_reduce``."""
     drift = wi - global_vec
-    dist = torch.sqrt(torch.sum(torch.square(drift)))
-    norm = torch.sqrt(torch.sum(torch.square(dw)))
+    terms = [torch.square(drift), torch.square(dw)]
+    if dist_mode >= 0.5:
+        terms.append(dw * drift)
+    sums = sharding.param_axis_sums(*terms)
+    dist, norm = torch.sqrt(sums[0]), torch.sqrt(sums[1])
     if dist_mode < 0.5:
         return alpha * torch.clamp(norm / (dist + eps), max=1.0)
-    dot = torch.sum(dw * drift)
-    return alpha * (0.5 * (1.0 + dot / (norm * dist + eps)))
+    return alpha * (0.5 * (1.0 + sums[2] / (norm * dist + eps)))
 
 
 @functools.lru_cache(maxsize=8)
@@ -242,9 +256,13 @@ def magnitude_sketch(vec: torch.Tensor, *, k: int, seed: int) -> torch.Tensor:
     Rademacher hash as the sensitivity sketch, so ||z|| estimates
     ||vec||_2: ``sens_sketch`` with (g=1, F=0), under which the Eq. 8
     sensitivity |g*theta - 0.5*F*theta^2| is exactly |vec|. The whole
-    vector is one leaf hashed with ``seed`` from index 0."""
-    return sens_sketch(vec, torch.ones_like(vec), torch.zeros_like(vec),
-                       k=k, seed=seed)
+    vector is one leaf hashed with ``seed`` from index 0; a shard is hashed
+    from its first element's global index, and the shards' (k,) partials
+    are summed."""
+    z = sens_sketch(vec, torch.ones_like(vec), torch.zeros_like(vec), k=k,
+                    seed=seed,
+                    index_offset=sharding.param_axis_offset(vec.shape[0]))
+    return sharding.param_axis_reduce(z)
 
 
 def sketch_distance_scale(global_vec: torch.Tensor, wi: torch.Tensor,
@@ -256,10 +274,13 @@ def sketch_distance_scale(global_vec: torch.Tensor, wi: torch.Tensor,
 
     The reference sketches dw and the drift in two calls; here they are
     the two rows of one ``sens_sketch_rows`` launch over a one-leaf table
-    (the same function: each row is ``magnitude_sketch`` of its vector)."""
+    (the same function: each row is ``magnitude_sketch`` of its vector).
+    On a shard the launch hashes from the shard's global index and the
+    (2, k) partials are summed across the shards before the norms."""
     d, dev = dw.shape[0], dw.device
     ones, zeros = _unit_rows(d, dev)
-    z = sens_sketch_rows(torch.stack([dw, wi - global_vec]), ones, zeros,
-                         vector_table(d, seed, 0, k, dev))
+    table = vector_table(d, seed, sharding.param_axis_offset(d), k, dev)
+    z = sharding.param_axis_reduce(sens_sketch_rows(
+        torch.stack([dw, wi - global_vec]), ones, zeros, table))
     norm, dist = torch.sqrt(torch.sum(torch.square(z), dim=1)).unbind()
     return alpha * torch.clamp(norm / (dist + eps), max=1.0)

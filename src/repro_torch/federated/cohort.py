@@ -24,14 +24,30 @@ on client 0's data in ``CohortEngine``, on zero rows in
 ``StreamingCohortEngine`` (the engine over a ``data.loader.ClientSlabStore``
 for populations too large to stack, which trains each wave on the rows
 the store gathers for it).
+
+With a mesh (``CohortEngine(..., mesh=, rules=)``, one process a rank) a
+wave trains data-parallel over the mesh axis that the rules map
+``cohort`` onto: rank r trains its contiguous share of the padded wave's
+members, and every rank then all-gathers the members' new parameters.
+Each rank holds the whole data slab and runs the wave's step count, and
+members are independent, so a member's new parameters can depend on the
+split only through the width of the calls that batch the members. The
+``grouped_matmul`` kernel's sums do not depend on it (``split_k``);
+cuDNN picks its grouped convolution's algorithm by the group count, and
+on the H100 a member's forward and input gradient came out the same bits
+at 1, 4, 8 and 12 members but not at 2. So a wave splits only into
+shares of whole buckets (multiples of ``bucket_size(1)``, 4 members: the
+widths a single-device wave has); otherwise every rank trains the whole
+wave. The reference splits whenever n divides the padded wave.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.common import sharding
 from repro_torch.common.tree import (FlatSpec, tree_leaves, tree_sq_norm,
                                      tree_sub, tree_unflatten_like)
 from repro_torch.data.loader import (ClientSlabStore, StackedClients,
@@ -59,19 +75,47 @@ class CohortEngine:
     """Local training for a whole wave of members on one device.
 
     Built once per run (model, stacked data, epochs, batch size, prox,
-    align, member kernel); ``cohort_update`` then trains one wave.
+    align, member kernel, mesh); ``cohort_update`` then trains one wave.
     ``steps_run`` counts the local steps the engine executed, over all
-    waves.
+    waves, and ``split_waves`` the waves it trained split over a mesh.
     """
+    # the mesh axis a wave's members split over (None: single device, or
+    # rules that map ``cohort`` onto no mesh axis)
+    _cohort: Optional[sharding.AxisGroup] = None
 
     def __init__(self, cfg: ModelConfig, stacked: StackedClients,
                  spec: FlatSpec, *, local_epochs: int = 5,
                  batch_size: int = 64, prox: float = 0.0, align: float = 0.0,
-                 member_kernel: str = "vmap", device="cpu"):
+                 member_kernel: str = "vmap", device="cpu", mesh=None,
+                 rules: Optional[sharding.LogicalRules] = None):
         self._configure(cfg, spec, stacked.sizes, local_epochs=local_epochs,
                         batch_size=batch_size, prox=prox, align=align,
                         member_kernel=member_kernel, device=device)
         self.x, self.y = stacked.to_device(self.device)
+        if mesh is not None:
+            self._cohort = sharding.mesh_axis(mesh, rules, "cohort")
+
+    def _share(self, n: int) -> Optional[slice]:
+        """This rank's contiguous share of n members when they split over
+        the cohort axis of two or more ranks into shares of whole buckets,
+        else None (every rank takes all n)."""
+        ax = self._cohort
+        if ax is None or ax.size == 1 or \
+                n % (ax.size * bucket_size(1, self._data_kind)):
+            return None
+        m = n // ax.size
+        return slice(ax.rank * m, (ax.rank + 1) * m)
+
+    def map_members(self, fn: Callable, rows: torch.Tensor) -> torch.Tensor:
+        """``fn`` of (B, ...) member rows -> (B, ...) results, member by
+        member (FedPSA's wave sketches), under the wave's own rule: each
+        rank applies ``fn`` to its share of the B members and the shares
+        are all-gathered when they are whole buckets; otherwise every rank
+        applies it to all B."""
+        share = self._share(int(rows.shape[0]))
+        if share is None:
+            return fn(rows)
+        return sharding.all_gather_cat(fn(rows[share]), self._cohort)
 
     def _configure(self, cfg: ModelConfig, spec: FlatSpec, sizes, *,
                    local_epochs: int, batch_size: int, prox: float,
@@ -99,6 +143,7 @@ class CohortEngine:
         self.num_steps = int(self.steps_per_client.max())
         self.bs_pad = int(bs_c.max())
         self.steps_run = 0
+        self.split_waves = 0
 
     def _schedules(self, cids: np.ndarray, seeds: np.ndarray):
         """Batch schedules for a cohort, padded to the engine's fixed
@@ -185,8 +230,18 @@ class CohortEngine:
         live = np.flatnonzero((lr_steps > 0.0).any(axis=0))
         n_steps = int(live[-1]) + 1 if live.size else 0
         x, y, rows = self._wave_rows(cids, lanes, pad)
-        w = self._train(params_stack, x, y, rows, idx, valid, counts,
-                        lr_steps, n_steps)
+        share = self._share(n + pad)
+        if share is None:
+            w = self._train(params_stack, x, y, rows, idx, valid, counts,
+                            lr_steps, n_steps)
+        else:
+            # the whole wave's step count on every rank: a rank's members
+            # run their padded steps at learning rate 0, as on one device
+            self.split_waves += 1
+            w = sharding.all_gather_cat(self._train(
+                params_stack[share], x, y, rows[share], idx[share],
+                valid[share], counts[share], lr_steps[share], n_steps),
+                self._cohort)
         return (w - params_stack)[:n], w[:n]
 
     def _train(self, params_stack, x, y, rows, idx, valid, counts, lr_steps,

@@ -21,6 +21,11 @@ fedfa, fedpac and asyncfeded (metrics l2, cosine and sketch).
 
 ``state_arrays``/``load_state_arrays`` turn a ``ServerState`` into named
 host arrays and back (simulator checkpoints).
+
+A step reads the width of the flat vector from the state, never from the
+spec, so the same steps run on one shard of the mesh-sharded server
+(``servers.ShardedPolicyServer``), whose d-sized tensors hold a slice of
+the (padded) flat axis.
 """
 from __future__ import annotations
 
@@ -393,7 +398,7 @@ def fedfa_policy(spec: FlatSpec, queue_len: int = 5,
         state.ring.count += 1
         w = recency_weights(state.ring.count, state.hyper.beta, dev)
         state.params = aggregation.aggregate_flat(
-            _zeros(spec.size, dev), state.ring.data, w)
+            _zeros(state.params.shape[0], dev), state.ring.data, w)
         state.version += 1
         return state, True, None
 
@@ -428,24 +433,44 @@ def state_array_names(state: ServerState) -> list:
     return [name for name, _, _ in _state_fields(state)]
 
 
-def state_arrays(state: ServerState) -> dict:
-    """name -> numpy array of every field of ``state`` a step reads."""
+def map_state_tensors(state: ServerState, names, fn) -> ServerState:
+    """Replace each tensor field of ``state`` named in ``names`` by
+    ``fn(tensor)`` (the sharded server's layout change)."""
+    for name, holder, attr in _state_fields(state):
+        if name in names:
+            setattr(holder, attr, fn(getattr(holder, attr)))
+    return state
+
+
+def state_arrays(state: ServerState, whole: Optional[Callable] = None) -> dict:
+    """name -> numpy array of every field of ``state`` a step reads.
+    ``whole(name, tensor)``, when given, maps a tensor field to what is
+    saved (the sharded server gathers its shards)."""
     out = {}
     for name, holder, attr in _state_fields(state):
         v = getattr(holder, attr)
-        out[name] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                     else np.asarray(v))
+        if isinstance(v, torch.Tensor):
+            if whole is not None:
+                v = whole(name, v)
+            out[name] = v.detach().cpu().numpy()
+        else:
+            out[name] = np.asarray(v)
     return out
 
 
-def load_state_arrays(state: ServerState, arrays: dict) -> ServerState:
+def load_state_arrays(state: ServerState, arrays: dict,
+                      local: Optional[Callable] = None) -> ServerState:
     """Restore ``state_arrays`` output into a live state built by the same
     policy: tensors as fresh tensors on the state's device and dtype, host
     ints as ``int`` (a receive still costs no device sync) and the CA2FL
-    valid mask as a host bool array."""
+    valid mask as a host bool array. ``local(name, array)``, when given,
+    maps a saved array to this state's part of it (the sharded server's
+    shard)."""
     for name, holder, attr in _state_fields(state):
         cur, a = getattr(holder, attr), np.asarray(arrays[name])
         if isinstance(cur, torch.Tensor):
+            if local is not None:
+                a = local(name, a)
             new = torch.tensor(a, dtype=cur.dtype, device=cur.device)
         elif isinstance(cur, np.ndarray):
             new = a.astype(cur.dtype)

@@ -17,6 +17,13 @@ own tensor (policies never write it in place), so ``flat_params`` and
 ``params`` can hand it out without a copy: a dispatch snapshot taken now
 is still the same values after later receives.
 
+``ShardedPolicyServer`` is the mesh-sharded drop-in, one process a rank:
+every ``(..., d)`` tensor of ``ServerState`` holds this rank's slice of
+the zero-padded flat parameter axis (``server_state_specs`` is the layout
+contract), and the policy's own step runs on the slices inside
+``common.sharding.param_axis``, where its contractions over d complete
+across the ranks.
+
 ``LanePolicyServer`` holds S sweep lanes of one policy, each a
 ``PolicyServer`` with its own hyperparameters, over one shared timeline.
 """
@@ -26,7 +33,9 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch.common import sharding
 from repro_torch.common.tree import FlatSpec
 from repro_torch.core import psa as psa_lib
 from repro_torch.federated import policies as pol
@@ -35,6 +44,8 @@ from repro_torch.federated import policies as pol
 class PolicyServer:
     """Owns the ``ServerState`` of one ``Policy``, turns metas into
     ``Arrival``s and keeps the per-update log the benchmarks read."""
+
+    axis: Optional[sharding.AxisGroup] = None   # the sharded server's
 
     def __init__(self, policy: pol.Policy, params,
                  hyper: Optional[pol.PolicyParams] = None):
@@ -68,8 +79,13 @@ class PolicyServer:
     def psa(self) -> Optional[psa_lib.PSAState]:
         return self.state.psa
 
+    def state_arrays(self) -> dict:
+        """The server state as named host arrays (``policies.state_arrays``),
+        what a checkpoint saves."""
+        return pol.state_arrays(self.state)
+
     def load_state_arrays(self, arrays: dict) -> None:
-        """Restore ``policies.state_arrays`` output (a checkpoint) into this
+        """Restore ``state_arrays`` output (a checkpoint) into this
         server."""
         pol.load_state_arrays(self.state, arrays)
         self._tree_cache_version = -1
@@ -134,6 +150,118 @@ class PolicyServer:
             taus.append(tau)
             snapshots.append(self.flat_params)
         return updated, taus, snapshots
+
+
+# ---------------------------------------------------------------------------
+# Mesh-sharded execution layer
+# ---------------------------------------------------------------------------
+
+def server_state_specs(state: pol.ServerState, axis: str) -> dict:
+    """The sharded-layout contract: state field name (``policies.
+    state_array_names``) -> its partition spec, one entry per dimension (a
+    mesh axis, or None for a replicated one). Exactly the tensors whose
+    trailing axis is the flat parameter axis shard over ``axis``:
+    ``params`` (d,), ``ring/data`` (L, d), ``psa/buffer`` (L_s, d),
+    ``cache/data`` (C, d) and ``cache/total`` (d,). Everything else
+    (versions, fill counts, kappas, the thermometer, sketches, the cache's
+    valid mask) is small and replicated, with spec ``()``."""
+    row, mat = (axis,), (None, axis)
+    sharded = {"params": row, "ring/data": mat, "psa/buffer": mat,
+               "cache/data": mat, "cache/total": row}
+    return {name: sharded.get(name, ())
+            for name in pol.state_array_names(state)}
+
+
+def _pad_last(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Zero-pad the trailing (flat parameter) axis up to ``width``. The pad
+    is zero in every d-sized input, so it stays zero through every
+    policy's elementwise rules and adds nothing to the sums across
+    shards."""
+    pad = width - x.shape[-1]
+    return x if pad == 0 else F.pad(x, (0, pad))
+
+
+class ShardedPolicyServer(PolicyServer):
+    """``PolicyServer`` with ``ServerState`` laid out over a one-axis mesh,
+    one process a rank.
+
+    The flat parameter axis is zero-padded to ``d_pad``, the next multiple
+    of the rank count n, and rank r holds ``[r * d_pad / n, (r + 1) * d_pad
+    / n)`` of every tensor ``server_state_specs`` shards, each shard a
+    tensor of its own. The policy's step is the single-device code, run on
+    the shards inside ``common.sharding.param_axis``: each rank launches
+    ``buffer_agg`` on its shard, its scalar sums over d add their chunk
+    partials in one ``all_reduce`` (``common.sharding.param_axis_sums``:
+    the single-device bits), asyncfeded's sketch sums its (k,) partials in
+    one ``all_reduce``, and FedPSA's sketch refresh
+    gathers the whole vector first. Every rank keeps the replicated fields (versions, kappas,
+    sketches, the thermometer) equal, so the ranks take the same branches
+    and issue the same collectives in the same order.
+
+    Host-facing results are the single-device server's: ``flat_params`` is
+    the gathered, unpadded (d,) vector (one ``all_gather`` a version,
+    cached), ``receive_many`` returns unpadded rows, and ``receive`` takes
+    whole (d,) vectors or trees; ``state_arrays`` gathers the unpadded state
+    and ``load_state_arrays`` takes it, so a checkpoint resumes on any rank
+    count."""
+
+    def __init__(self, policy: pol.Policy, params, mesh,
+                 rules: Optional[sharding.LogicalRules] = None):
+        axis = sharding.mesh_axis(mesh, rules, "param_shard")
+        if axis is None:
+            got = (rules or sharding.FEDERATED_RULES).mesh_axes(
+                ("param_shard",))[0]
+            raise ValueError(f"rules must map 'param_shard' onto a mesh axis "
+                             f"of {tuple(mesh.mesh_dim_names or ())}, got "
+                             f"{got!r}")
+        self.axis = axis
+        d, n = policy.spec.size, axis.size
+        self._d = d
+        self._d_pad = -(-d // n) * n
+        self._d_local = self._d_pad // n
+        self._lo = axis.rank * self._d_local
+        super().__init__(policy, params)
+        self._specs = server_state_specs(self.state, axis.name)
+        self._sharded = {k for k, v in self._specs.items() if v}
+        pol.map_state_tensors(self.state, self._sharded,
+                              lambda t: torch.clone(self._local(t)))
+
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the trailing (padded) flat axis of x: a view
+        where it lies inside d, zero-padded where it reaches past d."""
+        lo = self._lo
+        return _pad_last(x[..., lo:min(lo + self._d_local, self._d)],
+                         self._d_local)
+
+    def _flat(self, x) -> torch.Tensor:
+        return x if isinstance(x, torch.Tensor) else self.policy.spec.flatten(x)
+
+    @property
+    def flat_params(self) -> torch.Tensor:
+        """The unpadded (d,) global vector, gathered once a version."""
+        return self.axis.gather(self.state.params, self._d)
+
+    def receive(self, delta, client_params, meta) -> bool:
+        with sharding.param_axis(self.axis, self._d):
+            return super().receive(self._local(self._flat(delta)),
+                                   self._local(self._flat(client_params)),
+                                   meta)
+
+    def state_arrays(self) -> dict:
+        def whole(name, t):
+            if name not in self._sharded:
+                return t
+            return sharding.all_gather_cat(t, self.axis, dim=-1)[..., :self._d]
+        return pol.state_arrays(self.state, whole)
+
+    def load_state_arrays(self, arrays: dict) -> None:
+        def local(name, a):
+            if name not in self._sharded:
+                return a
+            return self._local(torch.from_numpy(np.ascontiguousarray(a))
+                               ).numpy()
+        pol.load_state_arrays(self.state, arrays, local)
+        self._tree_cache_version = -1
 
 
 class LanePolicyServer:
@@ -206,7 +334,10 @@ def _policy(name: str, spec: FlatSpec, num_clients: int,
     if name == "fedpsa":
         if psa_cfg is None or sketch_fn is None:
             raise ValueError("fedpsa needs psa_cfg and sketch_fn")
-        refresh = lambda vec: sketch_fn(spec.unflatten(vec))  # noqa: E731
+        # the refresh reads the whole vector: on a shard it gathers first
+        # (the same (k,) sketch on every rank)
+        refresh = lambda vec: sketch_fn(spec.unflatten(  # noqa: E731
+            sharding.gather_param_axis(vec, spec.size)))
     return pol.make_policy(name, spec, num_clients=num_clients,
                            psa_cfg=psa_cfg, sketch_refresh=refresh, **kw)
 
@@ -214,16 +345,19 @@ def _policy(name: str, spec: FlatSpec, num_clients: int,
 def make_server(name: str, params, *, num_clients: int = 50,
                 psa_cfg: Optional[psa_lib.PSAConfig] = None,
                 sketch_fn: Optional[Callable] = None, mesh=None,
+                rules: Optional[sharding.LogicalRules] = None,
                 **kw) -> PolicyServer:
     """Build the policy-backed server for one algorithm. ``sketch_fn``
     (fedpsa) maps a params tree to its (k,) sketch; the policy applies it
-    to the flat global vector through ``spec.unflatten``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded server is not ported to repro_torch "
-            "(ROADMAP.md Queue 1 item 9)")
+    to the flat global vector through ``spec.unflatten``. With ``mesh`` (a
+    ``DeviceMesh``, ``launch.mesh.make_fed_mesh``) the state is sharded
+    over the mesh axis that ``rules`` (default ``common.sharding.
+    FEDERATED_RULES``) map ``param_shard`` onto (``ShardedPolicyServer``);
+    every rank of the mesh builds its server with the same arguments."""
     policy = _policy(name, FlatSpec(params), num_clients, psa_cfg, sketch_fn,
                      kw)
+    if mesh is not None:
+        return ShardedPolicyServer(policy, params, mesh, rules)
     return PolicyServer(policy, params)
 
 

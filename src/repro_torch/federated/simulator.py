@@ -34,9 +34,18 @@ Client sources: a list of ``ClientDataset``s, or a lazy population
 0``, runs the cohort engine over streamed client shards
 (``data.loader.ClientSlabStore`` behind ``cohort.StreamingCohortEngine``,
 with ``shard_cache``, ``shard_promote`` and ``prefetch``); the sequential
-engine takes a population's clients through ``__getitem__``. The sharded
-server (``SimConfig.mesh``) is not ported yet and raises
-``NotImplementedError`` naming ROADMAP.md; no path falls back to another.
+engine takes a population's clients through ``__getitem__``.
+
+With ``SimConfig.mesh`` (a one-axis ``DeviceMesh``,
+``launch.mesh.make_fed_mesh``; one process a rank, every rank running the
+same run) the policy server shards its state over the mesh
+(``servers.ShardedPolicyServer``) and the cohort engine trains waves
+data-parallel, in ``run_async`` and ``run_fedavg``; ``SimConfig.rules``
+maps the ``param_shard`` and ``cohort`` logical axes onto the mesh. Every
+rank evaluates and logs the same values; rank 0 alone writes checkpoints.
+Streaming client shards and ``run_sweep`` stay single-device, as in the
+reference, and raise ``ValueError`` with a mesh. No path falls back to
+another.
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import store
+from repro_torch.common import sharding
 from repro_torch.common.device import setup_device
 from repro_torch.common.tree import FlatSpec, tree_leaves, tree_map
 from repro_torch.core import psa as psa_lib
@@ -123,7 +133,14 @@ class SimConfig:
     checkpoint_dir: Optional[str] = None
     checkpoint_every: float = 0.0
     resume: bool = False
-    mesh: Optional[object] = None      # the sharded server is not ported
+    # Layout: with a mesh (torch DeviceMesh, launch.mesh.make_fed_mesh),
+    # the policy server shards ServerState over the mesh's flat-parameter
+    # axis (servers.ShardedPolicyServer) and the cohort engine trains waves
+    # data-parallel over the client axis; rules (common.sharding.
+    # LogicalRules, default FEDERATED_RULES) map the param_shard and cohort
+    # logical axes onto mesh axes. None = single-device layout.
+    mesh: Optional[object] = None
+    rules: Optional[sharding.LogicalRules] = None
     record_trajectory: bool = False
     # Where the run executes. "cuda" needs a card and raises without one;
     # "cpu" runs the kernels' plain versions (the CPU tests).
@@ -162,11 +179,6 @@ class SimResult:
 def _unported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet; see ROADMAP.md {item}")
-
-
-def _check_ported(sim: SimConfig) -> None:
-    if sim.mesh is not None:
-        raise _unported("SimConfig.mesh (the sharded server)", "Queue 1 item 9")
 
 
 def _resolve_engine(sim: SimConfig, cfg: ModelConfig) -> str:
@@ -331,7 +343,7 @@ def _ckpt_save(sim: SimConfig, server, streams, timeline, scheduler,
     spec = server.policy.spec
     events = timeline.events()
     tree = {
-        "server": pol.state_arrays(server.state),
+        "server": server.state_arrays(),
         "events": {
             "t_done": np.asarray([e.t_done for e in events], np.float64),
             "seq": np.asarray([e.seq for e in events], np.int64),
@@ -360,7 +372,8 @@ def _ckpt_save(sim: SimConfig, server, streams, timeline, scheduler,
     }
     if sched := scheduler.state_arrays():
         tree["scheduler"] = sched
-    return store.save_pytree(tree, sim.checkpoint_dir, step=result.dispatches)
+    if sharding.writes(sim.mesh):
+        store.save_pytree(tree, sim.checkpoint_dir, step=result.dispatches)
 
 
 def _ckpt_like(server, scheduler) -> dict:
@@ -386,7 +399,12 @@ def _ckpt_restore(sim: SimConfig, server, streams, timeline, scheduler,
     live run and return ``(t, next_eval, seq)``, or None when there is no
     snapshot (the run then starts fresh). The events' snapshots become
     ``(rows, i)`` references into one (n, d) device tensor on the cohort
-    engine and params trees (views of its rows) on the sequential one."""
+    engine and params trees (views of its rows) on the sequential one.
+    Under a mesh every rank reads the unpadded state rank 0 wrote (after
+    every rank has reached this point, so after rank 0's last write) and
+    takes its shard of it."""
+    if server.axis is not None:
+        sharding.host_barrier(server.axis, device)
     step = store.latest_step(sim.checkpoint_dir)
     if step is None:
         return None
@@ -462,7 +480,6 @@ def run_async(server_name: str, cfg: ModelConfig, init_params,
               server_kwargs: Optional[dict] = None,
               receive_hook: Optional[Callable] = None) -> SimResult:
     """Run one asynchronous algorithm to the virtual-time horizon."""
-    _check_ported(sim)
     engine = _resolve_engine(sim, cfg)
     batched = engine == "cohort"
     streams = make_streams(sim)
@@ -480,7 +497,8 @@ def run_async(server_name: str, cfg: ModelConfig, init_params,
                                         psa_cfg, device)
     server = servers_lib.make_server(
         server_name, params, num_clients=sim.num_clients, psa_cfg=psa_cfg,
-        sketch_fn=sketch_fn, **(server_kwargs or {}))
+        sketch_fn=sketch_fn, mesh=sim.mesh, rules=sim.rules,
+        **(server_kwargs or {}))
     digest_fn = (make_digest_fn(server.policy.spec.size)
                  if sim.record_trajectory else None)
     evaluate = _build_eval(cfg, test_ds, sim, device)
@@ -614,7 +632,8 @@ def _make_cohort_engine(cfg, client_datasets, spec, sim: SimConfig, device,
             device=device)
         return StreamingCohortEngine(cfg, store, spec, **kw)
     stacked = StackedClients.from_datasets(client_datasets)
-    return CohortEngine(cfg, stacked, spec, **kw)
+    return CohortEngine(cfg, stacked, spec, mesh=sim.mesh, rules=sim.rules,
+                        **kw)
 
 
 def _gather_snapshots(snaps) -> torch.Tensor:
@@ -737,8 +756,8 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
                     gather([ev.snapshot for ev in ok_events]),
                     [ev.cid for ev in ok_events], lrs, seeds)
                 if sketch_rows is not None:
-                    sketches = sketch_rows(
-                        w_stack.reshape(-1, spec.size)).view(
+                    sketches = engine.map_members(
+                        sketch_rows, w_stack.reshape(-1, spec.size)).view(
                             *w_stack.shape[:-1], -1)
                 result.cohorts += 1
 
@@ -944,7 +963,6 @@ def run_sweep(server_name: str, cfg: ModelConfig, init_params,
         raise ValueError("run_sweep is single-device; drop SimConfig.mesh")
     if sim.checkpoint_dir:
         raise ValueError("checkpointing supports single runs, not sweeps")
-    _check_ported(sim)
     if _resolve_engine(sim, cfg) != "cohort":
         raise ValueError(
             "run_sweep requires the batched cohort engine (engine='cohort' "
@@ -1000,8 +1018,8 @@ def run_fedavg(cfg: ModelConfig, init_params,
     (from their own ``STREAM_SYNC_CHOICE`` stream), wait for the slowest,
     and add the deltas weighted by client data size (FedProx with ``prox >
     0``). On the cohort engine a round trains as one wave from the flat
-    global vector, and the apply is ``flat + w @ deltas``."""
-    _check_ported(sim)
+    global vector, and the apply is ``flat + w @ deltas``; with a mesh the
+    wave trains data-parallel and every rank applies the gathered deltas."""
     engine = _resolve_engine(sim, cfg)
     batched = engine == "cohort"
     device = setup_device(sim.device)

@@ -11,7 +11,17 @@ summary JSON under ``--out``. Initial weights come from a
 reference runs (``--alg``: synchronous ``fedavg`` and the seven async
 policies) on the cohort engine (the default, as in the reference) and the
 sequential engine, on the paper's image models; ``--arch`` of another
-family and ``--mesh`` are not ported (ROADMAP.md).
+family is not ported (ROADMAP.md).
+
+``--mesh N`` shards the policy server over N ranks and trains the waves
+data-parallel (``SimConfig.mesh``), one process a rank: under ``torchrun``
+(``RANK``/``WORLD_SIZE`` set, world size N) each process joins that
+group; otherwise the command spawns N local ranks itself (a ``file://``
+rendezvous in a temporary directory). The backend follows from
+``--device``: ``nccl`` for ``cuda`` (one rank per card), ``gloo`` for
+``cpu``; ``--dist-backend gloo`` runs several ranks on one card, which
+NCCL refuses. Rank 0 alone prints and writes the run's JSON
+(``..._mesh{N}.json``, with ``mesh_devices``).
 
 ``--sweep seeds=0,1,2`` (or ``--sweep gamma=0.1,1,5``, any
 ``PolicyParams`` field) runs the variants as lanes of one batched
@@ -23,10 +33,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import tempfile
 import time
 
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
+from repro_torch.common import sharding
 from repro_torch.configs import get_config
 from repro_torch.core.psa import PSAConfig
 from repro_torch.data import (ClientDataset, dirichlet_partition,
@@ -35,6 +49,7 @@ from repro_torch.data import (ClientDataset, dirichlet_partition,
 from repro_torch.federated.simulator import (ALGORITHMS, SimConfig,
                                              SweepConfig, run_algorithm,
                                              run_sweep)
+from repro_torch.launch.mesh import make_fed_mesh
 from repro_torch.models import model as model_lib
 
 
@@ -63,6 +78,36 @@ def build_task(model_name: str, num_samples: int, alpha: float,
 
 
 def main(argv=None):
+    args = _parser().parse_args(argv)
+    if not args.mesh:
+        _run(args)
+    elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        _rank(int(os.environ.get("LOCAL_RANK", 0)), args, "env://")
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            mp.start_processes(_rank, args=(args, f"file://{tmp}/rendezvous"),
+                               nprocs=args.mesh, start_method="spawn")
+
+
+def _rank(local_rank: int, args, init_method: str) -> None:
+    """One rank of a ``--mesh`` run: its card (cuda), the process group, the
+    mesh, the run."""
+    backend = args.dist_backend or (
+        "nccl" if torch.device(args.device).type == "cuda" else "gloo")
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.set_device(local_rank % torch.cuda.device_count())
+    if init_method == "env://":
+        dist.init_process_group(backend, init_method=init_method)
+    else:
+        dist.init_process_group(backend, init_method=init_method,
+                                rank=local_rank, world_size=args.mesh)
+    try:
+        _run(args, make_fed_mesh(args.mesh, device=args.device))
+    finally:
+        dist.destroy_process_group()
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--alg", default="fedpsa", choices=ALGORITHMS)
     ap.add_argument("--arch", "--model", dest="model",
@@ -94,9 +139,21 @@ def main(argv=None):
                          "'seeds=0,1,2' (per-lane model and shuffle seeds) "
                          "or a policy hyperparameter grid such as "
                          "'alpha=0.3,0.6,0.9' (PolicyParams field names)")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="shard the policy server (and train waves "
+                         "data-parallel) over N ranks, one process a rank")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=["nccl", "gloo"],
+                    help="the --mesh process group's backend (default: nccl "
+                         "for --device cuda, gloo for cpu; gloo for several "
+                         "ranks on one card)")
     ap.add_argument("--out", default="artifacts/runs_torch")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def _run(args, mesh=None) -> None:
+    """One run (or sweep) of the parsed arguments; with ``mesh``, this
+    rank's part of it (rank 0 prints and writes)."""
     cfg, clients, test, calib = build_task(
         args.model, args.samples, args.alpha, args.clients, args.seed,
         args.calib)
@@ -104,12 +161,17 @@ def main(argv=None):
     sim = SimConfig(num_clients=args.clients, concurrency=args.concurrency,
                     horizon=args.horizon, latency_kind=args.latency,
                     latency_lo=args.lat_lo, latency_hi=args.lat_hi,
-                    seed=args.seed, engine=args.engine, device=args.device)
+                    seed=args.seed, engine=args.engine, device=args.device,
+                    mesh=mesh)
     psa = PSAConfig(buffer_size=args.buffer, queue_len=args.queue,
                     gamma=args.gamma, delta=args.delta, sketch_k=args.sketch_k)
     name = (f"{args.alg}_{args.model}_a{args.alpha}_{args.latency}"
             f"{int(args.lat_hi)}_s{args.seed}")
-    os.makedirs(args.out, exist_ok=True)
+    if args.mesh:
+        name += f"_mesh{args.mesh}"
+    writes = sharding.writes(mesh)
+    if writes:
+        os.makedirs(args.out, exist_ok=True)
     if args.sweep:
         _sweep(args, name, cfg, params, clients, test, sim, psa, calib)
         return
@@ -117,13 +179,16 @@ def main(argv=None):
     res = run_algorithm(args.alg, cfg, params, clients, test, sim,
                         psa_cfg=psa, calib_batch=calib)
     wall = time.time() - t0
+    if not writes:
+        return
     rec = {
         "alg": args.alg, "model": args.model, "alpha": args.alpha,
         "latency": [args.latency, args.lat_lo, args.lat_hi],
         "final_accuracy": res.final_accuracy, "aulc": res.aulc,
         "versions": res.versions, "dispatches": res.dispatches,
         "times": res.times, "accuracies": res.accuracies,
-        "wall_s": round(wall, 1), "engine": res.engine, "device": args.device,
+        "wall_s": round(wall, 1), "mesh_devices": args.mesh or None,
+        "engine": res.engine, "device": args.device,
     }
     path = os.path.join(args.out, name + ".json")
     with open(path, "w") as f:

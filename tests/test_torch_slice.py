@@ -16,8 +16,10 @@
   engines;
 * the committed population fixture (the smoke presets' streaming runs) is
   what the reference's live runs give;
-* unported paths raise (streaming slabs are ported, a mesh with them still
-  raises), a CUDA request without a card raises, the CLI
+* unported paths raise, and so do a mesh that is not a ``DeviceMesh``, a
+  mesh without a process group, and a mesh with streaming slabs or a
+  sweep (single-device, as in the reference); a CUDA request without a
+  card raises, the CLI
   defaults to the reference's cohort engine, and the port imports neither
   ``jax`` nor ``repro``.
 """
@@ -46,7 +48,8 @@ from repro_torch.federated import latency as tlat
 from repro_torch.federated import scheduler as tsched
 from repro_torch.federated.servers import make_server
 from repro_torch.federated import timeline as ttl
-from repro_torch.federated.simulator import SimConfig, run_algorithm
+from repro_torch.federated.simulator import (SimConfig, SweepConfig,
+                                             run_algorithm, run_sweep)
 from repro_torch.launch.train import build_task as t_build_task
 from torch_eval_digests import eval_digests
 from test_torch_population import (POP_FIXTURE, check_population_fixture,
@@ -435,9 +438,26 @@ def test_cuda_without_a_card_raises(torch_world, monkeypatch):
                       SimConfig(engine="sequential", **SIM))
 
 
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A one-rank gloo group on a ``file://`` rendezvous and its mesh,
+    torn down after the test."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_fed_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_fed_mesh(1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("case", ["mesh", "shard_size", "shard_size_cohort",
-                                  "fedasync", "token_arch", "cohort_family"])
-def test_unported_paths_raise(torch_world, case):
+                                  "fedasync", "sweep_mesh", "token_arch",
+                                  "cohort_family"])
+def test_unported_paths_raise(torch_world, case, request):
     cfg, clients, test, calib = torch_world
     sim = SimConfig(engine="sequential", device="cpu", **SIM)
     name = "fedbuff"
@@ -445,26 +465,41 @@ def test_unported_paths_raise(torch_world, case):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tget("fed-lm-smoke")
         return
-    # streaming slabs are ported (tests/test_torch_population.py); the
-    # sharded server is not, with or without them
-    sim = {"mesh": dataclasses.replace(sim, mesh=object()),
-           "shard_size": dataclasses.replace(sim, shard_size=3,
-                                             mesh=object()),
-           "shard_size_cohort": dataclasses.replace(sim, shard_size=3,
-                                                    engine="cohort",
-                                                    mesh=object()),
-           }.get(case, sim)
-    if case == "fedasync":
-        # every policy is ported; its server on a mesh is not (item 9)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_server("fedasync", load_npz_params(FIXTURE), mesh=object())
-        return
     if case == "cohort_family":  # a family the port's registry lacks
         cfg = dataclasses.replace(cfg, family="dense")
         sim = dataclasses.replace(sim, engine="cohort")
-    item = "item 9" if sim.mesh is not None else ""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        run_algorithm(name, cfg, load_npz_params(FIXTURE), clients, test, sim)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+            run_algorithm(name, cfg, load_npz_params(FIXTURE), clients, test,
+                          sim)
+        return
+    from repro_torch.launch.mesh import make_fed_mesh
+    if case in ("mesh", "fedasync"):
+        # a mesh is a DeviceMesh over a process group that already exists
+        with pytest.raises(RuntimeError, match="process group"):
+            make_fed_mesh(2, device="cpu")
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            if case == "mesh":
+                run_algorithm(name, cfg, load_npz_params(FIXTURE), clients,
+                              test, dataclasses.replace(sim, mesh=object()))
+            else:
+                make_server("fedasync", load_npz_params(FIXTURE),
+                            mesh=object())
+        return
+    # streaming client shards and sweeps stay single-device, as in the
+    # reference: a mesh with either raises
+    sim = dataclasses.replace(sim, engine="cohort", shard_size=3,
+                              mesh=request.getfixturevalue("one_rank_mesh"))
+    with pytest.raises(ValueError, match="single-device"):
+        if case == "shard_size":
+            run_algorithm("fedavg", cfg, load_npz_params(FIXTURE), clients,
+                          test, sim)
+        elif case == "shard_size_cohort":
+            run_algorithm(name, cfg, load_npz_params(FIXTURE), clients, test,
+                          sim)
+        else:
+            run_sweep(name, cfg, load_npz_params(FIXTURE), clients, test,
+                      dataclasses.replace(sim, shard_size=0),
+                      SweepConfig(num_lanes=2))
 
 
 def _imports(path):
@@ -484,7 +519,8 @@ def test_port_imports_neither_jax_nor_reference():
     scanned = {os.path.relpath(f, ROOT).replace(os.sep, "/") for f in files}
     for mod in ("models/layers.py", "kernels/flash_attention.py",
                 "launch/serve.py", "configs/phi4_mini_38b.py",
-                "configs/population.py", "data/loader.py"):
+                "configs/population.py", "data/loader.py",
+                "common/sharding.py", "launch/mesh.py"):
         assert f"src/repro_torch/{mod}" in scanned, mod
     for path in files:
         for mod in _imports(path):
