@@ -115,7 +115,25 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    B = 8, prompt 2,048 and 32 generated tokens: ``flash_attention``
    launched exactly 32 times per prefill and 0 times per decode step,
    decode's logits at position S against a prefill of S + 1 tokens, the
-   prefill's seconds, decode tokens/s and peak device memory.
+   prefill's seconds, decode tokens/s and peak device memory;
+9b. ``[fed-lm]``, federated LM fine-tuning on the dense family (after the
+   serve runs, before the profiles): the attention backward kernel
+   (``flash_attention_bwd``) against its plain version in f32 at the golden
+   world's wave shape (32, 16, 2/2, 8) and in bf16 at the full-width
+   training shape (2, 2048, 24/8, 128) against the float64 backward
+   (``bwd_bf16_limit``), the forward kernels' lse, repeated runs bit-equal,
+   and its time beside the plain backward and the autograd backward of
+   ``F.scaled_dot_product_attention`` (L2 flushed); the fed-lm world
+   (``fed-lm-smoke``, 6 clients, seq 16) with fedasync and fedpsa on the
+   three engine settings against ``tests/golden/fed-lm-smoke.json``
+   (RTOL/ATOL, counters exact), exact launch counts of all five kernels
+   (``_fedlm_want``), fedpsa cohort/grouped repeated bit-equal, and the
+   train CLI (``--arch fed-lm-smoke --seq 16``); then ``local_update`` of
+   ``phi4-mini-3.8b`` at full width (bf16, remat "full", random init on the
+   card, 4 sequences of 2,048 tokens at batch 2: two steps) twice: 64
+   forward and 32 backward attention launches a step and nothing else, a
+   finite delta, the two runs bit-equal, seconds a step, peak memory and
+   (second run, profiled) the device's busy share.
 
 Then it prints one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a card it exits non-zero
@@ -913,7 +931,7 @@ def _want_launches(name: str, metric: str, res) -> dict:
     elif name == "asyncfeded" and metric == "sketch":
         sketch = receives
     return {"buffer_agg": agg.get(name, 0), "sens_sketch": sketch,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def _check_launches(what: str, counts: dict, want: dict, grouped: bool):
@@ -1035,7 +1053,7 @@ def _want_sweep_launches(name: str, metric: str, res) -> dict:
     elif name == "asyncfeded" and metric == "sketch":
         sketch = S * receives
     return {"buffer_agg": S * agg.get(name, 0), "sens_sketch": sketch,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def _lane_gap(got, want) -> float:
@@ -1241,7 +1259,9 @@ def phase_resume_fedavg(torch):
         np.testing.assert_allclose(res.final_accuracy, want["final_accuracy"],
                                    atol=2e-3)
         _check_launches(what, counts, {"buffer_agg": 0, "sens_sketch": 0,
-                                       "flash_attention": 0}, mk == "grouped")
+                                       "flash_attention": 0,
+                                       "flash_attention_bwd": 0},
+                        mk == "grouped")
         log(f"[fedavg] {engine}/{mk}: rounds={res.versions} dispatches="
             f"{res.dispatches} accuracies={res.accuracies} and the evaluated "
             f"models' digests (max |gap| {gap:.3e}) match the reference's "
@@ -1346,7 +1366,7 @@ def phase_main_cohort(torch):
     want = {"sens_sketch": res.cohorts + res.versions + 1,
             "buffer_agg": res.versions,
             "grouped_matmul": CNN_GM_PER_STEP * engine.steps_run,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_bwd": 0}
     if counts != want:
         raise AssertionError(f"cohort main path launches {counts} != {want}")
     if res.versions < 1 or res.engine != "cohort" or res.cohorts < 1:
@@ -1740,6 +1760,7 @@ def phase_full_width(torch, smi: str) -> dict:
                                                    clients, test, sim))
         (engine,) = engines
         want = {"buffer_agg": 0, "sens_sketch": 0, "flash_attention": 0,
+                "flash_attention_bwd": 0,
                 "grouped_matmul": CNN_GM_PER_STEP * engine.steps_run}
         if counts != want or res.cohorts != res.versions or res.versions < 1:
             raise AssertionError(f"fedavg: launches {counts} != {want}, "
@@ -2841,6 +2862,7 @@ def _profile_run(torch, engine: str) -> None:
 # pass is splitk_reduce)
 PORT_KERNELS = {"grouped_matmul": ("grouped_matmul_kernel", "splitk_reduce"),
                 "flash_attention": ("flash_attention",),
+                "flash_attention_bwd": ("dq_kernel", "dkdv_kernel"),
                 "sens_sketch": ("sens_sketch",), "buffer_agg": ("buffer_agg",)}
 
 
@@ -3035,6 +3057,366 @@ def phase_serve(torch, dev, smi: str):
                     "decode_tok_s": res["decode_tok_s"], "peak_bytes": peak}
 
 
+# ---------------------------------------------------------------------------
+# [fed-lm]: federated LM fine-tuning on the dense family (PR 20)
+# ---------------------------------------------------------------------------
+
+# tests/test_golden.py's fed-lm world, the constants of
+# tests/golden/fed-lm-smoke.json
+FEDLM_WORLD = dict(model="fed-lm-smoke", samples=240, alpha=0.3, clients=6,
+                   seed=0, seq=16)
+FEDLM_SIM = dict(num_clients=6, horizon=6_000.0, eval_every=3_000.0, seed=0,
+                 local_epochs=2, batch_size=8)
+FEDLM_POLICIES = ("fedasync", "fedpsa")
+# grad_and_fisher: one gradient pass and PSAConfig.fisher_microbatches (4)
+# passes, each a forward and a backward, per sketched tree or wave
+SKETCH_PASSES = 1 + 4
+# the attention shapes (B, S, H, Hkv, hd): a cohort wave of the golden world
+# (4 members x 8 sequences of 16 tokens, f32) and the full-width training
+# step (2 x 2,048 tokens of phi4-mini-3.8b, bf16)
+FEDLM_ATTN = (32, 16, 2, 2, 8)
+FULL_ATTN = (2, 2048, 24, 8, 128)
+# full width: phi4-mini-3.8b's local SGD, 4 sequences of 2,048, batch 2,
+# one epoch: 2 steps
+FULL_LM = dict(arch="phi4-mini-3.8b", seqs=4, seq=2048, batch=2, lr=1e-3,
+               seed=0)
+
+
+def _fedlm_attn_inputs(torch, rng, dev, shape, dt):
+    B, S, H, Hkv, hd = shape
+    q, do = (_rand(torch, rng, (B, S, H, hd), dev).to(dt) for _ in range(2))
+    k, v = (_rand(torch, rng, (B, S, Hkv, hd), dev).to(dt) for _ in range(2))
+    return q, k, v, do
+
+
+def _fedlm_bwd_bound(shape) -> tuple:
+    """(bf16 tensor-core bound ms, fp32 CUDA-core bound ms, bytes bound ms,
+    FLOP, bytes) of the causal backward at ``shape`` in bf16: five products
+    of 2 hd FLOP per unmasked pair and head; q, k, v, o, dO read and dq, dk,
+    dv written once (and the lse)."""
+    B, S, H, Hkv, hd = shape
+    flops = 5 * 2 * hd * _causal_pairs(S, S) * B * H
+    bytes_ = 2 * (4 * B * S * H * hd + 2 * B * S * Hkv * hd) + 4 * B * H * S
+    return (flops / BF16_TC_FLOPS_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3,
+            bytes_ / HBM_BYTES_PER_S * 1e3, flops, bytes_)
+
+
+def phase_fedlm_kernels(torch, dev) -> dict:
+    """The attention backward kernel and the forward's lse on the card:
+    f32 at the golden world's wave shape against the plain backward (2e-5 x
+    max(1, max|plain|)); bf16 at the full-width shape against the float64
+    backward of the same inputs, elementwise within ``bwd_bf16_limit``; the
+    lse against the plain forward's (2e-5 x max(1, max|lse|)); repeated runs
+    bit-equal. Then its time (L2 flushed) beside the plain backward's and
+    the autograd backward of ``F.scaled_dot_product_attention`` (a
+    yardstick the port never calls)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(20)
+    out = {}
+    for shape, dt in ((FEDLM_ATTN, torch.float32), (FULL_ATTN, torch.bfloat16)):
+        B, S, H, Hkv, hd = shape
+        q, k, v, do = _fedlm_attn_inputs(torch, rng, dev, shape, dt)
+        o, lse = fa._forward(q, k, v, True, with_lse=True)
+        _, lse_p = fa._plain_forward(q, k, v, True)
+        lse_err = float((lse - lse_p).abs().max())
+        lse_tol = 2e-5 * max(1.0, float(lse_p.abs().max()))
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, True)
+        again = fa.flash_attention_bwd(q, k, v, o, do, lse, True)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, True)
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, plain)]
+        what = f"B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal {str(dt)[6:]}"
+        if dt == torch.float32:
+            tols = [2e-5 * max(1.0, float(b.abs().max())) for b in plain]
+            share = max(e / t for e, t in zip(errs, tols))
+            note = f"tol 2e-5 x max(1, max|plain|): {share:.3f} of it"
+        else:
+            ref = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, True,
+                                               dtype=torch.float64)
+            absref = fa.flash_attention_bwd_plain(
+                q, k, v, o, do, lse, True, dtype=torch.float64, absolute=True)
+            G = H // Hkv
+            share = max(float(((a.double() - r).abs() / fa.bwd_bf16_limit(
+                r, ab, n, hd)).max()) for a, r, ab, n in zip(
+                    got, ref, absref, (S, G * S, G * S)))
+            errs64 = [float((a.double() - r).abs().max())
+                      for a, r in zip(got, ref)]
+            note = (f"vs float64 max|err| dq/dk/dv {errs64[0]:.3e}/"
+                    f"{errs64[1]:.3e}/{errs64[2]:.3e}, worst element at "
+                    f"{share:.3f} of bwd_bf16_limit")
+            del ref, absref
+        log(f"[fed-lm] flash_attention_bwd {what}: vs plain max|err| dq/dk/dv "
+            f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}; {note}; repeated run "
+            f"bit-equal {same}; forward lse max|err| {lse_err:.3e} "
+            f"(tol {lse_tol:.3e})")
+        if not (share <= 1.0 and same and lse_err <= lse_tol):
+            raise AssertionError(f"flash_attention_bwd {what}: share {share}, "
+                                 f"bit-equal {same}, lse {lse_err}")
+        out["f32" if dt == torch.float32 else "bf16"] = {
+            "max_abs_err": max(errs), "share": share, "lse_err": lse_err}
+        del got, again, plain
+    # timing at the full-width shape, bf16
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    q, k, v, do = _fedlm_attn_inputs(torch, rng, dev, FULL_ATTN, torch.bfloat16)
+    o, lse = fa._forward(q, k, v, True, with_lse=True)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot = do.transpose(1, 2)
+    bf, b32, bb, flops, bytes_ = _fedlm_bwd_bound(FULL_ATTN)
+    B, S, H, Hkv, hd = FULL_ATTN
+    r = dict(
+        shape=f"B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal bf16",
+        ms=_time_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                          True), 10, flush),
+        plain_ms=_time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, do, lse, True), 5, flush),
+        library_ms=_time_ms(torch, lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), 10, flush),
+        bound_ms=max(bf, bb), bound_by="operations" if bf >= bb else "bytes",
+        fp32_bound_ms=b32, flops=flops, bytes=bytes_)
+    r["design"] = _ptxas("flash_attention_bwd", "dkdv_kernelILi128E")
+    log(f"[timing] flash_attention_bwd {r['shape']}: kernel "
+        f"{r['ms'] * 1e3:.1f}us plain {r['plain_ms'] * 1e3:.1f}us library "
+        f"(SDPA backward) {r['library_ms'] * 1e3:.1f}us; {flops:.4e} FLOP, "
+        f"{bytes_ / 1e6:.1f} MB: bound {bf * 1e3:.1f}us at the bf16 "
+        f"tensor-core peak ({100 * bf / r['ms']:.2f}% of it), "
+        f"{b32 * 1e3:.1f}us at the fp32 peak ({100 * b32 / r['ms']:.2f}%), "
+        f"{bb * 1e3:.1f}us by bytes; {r['design']}")
+    del q, k, v, do, o, lse, qt, kt, vt, ot, dot, flush
+    out["timing"] = r
+    return out
+
+
+def _fedlm_world():
+    from repro_torch.convert import load_npz_params
+    from repro_torch.launch.train import build_task
+    W = FEDLM_WORLD
+    cfg, clients, test, calib = build_task(W["model"], W["samples"],
+                                           W["alpha"], W["clients"],
+                                           W["seed"], seq_len=W["seq"])
+    params = load_npz_params(os.path.join(
+        ROOT, "tests", "torch_fixtures", "fed_lm_smoke_init_seed0.npz"))
+    return cfg, clients, test, calib, params
+
+
+def _fedlm_want(name: str, res, cfg, grouped: bool) -> dict:
+    """Exact launch counts of a fed-lm run: per layer, flash_attention's
+    forward once a local step (a cohort wave's step counts once: its
+    members share the launch), once an eval batch and once a sketch pass,
+    and its backward once a step and a sketch pass; ``sens_sketch`` once a
+    sketched tree or wave, an aggregation and the initial global model;
+    ``buffer_agg`` once an apply; ``grouped_matmul`` (cohort under
+    "grouped") forward, dx and dW of each layer's seven products and the
+    cross-entropy's unembedding, each local step (the sketch's products run
+    unrouted)."""
+    from repro_torch.federated.simulator import SimConfig
+    L = cfg.num_layers
+    evals = len(res.times) * SimConfig().eval_batches
+    sketch = 0
+    if name == "fedpsa":
+        sketch = (res.cohorts if res.engine == "cohort" else res.dispatches) \
+            + res.versions + 1
+    gm_per_step = 3 * (7 * L + 1)
+    return {"flash_attention": L * (res.local_steps + evals
+                                    + SKETCH_PASSES * sketch),
+            "flash_attention_bwd": L * (res.local_steps
+                                        + SKETCH_PASSES * sketch),
+            "sens_sketch": sketch,
+            "buffer_agg": res.versions if name == "fedpsa" else 0,
+            "grouped_matmul": gm_per_step * res.local_steps if grouped else 0}
+
+
+def phase_fedlm(torch, smi: str) -> dict:
+    """The fed-lm world on the card: fedasync and fedpsa on the sequential
+    engine and on the cohort engine with both member kernels against
+    ``tests/golden/fed-lm-smoke.json`` (RTOL/ATOL; counters and launch
+    counts exact), fedpsa cohort/grouped again (bit-equal digests), and the
+    train CLI (``python -m repro_torch.launch.train --arch fed-lm-smoke
+    --seq 16``'s ``main``) as a user runs it. Returns launch counts by
+    path."""
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated.simulator import SimConfig, run_algorithm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    cfg, clients, test, calib, params = _fedlm_world()
+    with open(os.path.join(ROOT, "tests", "golden", "fed-lm-smoke.json")) as fh:
+        golden = json.load(fh)["policies"]
+    paths, digests = {}, {}
+    runs = [(n, e, mk) for n in FEDLM_POLICIES for e, mk in ENGINE_SETTINGS]
+    for name, engine, mk in runs + [("fedpsa", "cohort", "grouped")]:
+        what = f"fed-lm {name} {engine}/{mk}"
+        kw = (dict(psa_cfg=PSAConfig(**GOLDEN_PSA), calib_batch=calib)
+              if name == "fedpsa" else {})
+        sim = SimConfig(engine=engine, member_kernel=mk, device="cuda",
+                        record_trajectory=True, **FEDLM_SIM)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_algorithm(name, cfg, params, clients, test, sim, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        g = golden[name]
+        got, want = np.asarray(res.digests), np.asarray(g["digests"])
+        if got.shape != want.shape or res.engine != engine:
+            raise AssertionError(f"{what}: {got.shape} != {want.shape} "
+                                 f"({res.engine})")
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        for key in ("versions", "dispatches", "dropped", "launched"):
+            if getattr(res, key) != g["final"][key]:
+                raise AssertionError(f"{what}: {key} {getattr(res, key)} != "
+                                     f"{g['final'][key]}")
+        np.testing.assert_allclose(res.final_accuracy,
+                                   g["final"]["final_accuracy"], atol=2e-3)
+        np.testing.assert_allclose(res.aulc, g["final"]["aulc"], atol=2e-3)
+        want_counts = _fedlm_want(name, res, cfg, mk == "grouped"
+                                  and engine == "cohort")
+        if counts != want_counts:
+            raise AssertionError(f"{what}: launches {counts} != {want_counts}")
+        rel = float(np.max(np.abs(got - want) / (np.abs(want) + ATOL / RTOL)))
+        key = (name, engine, mk)
+        if key in digests:
+            same = (np.array_equal(got, digests[key][0])
+                    and res.accuracies == digests[key][1])
+            log(f"[fed-lm] {name} {engine}/{mk} again: digests and accuracies "
+                f"bit-equal {same}")
+            if not same:
+                raise AssertionError(f"{what}: a repeated run differs")
+            continue
+        digests[key] = (got, res.accuracies)
+        paths[f"fed-lm-{name}-{engine}-{mk}"] = counts
+        log(f"[fed-lm] {name} {engine}/{mk}: {len(got)} digests match (max rel "
+            f"{rel:.2e}), local steps {res.local_steps}, cohorts={res.cohorts} "
+            f"versions={res.versions} dispatches={res.dispatches} "
+            f"final={res.final_accuracy:.4f} aulc={res.aulc:.4f} "
+            f"{wall:.2f}s ({wall / res.dispatches:.4f} s/receive) "
+            f"launches={counts}")
+    # the main path as a user runs it: the train CLI
+    out = os.path.join(ROOT, "build", "chip_smoke_fedlm")
+    W = FEDLM_WORLD
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train.main(["--arch", W["model"], "--seq", str(W["seq"]),
+                      "--alg", "fedpsa", "--samples", str(W["samples"]),
+                      "--clients", str(W["clients"]), "--alpha",
+                      str(W["alpha"]), "--horizon", "6000", "--device",
+                      "cuda", "--out", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want_counts = _fedlm_want("fedpsa", res, cfg, False)
+    if counts != want_counts or not 0.0 <= res.final_accuracy <= 1.0:
+        raise AssertionError(f"fed-lm train CLI: launches {counts} != "
+                             f"{want_counts}, final {res.final_accuracy}")
+    paths["fed-lm-train-cli"] = counts
+    log(f"[fed-lm] train CLI --arch {W['model']} --seq {W['seq']} --alg fedpsa "
+        f"(cohort/vmap): final={res.final_accuracy:.4f} "
+        f"aulc={res.aulc:.4f} dispatches={res.dispatches} "
+        f"local steps {res.local_steps}, {wall:.2f}s, launches={counts} on "
+        f"{smi}")
+    return paths
+
+
+def _leaf_checksums(torch, tree) -> list:
+    """Position-weighted integer checksums of each leaf's bits (equal for
+    bit-equal leaves), chunked to bound the scratch memory."""
+    from repro_torch.common.tree import tree_leaves
+    out = []
+    for leaf in tree_leaves(tree):
+        bits = leaf.detach().reshape(-1).view(torch.int32)
+        total = 0
+        for lo in range(0, bits.numel(), 1 << 26):
+            chunk = bits[lo:lo + (1 << 26)].to(torch.int64)
+            pos = torch.arange(lo, lo + chunk.numel(), device=chunk.device)
+            total += int(torch.sum(chunk * (pos % 1000003 + 1)))
+        out.append(total)
+    return out
+
+
+def phase_fedlm_full(torch, dev, smi: str) -> dict:
+    """The client's local SGD at full width: ``federated.client.
+    local_update`` on ``phi4-mini-3.8b`` (32 layers, bf16, remat "full",
+    nothing cut; random init on the card) over a token ``ClientDataset`` of
+    4 sequences of 2,048 tokens from ``make_lm_corpus`` at the full vocab,
+    one epoch at batch 2: two steps. Gates: per step flash_attention 2 x
+    32 (the forward and remat's recompute) and its backward 32, no other
+    kernel; the delta finite; a second run bit-equal (leaf checksums).
+    Prints seconds a step, peak device memory and (second run, under a
+    device-only profile) the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data import (ClientDataset, SyntheticClassification,
+                                  make_lm_corpus)
+    from repro_torch.federated.client import local_update
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    F = FULL_LM
+    cfg = get_config(F["arch"])
+    gc.collect()   # earlier phases' tensors in reference cycles
+    torch.cuda.empty_cache()
+    toks = make_lm_corpus(F["seqs"] * F["seq"], vocab=cfg.vocab_size,
+                          seed=F["seed"]).reshape(F["seqs"], F["seq"])
+    ds = ClientDataset(SyntheticClassification(x=toks, y=toks,
+                                               num_classes=cfg.vocab_size))
+    params = M.init_params(torch.Generator(device=dev).manual_seed(F["seed"]),
+                           cfg, dev)
+    steps = F["seqs"] // F["batch"]
+    kw = dict(epochs=1, batch_size=F["batch"], lr=F["lr"], seed=F["seed"])
+    sums, stats = [], {}
+    for run in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        prof = profile(activities=[ProfilerActivity.CUDA]) if run else None
+        if prof is not None:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        delta, w = local_update(params, cfg, ds, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: 0 for k in counts}
+        want["flash_attention"] = steps * 2 * cfg.num_layers
+        want["flash_attention_bwd"] = steps * cfg.num_layers
+        del w
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in tree_leaves(delta))
+        dtypes = sorted({str(x.dtype) for x in tree_leaves(delta)})
+        sums.append(_leaf_checksums(torch, delta))
+        del delta
+        log(f"[fed-lm] full width {cfg.name} local_update run {run}: {steps} "
+            f"steps of {F['batch']} x {F['seq']} tokens, {wall:.3f}s "
+            f"({wall / steps:.3f} s/step), peak device memory "
+            f"{peak / 2**30:.2f} GiB, delta finite {finite} {dtypes}, "
+            f"launches={counts} on {smi}")
+        if counts != want or not finite:
+            raise AssertionError(f"full-width local_update: launches {counts}"
+                                 f" != {want}, finite {finite}")
+        if prof is not None:
+            stats["busy_share"] = _device_busy(
+                torch, prof, f"fed-lm full width local_update, {steps} steps",
+                wall)
+        stats.setdefault("s_per_step", []).append(wall / steps)
+        stats.setdefault("peak_bytes", []).append(peak)
+        stats["launches"] = counts
+    if sums[0] != sums[1]:
+        raise AssertionError("full-width local_update: the second run differs")
+    log(f"[fed-lm] full width: the two runs' deltas bit-equal (leaf "
+        f"checksums)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--mesh-rank"]:
         # one rank of a [mesh] job that this script spawned
@@ -3070,6 +3452,13 @@ def main() -> int:
     # state is live while they run
     serve_check = phase_serve_checks(torch, dev)
     serve_counts, serve_stats = phase_serve(torch, dev, smi)
+    t0 = time.perf_counter()
+    fedlm_kern = phase_fedlm_kernels(torch, dev)
+    fedlm_paths = phase_fedlm(torch, smi)
+    fedlm_full = phase_fedlm_full(torch, dev, smi)
+    fedlm_paths["fed-lm-full-width"] = fedlm_full["launches"]
+    by_path.update(fedlm_paths)
+    log(f"[fed-lm] phase {time.perf_counter() - t0:.1f}s")
     phase_profile(torch)
     phase_profile_serve(torch, dev)
     sources = {"buffer_agg": ("src/repro_torch/csrc/buffer_agg.cu",
@@ -3110,7 +3499,30 @@ def main() -> int:
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "shape": r["shape"], "design": r["design"]})
+    kernels[-1]["launches_by_path"].update(
+        {p: c["flash_attention"] for p, c in fedlm_paths.items()})
+    r = fedlm_kern["timing"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:111",
+        "replaces_note": "no TPU kernel: the reference's JAX autodiff of "
+                         "chunked_attention",
+        "launches": fedlm_paths["fed-lm-train-cli"]["flash_attention_bwd"],
+        "launches_by_path": {p: c["flash_attention_bwd"]
+                             for p, c in fedlm_paths.items()},
+        "max_abs_err": fedlm_kern["f32"]["max_abs_err"],
+        "max_abs_err_bf16": fedlm_kern["bf16"]["max_abs_err"],
+        "bf16_worst_share_of_limit": fedlm_kern["bf16"]["share"],
+        "tolerance": "f32 2e-5 * max(1, max|plain|); bf16 elementwise vs "
+                     "float64 2^-8 |ref| + (n + 2 hd + 16) 2^-24 sum|terms|",
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "fp32_bound_ms": r["fp32_bound_ms"],
+        "library_ms": r["library_ms"], "shape": r["shape"],
+        "design": r["design"]})
     log(json.dumps({"serve": {**serve_stats, **serve_check}}))
+    log(json.dumps({"fed_lm_full_width": {
+        k: fedlm_full[k] for k in ("s_per_step", "peak_bytes", "busy_share")}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

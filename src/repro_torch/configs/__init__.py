@@ -1,23 +1,29 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-The paper's image models and the dense LM ``phi4-mini-3.8b`` are ported;
-as in the reference, ``<id>-smoke`` is ``get_config(<id>).reduced()``.
-Every other id of the reference registry (the other LM families) raises,
-naming ROADMAP.md.
+The paper's image models, the dense LM ``phi4-mini-3.8b`` and the dense
+federated-LM scenario ``fed-lm-smoke`` are ported; as in the reference,
+``<id>-smoke`` is ``get_config(<id>).reduced()`` unless the id is
+registered itself. Every other id of the reference registry (the other LM
+families) raises, naming ROADMAP.md.
 """
 from __future__ import annotations
 
-from repro_torch.configs import phi4_mini_38b
+from repro_torch.configs import fed_lm, phi4_mini_38b
 from repro_torch.configs.paper_models import CONFIGS as _PAPER
 from repro_torch.configs.population import (POPULATION_PRESETS,  # noqa: F401
                                             PopulationPreset,
                                             get_population_preset)
 from repro_torch.models.config import ModelConfig
 
-CONFIGS = {**_PAPER, phi4_mini_38b.CONFIG.name: phi4_mini_38b.CONFIG}
+CONFIGS = {**_PAPER, phi4_mini_38b.CONFIG.name: phi4_mini_38b.CONFIG,
+           **fed_lm.CONFIGS}
 
 
 def get_config(arch: str) -> ModelConfig:
+    if arch in fed_lm.UNPORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} needs the {fed_lm.UNPORTED[arch]} family, which "
+            f"is not ported to repro_torch (ROADMAP.md Queue 1 item 10c)")
     if arch not in CONFIGS and arch.endswith("-smoke"):
         return get_config(arch[: -len("-smoke")]).reduced()
     if arch not in CONFIGS:

@@ -1,7 +1,11 @@
 // Flash attention forward on Hopper: online-softmax GQA attention, causal
 // (top-left: key j is seen by query i iff j <= i) or bidirectional.
 // q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd) with H % Hkv == 0 -> out
-// (B, Sq, H, hd) in q's dtype (f32 or bf16); softmax math in f32.
+// (B, Sq, H, hd) in q's dtype (f32 or bf16); softmax math in f32. Given a
+// buffer (training), each kernel also writes the row log-sum-exp of the
+// scaled scores, lse = m + log l, as f32 (B, H, Sq): the backward kernel
+// (flash_attention_bwd.cu) recomputes P = exp(s * scale - lse) from it. The
+// serve path passes none, and then the kernels store nothing more.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention -> _flash_kernel). The port's models/layers.py
@@ -107,7 +111,8 @@ flash_attention_kernel(const float* __restrict__ q,
                        long long qss, long long qsh, long long qsd,
                        long long ksb, long long kss, long long ksh,
                        long long ksd, long long vsb, long long vss,
-                       long long vsh, long long vsd, int causal, float scale) {
+                       long long vsh, long long vsd, int causal, float scale,
+                       float* __restrict__ lse) {
   constexpr int kBK = Tile<HD>::kBK;
   constexpr int kC = Tile<HD>::kChunks;
   __shared__ __align__(16) float Ks[kBK * HD];
@@ -210,6 +215,8 @@ flash_attention_kernel(const float* __restrict__ q,
   }
 
   if (!live) return;
+  if (lse != nullptr && sub == 0)
+    lse[((long long)b * H + h) * Sq + qi] = m + logf(l);
   const float inv = 1.0f / fmaxf(l, 1e-30f);
   float* op = out + (((long long)b * Sq + qi) * H + h) * hd;
 #pragma unroll
@@ -225,25 +232,25 @@ flash_attention_kernel(const float* __restrict__ q,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int Hkv, int hd, const long long* s,
-           int causal, float scale, cudaStream_t stream) {
+           int causal, float scale, float* lse, cudaStream_t stream) {
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<HD><<<grid, kThreads, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Sk,
       H, H / Hkv, hd, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
-      causal, scale);
+      causal, scale, lse);
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* out, int B,
              int Sq, int Sk, int H, int Hkv, int hd, const long long* s,
-             int causal, float scale, cudaStream_t stream) {
+             int causal, float scale, float* lse, cudaStream_t stream) {
   if (hd <= 32)
-    return launch<32>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
+    return launch<32>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
   if (hd <= 64)
-    return launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
+    return launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
   if (hd <= 128)
-    return launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
-  return launch<256>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
+    return launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
+  return launch<256>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
 }
 
 
@@ -438,7 +445,7 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    long long qss, long long qsh, long long qsd, long long ksb,
                    long long kss, long long ksh, long long ksd, long long vsb,
                    long long vss, long long vsh, long long vsd, int causal,
-                   float scale_log2, int vec) {
+                   float scale_log2, int vec, float* __restrict__ lse) {
   constexpr int kNB = HDB / 64;               // 64-wide hd blocks
   constexpr int kQBytes = kBQ * HDB * 2;
   constexpr int kTBytes = kBK * HDB * 2;      // one K or V tile
@@ -592,6 +599,13 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  if (lse != nullptr && lane % 4 == 0) {
+    // m is in base-2 units of the scaled score: lse = (m + log2 l) ln 2
+    const float ln2 = 0.6931471805599453f;
+    float* lp = lse + ((long long)b * H + h) * Sq;
+    if (qi_lo < Sq) lp[qi_lo] = (m_lo + log2f(l_lo)) * ln2;
+    if (qi_hi < Sq) lp[qi_hi] = (m_hi + log2f(l_hi)) * ln2;
+  }
   const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
 #pragma unroll
@@ -625,7 +639,7 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HDB>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int Hkv, int hd, const long long* s,
-           int causal, float scale, cudaStream_t stream) {
+           int causal, float scale, float* lse, cudaStream_t stream) {
   constexpr int smem = smem_bytes<HDB>();
   static bool ready = false;  // the attribute is set once per instantiation
   if (!ready) {
@@ -647,7 +661,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   flash_attention_tc<HDB><<<grid, kThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, Sq, Sk, H,
       H / Hkv, hd, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9],
-      s[10], s[11], causal, scale * log2e, (int)vec);
+      s[10], s[11], causal, scale * log2e, (int)vec, lse);
   return (int)cudaGetLastError();
 }
 
@@ -656,14 +670,14 @@ int bucket(int hd) { return hd <= 64 ? 64 : hd <= 128 ? 128 : 256; }
 
 int dispatch(const void* q, const void* k, const void* v, void* out, int B,
              int Sq, int Sk, int H, int Hkv, int hd, const long long* s,
-             int causal, float scale, cudaStream_t stream) {
+             int causal, float scale, float* lse, cudaStream_t stream) {
   switch (bucket(hd)) {
     case 64:
-      return launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
+      return launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
     case 128:
-      return launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
+      return launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
     default:
-      return launch<256>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, stream);
+      return launch<256>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
   }
 }
 
@@ -691,7 +705,8 @@ int attributes(int hd, int* out) {
 
 // q, k, v are device pointers read through their element strides
 // (b, s, h, d) for q, then k, then v (12 values); out is a contiguous
-// (B, Sq, H, hd) buffer of the inputs' dtype (0 = f32, 1 = bf16).
+// (B, Sq, H, hd) buffer of the inputs' dtype (0 = f32, 1 = bf16); lse, if
+// not null, a contiguous f32 (B, H, Sq) buffer for the row log-sum-exp.
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int Sq, int Sk, int H,
@@ -700,7 +715,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                long long kss, long long ksh, long long ksd,
                                long long vsb, long long vss, long long vsh,
                                long long vsd, int causal, float scale,
-                               int bf16, void* stream) {
+                               int bf16, float* lse, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv != 0 || hd < 1 ||
       hd > 256 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
@@ -709,8 +724,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
     return tc::dispatch(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale,
-                        st);
-  return dispatch(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, st);
+                        lse, st);
+  return dispatch(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse,
+                  st);
 }
 
 // The tensor-core kernel's runtime attributes for head dim hd, into out[4]:

@@ -1,4 +1,4 @@
-"""Client-side data loading: shuffled epoch batches (image data).
+"""Client-side data loading: shuffled epoch batches.
 
 ``epoch_batch_indices`` is a copy of the reference's one shuffle routine,
 so the port visits exactly the batches the reference's per-client loop
@@ -6,6 +6,12 @@ would (same ``RandomState`` stream, same drop-last rule).
 ``StackedClients`` is the cohort engine's padded all-clients slab;
 ``ClientSlabStore`` the streaming one (fixed-size client shards behind a
 bounded LRU, for populations too large to stack).
+
+Both views take the registry's two data kinds (``data_kind_of``): image
+shards hold ``x (n, ...) float32`` features and ``y (n,) int`` labels and
+batch as ``{"x", "y"}``; token shards (federated LM fine-tuning) hold ``x =
+y = (n, seq) int32`` token sequences and batch as ``{"tokens",
+"labels"}``, the keys the token family's loss reads.
 """
 from __future__ import annotations
 
@@ -19,12 +25,16 @@ import torch
 from repro_torch.data.synthetic import SyntheticClassification
 
 
-def _image_only(x: np.ndarray) -> None:
-    """Raise for token data (integer features): image data only."""
-    if np.issubdtype(x.dtype, np.integer):
-        raise NotImplementedError(
-            "token datasets are not ported to repro_torch (ROADMAP.md "
-            "Queue 1 item 10)")
+def data_kind_of(x: np.ndarray) -> str:
+    """The registry data kind a feature array implies: integer dtypes are
+    token-id sequences, everything else image/feature rows."""
+    return "tokens" if np.issubdtype(np.asarray(x).dtype, np.integer) \
+        else "image"
+
+
+def _x_dtype(kind: str):
+    """Host dtype of a slab's features: int32 tokens or float32 rows."""
+    return np.int32 if kind == "tokens" else np.float32
 
 
 def epoch_batch_indices(n: int, num_epochs: int, batch_size: int,
@@ -48,47 +58,60 @@ class ClientDataset:
     def __len__(self):
         return len(self.data)
 
+    @property
+    def kind(self) -> str:
+        return data_kind_of(self.data.x)
+
     def epochs(self, num_epochs: int, batch_size: int, seed: int) -> Iterator[dict]:
-        """Host batches ``{"x": float32, "y": int32}`` in schedule order."""
-        _image_only(self.data.x)
+        """Host batches in schedule order: ``{"x": float32, "y": int32}``,
+        or ``{"tokens", "labels"}`` (both int32) for token data."""
+        tokens = self.kind == "tokens"
         for idx in epoch_batch_indices(len(self.data), num_epochs,
                                        batch_size, seed):
-            yield {"x": self.data.x[idx].astype(np.float32),
-                   "y": self.data.y[idx].astype(np.int32)}
+            if tokens:
+                yield {"tokens": self.data.x[idx].astype(np.int32),
+                       "labels": self.data.y[idx].astype(np.int32)}
+            else:
+                yield {"x": self.data.x[idx].astype(np.float32),
+                       "y": self.data.y[idx].astype(np.int32)}
 
 
 @dataclass
 class StackedClients:
     """All clients' data as one padded slab (the cohort engine's layout),
-    the reference's ``repro.data.loader.StackedClients`` for image data.
+    the reference's ``repro.data.loader.StackedClients``.
 
     ``x[c, :sizes[c]]`` are client ``c``'s real samples; rows beyond that
     are zero padding. Padding never reaches a loss term: the batch
     schedules index only real rows, and ragged batch tails are masked
-    inside the engine's loss. x (C, n_max, ...) float32, y (C, n_max)
-    int32.
+    inside the engine's loss (for token rows by the ``-1`` no-target
+    label). ``kind == "image"``: x (C, n_max, ...) float32, y (C, n_max)
+    int32; ``kind == "tokens"``: x and y both (C, n_max, seq) int32.
     """
     x: np.ndarray
     y: np.ndarray
     sizes: np.ndarray    # (C,) int32 true per-client sample counts
+    kind: str = "image"
 
     @classmethod
     def from_datasets(cls, datasets: Sequence[ClientDataset]
                       ) -> "StackedClients":
         d0 = datasets[0].data
-        _image_only(d0.x)
+        kind = data_kind_of(d0.x)
         sizes = np.asarray([len(d) for d in datasets], np.int32)
         C, n_max = len(datasets), int(sizes.max())
-        x = np.zeros((C, n_max) + d0.x.shape[1:], np.float32)
+        x = np.zeros((C, n_max) + d0.x.shape[1:], _x_dtype(kind))
         y = np.zeros((C, n_max) + d0.y.shape[1:], np.int32)
         for c, d in enumerate(datasets):
             x[c, :sizes[c]] = d.data.x
             y[c, :sizes[c]] = d.data.y
-        return cls(x=x, y=y, sizes=sizes)
+        return cls(x=x, y=y, sizes=sizes, kind=kind)
 
     def to_device(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The slab as device tensors: x float32, y int64 (gather index)."""
-        return (torch.as_tensor(self.x, device=device),
+        """The slab as device tensors: x float32 (int64 tokens, an
+        embedding index), y int64 (gather index)."""
+        x = self.x.astype(np.int64) if self.kind == "tokens" else self.x
+        return (torch.as_tensor(x, device=device),
                 torch.as_tensor(self.y.astype(np.int64), device=device))
 
 
@@ -97,24 +120,23 @@ class _ListSource:
     adapter that lets the streaming slab path run on exactly the data the
     monolithic ``StackedClients`` slab would hold (digest-parity tests)."""
 
-    kind = "image"
-
     def __init__(self, datasets: Sequence[ClientDataset]):
         self._datasets = list(datasets)
         self.sizes = np.asarray([len(d) for d in self._datasets], np.int64)
         self.n_max = int(self.sizes.max())
         d0 = self._datasets[0].data
-        _image_only(d0.x)
+        self.kind = data_kind_of(d0.x)
         self.num_classes = d0.num_classes
         self._feat = d0.x.shape[1:]
+        self._lab = d0.y.shape[1:]
 
     def member_rows(self, cids):
-        """``(B, n_max, ...)`` float32 / ``(B, n_max)`` int32 host rows,
-        zero past each client's size."""
+        """``(B, n_max, ...)`` float32 (int32 tokens) / ``(B, n_max[, seq])``
+        int32 host rows, zero past each client's size."""
         cids = np.asarray(cids, np.int64)
         B = cids.shape[0]
-        x = np.zeros((B, self.n_max) + self._feat, np.float32)
-        y = np.zeros((B, self.n_max), np.int32)
+        x = np.zeros((B, self.n_max) + self._feat, _x_dtype(self.kind))
+        y = np.zeros((B, self.n_max) + self._lab, np.int32)
         for i, c in enumerate(cids):
             d = self._datasets[int(c)]
             n = int(self.sizes[c])

@@ -1,6 +1,7 @@
 """Client partitioning: Dirichlet label-skew (the paper's protocol), IID,
-and the log-normal client sizes of a lazy population. A copy of the
-reference's ``repro.data.partition`` image path."""
+the log-normal client sizes of a lazy population, and the document split
+of a token stream (federated LM fine-tuning). A copy of the reference's
+``repro.data.partition``."""
 from __future__ import annotations
 
 from typing import List
@@ -52,3 +53,42 @@ def iid_partition(ds: SyntheticClassification, num_clients: int,
     rng = np.random.RandomState(seed)
     idx = rng.permutation(len(ds))
     return [np.asarray(sorted(part)) for part in np.array_split(idx, num_clients)]
+
+
+def document_partition(tokens: np.ndarray, num_clients: int, seq_len: int, *,
+                       doc_len: int = 0, alpha: float = 0.0,
+                       seed: int = 0) -> List[np.ndarray]:
+    """Document-level split of a token stream for federated LM fine-tuning.
+
+    The stream is chopped into contiguous documents of ``doc_len`` tokens
+    (default ``4 * seq_len``); whole documents are dealt to clients,
+    near-uniformly when ``alpha <= 0`` and with Dirichlet(alpha)-drawn
+    proportions otherwise (every client keeps at least one document). Each
+    client's documents are then windowed into non-overlapping ``seq_len``
+    sequences, so no window straddles a document boundary.
+
+    Returns one ``(n_i, seq_len)`` int32 array per client.
+    """
+    tokens = np.asarray(tokens)
+    doc_len = doc_len or 4 * seq_len
+    if doc_len % seq_len:
+        raise ValueError(f"doc_len {doc_len} is not a multiple of seq_len "
+                         f"{seq_len}")
+    n_docs = len(tokens) // doc_len
+    if n_docs < num_clients:
+        raise ValueError(f"need >= {num_clients} documents of {doc_len} "
+                         f"tokens, have {n_docs}")
+    docs = tokens[:n_docs * doc_len].astype(np.int32).reshape(n_docs, doc_len)
+    rng = np.random.RandomState(seed)
+    order = rng.permutation(n_docs)
+    counts = np.ones(num_clients, np.int64)       # min one document each
+    rem = n_docs - num_clients
+    if rem > 0:
+        if alpha > 0:
+            p = rng.dirichlet(np.full(num_clients, alpha))
+            counts += rng.multinomial(rem, p)
+        else:
+            counts += np.diff(np.linspace(0, rem, num_clients + 1).astype(int))
+    cuts = np.cumsum(counts)[:-1]
+    return [part.reshape(-1, seq_len)
+            for part in np.split(docs[order], cuts)]

@@ -2,8 +2,9 @@
 
 A copy of the reference's ``repro.data.synthetic`` image path: an
 anisotropic Gaussian mixture, one mean per class on a random simplex, plus
-a class-dependent rotation, and ``SyntheticPopulation``, the lazy
-population of 10^5-10^6 clients behind the streaming slab store. Pure
+a class-dependent rotation, ``SyntheticPopulation``, the lazy
+population of 10^5-10^6 clients behind the streaming slab store, and
+``make_lm_corpus``, the bigram token stream of federated LM fine-tuning. Pure
 numpy from ``RandomState(seed)``, so the port draws exactly the
 reference's arrays (pinned by the CPU tests).
 """
@@ -199,3 +200,19 @@ class SyntheticPopulation:
              * self.num_classes).astype(np.int64)
         x = self._features(cid, y)
         return SyntheticClassification(x[0], y[0], self.num_classes)
+
+
+def make_lm_corpus(num_tokens: int = 2_000_000, vocab: int = 512,
+                   seed: int = 0, branching: int = 8) -> np.ndarray:
+    """Sparse random bigram chain (the reference's ``make_lm_corpus``):
+    each token has ``branching`` likely successors, so the cross-entropy
+    floor is about log(branching) < log(vocab). int32 (num_tokens,)."""
+    rng = np.random.RandomState(seed)
+    succ = rng.randint(0, vocab, size=(vocab, branching))
+    probs = rng.dirichlet(np.ones(branching) * 0.5, size=vocab)
+    out = np.empty(num_tokens, np.int32)
+    t = rng.randint(vocab)
+    for i in range(num_tokens):
+        out[i] = t
+        t = succ[t, rng.choice(branching, p=probs[t])]
+    return out

@@ -37,19 +37,30 @@ def _loss_for(cfg: ModelConfig, prox: float, align: float):
     return loss
 
 
+def _sgd_step(lr32: float):
+    """The reference's step ``p - lr * g.astype(p.dtype)`` with ``lr`` an
+    f32 array: JAX promotes a narrower leaf to f32, so a bf16 leaf comes out
+    of its first step as f32 (and stays f32); an f32 leaf stays f32."""
+    def step(p, g):
+        dt = torch.promote_types(p.dtype, torch.float32)
+        return p.to(dt) - lr32 * g.to(p.dtype).to(dt)
+    return step
+
+
 def local_update(global_params, cfg: ModelConfig, dataset: ClientDataset, *,
                  epochs: int = 5, batch_size: int = 64, lr: float = 0.01,
                  seed: int = 0, prox: float = 0.0, align: float = 0.0):
     """Run E local epochs of SGD from ``global_params``; returns (delta, w_i).
     ``global_params`` is not modified (every step builds new tensors)."""
     loss = _loss_for(cfg, prox, align)
-    batch_fn = registry.get_family(cfg).batch_fn
+    fam = registry.get_family(cfg)
     device = tree_leaves(global_params)[0].device
-    lr32 = float(np.float32(lr))   # the reference steps with an f32 lr
+    step = _sgd_step(float(np.float32(lr)))   # the reference's f32 lr
     params = global_params
     for hb in dataset.epochs(epochs, batch_size, seed):
-        batch = batch_fn(hb["x"], hb["y"], device)
+        batch = fam.batch_fn(*(hb[k] for k in fam.keys), device)
         g = grad(loss, params, batch, global_params)
         with torch.no_grad():
-            params = tree_map(lambda p, gi: p - lr32 * gi, params, g)
+            params = tree_map(step, params, g)
+        del g   # the next step's gradients need the room (full width)
     return tree_sub(params, global_params), params

@@ -305,10 +305,13 @@ class StreamingCohortEngine(CohortEngine):
         self.store = store
 
     def _wave_rows(self, cids: np.ndarray, lanes: int, pad: int):
-        """The wave's gathered rows (int32 labels widened here, on the
-        current stream), a zero row after them for the pads, and each
-        member's row: the B clients' once per lane, then the pads'."""
+        """The wave's gathered rows (int32 labels, and int32 tokens, widened
+        here, on the current stream), a zero row after them for the pads,
+        and each member's row: the B clients' once per lane, then the
+        pads'."""
         x, y = self.store.gather(cids)
+        if self._data_kind == "tokens":
+            x = x.long()
         B = len(cids)
         rows = np.tile(np.arange(B, dtype=np.int64), lanes)
         if pad > 0:

@@ -46,6 +46,13 @@ rank evaluates and logs the same values; rank 0 alone writes checkpoints.
 Streaming client shards and ``run_sweep`` stay single-device, as in the
 reference, and raise ``ValueError`` with a mesh. No path falls back to
 another.
+
+Token families (the dense LM, ``data_kind == "tokens"``: federated LM
+fine-tuning, ``configs.fed_lm``) run ``run_async`` on both engines, over the
+monolithic slab or streamed client shards, with ``flash_attention`` and its
+backward kernel in every local step, evaluation and FedPSA sketch. A sweep
+or a mesh over a token family raises ``NotImplementedError`` (ROADMAP.md
+Queue 1 item 10d).
 """
 from __future__ import annotations
 
@@ -157,6 +164,8 @@ class SimResult:
     launched: int = 0                 # total dispatch calls (incl. in flight)
     dropped: int = 0                  # dispatches lost to client unavailability
     cohorts: int = 0                  # device batches the cohort engine ran
+    local_steps: int = 0              # local SGD steps this process ran (a
+    #                                   cohort wave's step counts once)
     engine: str = ""
     server_log: List[dict] = field(default_factory=list)  # host values
     receive_log: List[dict] = field(default_factory=list)
@@ -183,13 +192,20 @@ def _unported(what: str, item: str):
 
 def _resolve_engine(sim: SimConfig, cfg: ModelConfig) -> str:
     """Validate ``sim.engine`` for ``cfg``. A family the registry does not
-    hold raises; the port never falls back to another engine."""
+    hold raises, and so does a mesh over a token family; the port never
+    falls back to another engine."""
     if sim.engine not in ENGINES:
         raise ValueError(f"unknown engine {sim.engine!r}; known: {ENGINES}")
-    if sim.engine == "cohort" and not registry.is_registered(cfg.family):
-        raise _unported(f"engine='cohort' for model family {cfg.family!r}",
-                        "Queue 1 item 10")
+    fam = registry.get_family(cfg)
+    if sim.mesh is not None and fam.data_kind == "tokens":
+        raise _unported(f"SimConfig.mesh for the token family "
+                        f"{cfg.family!r}", "Queue 1 item 10d")
     return sim.engine
+
+
+def _calib_on(fam, calib_batch: dict, device) -> dict:
+    """The calibration batch on ``device`` in the family's batch keys."""
+    return fam.batch_fn(*(calib_batch[k] for k in fam.keys), device)
 
 
 def _eval_batches(cfg: ModelConfig, test_ds, sim: SimConfig, device):
@@ -237,8 +253,7 @@ def make_sketch_fn(cfg: ModelConfig, calib_batch: dict,
                    psa_cfg: psa_lib.PSAConfig, device="cpu") -> Callable:
     """params tree -> (k,) FedPSA client sketch on the calibration batch
     (one ``sens_sketch`` launch per tree)."""
-    calib = registry.get_family(cfg).batch_fn(calib_batch["x"],
-                                              calib_batch["y"], device)
+    calib = _calib_on(registry.get_family(cfg), calib_batch, device)
 
     def loss(params, batch):
         return model_lib.loss_fn(params, batch, cfg)
@@ -259,15 +274,17 @@ def make_sketch_fn_flat(cfg: ModelConfig, calib_batch: dict,
     jitted ``vmap`` of ``client_sketch``, with the member axis written
     out."""
     fam = registry.get_family(cfg)
-    calib = fam.batch_fn(calib_batch["x"], calib_batch["y"], device)
+    calib = _calib_on(fam, calib_batch, device)
+    xk, yk = fam.keys
 
     def member_loss(params, batch):
-        B, (n, *shape) = tree_leaves(params)[0].shape[0], batch["x"].shape
-        x = batch["x"].expand(B, n, *shape)
+        B, x, y = tree_leaves(params)[0].shape[0], batch[xk], batch[yk]
+        n = x.shape[0]
         vm = torch.ones((B, n), dtype=torch.float32, device=x.device)
         cnt = torch.full((B,), float(n), dtype=torch.float32, device=x.device)
         return fam.client_loss(params, fam.masked_batch(
-            x, batch["y"].expand(B, n), vm, cnt), cfg, members=True)
+            x.expand(B, *x.shape), y.expand(B, *y.shape), vm, cnt), cfg,
+            members=True)
 
     def fn(w_stack):
         return psa_lib.client_sketch_members(member_loss, spec, w_stack, calib,
@@ -579,6 +596,8 @@ def _drain_sequential(server, cfg, client_datasets, sim: SimConfig, dispatch,
             ev.snapshot, cfg, client_datasets[ev.cid],
             epochs=sim.local_epochs, batch_size=sim.batch_size, lr=lr,
             seed=sim.seed * 100003 + result.dispatches, align=align)
+        n = int(data_sizes[ev.cid])
+        result.local_steps += sim.local_epochs * (n // min(sim.batch_size, n))
         meta = {
             "tau": server.version - ev.version,
             "client_id": ev.cid,
@@ -838,6 +857,8 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
             if t_over is not None:
                 t = t_over
                 break
+        if not lanes:
+            result.local_steps += engine.steps_run
         return t
     finally:
         if store is not None:
@@ -961,6 +982,9 @@ def run_sweep(server_name: str, cfg: ModelConfig, init_params,
                          "synchronous fedavg per seed instead")
     if sim.mesh is not None:
         raise ValueError("run_sweep is single-device; drop SimConfig.mesh")
+    if registry.get_family(cfg).data_kind == "tokens":
+        raise _unported(f"run_sweep for the token family {cfg.family!r}",
+                        "Queue 1 item 10d")
     if sim.checkpoint_dir:
         raise ValueError("checkpointing supports single runs, not sweeps")
     if _resolve_engine(sim, cfg) != "cohort":

@@ -18,7 +18,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
-SOURCES = ("buffer_agg", "flash_attention", "grouped_matmul", "sens_sketch")
+SOURCES = ("buffer_agg", "flash_attention", "flash_attention_bwd",
+           "grouped_matmul", "sens_sketch")
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,40 +1,63 @@
-"""Flash attention forward: online-softmax GQA attention, causal or not.
+"""Flash attention: online-softmax GQA attention, causal or not, with its
+gradient.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``, body ``_flash_kernel``). The port's
-``models/layers.attention_forward`` routes every prefill attention layer
-through it. On a CUDA tensor the wrapper launches the hand-written kernel
-``csrc/flash_attention.cu``; on a CPU tensor it runs the plain version
-below. It never falls back from one to the other.
+``models/layers.attention_forward`` routes every full-sequence attention
+through it: prefill, evaluation and, with a gradient, training. On a CUDA
+tensor the wrapper launches the hand-written kernels
+``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
+(backward); on a CPU tensor it runs the plain versions below. It never
+falls back from one to the other.
 
 Contract (the reference's, oracle ``repro/kernels/ref.py``
-``flash_attention_ref``): q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd) with
-H % Hkv == 0, query head h reading kv head h // (H / Hkv); causal masking
-is top-left (key j is seen by query i iff j <= i) or absent; scores scaled
-by 1 / sqrt(hd), masked to -1e30, softmax and PV in f32; output
-(B, Sq, H, hd) in q's dtype, float32 or bfloat16. Forward only: the
-wrapper raises if autograd would need its gradient (the training path's
-attention backward is a later slice, ROADMAP.md).
+``flash_attention_ref``; with a gradient, JAX's autodiff of
+``repro/models/layers.py`` ``chunked_attention`` at no window and query
+offset 0): q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd) with H % Hkv == 0,
+query head h reading kv head h // (H / Hkv); causal masking is top-left
+(key j is seen by query i iff j <= i) or absent; scores scaled by
+1 / sqrt(hd), masked to -1e30, softmax and PV in f32; output
+(B, Sq, H, hd) in q's dtype, float32 or bfloat16.
 
-On a CUDA tensor the kernel is chosen by dtype (a dispatch, not a
+``flash_attention`` runs the forward kernel alone when no input needs a
+gradient (the serve path: one launch, nothing saved). When autograd needs
+one, it goes through ``FlashAttention``: the forward kernel also writes
+the row log-sum-exp, f32 (B, H, Sq), and the backward is
+``flash_attention_bwd`` (dq, dk, dv from q, k, v, o, do and that lse).
+``flash_attention.launches`` counts forward launches,
+``flash_attention_bwd.launches`` backward ones (two kernels, one count).
+
+On a CUDA tensor the forward kernel is chosen by dtype (a dispatch, not a
 fallback; neither ever catches the other's failure):
 
 * bfloat16 (the serve path): the tensor-core kernel. QK^T and PV are bf16
   ``wgmma`` products with f32 accumulation, and p is rounded to bf16
   before PV (as the reference's TPU kernel did at the MXU's default
-  precision), while l sums the f32 p. Against the plain version, which
-  keeps p in f32, each output element is within
-  ``2^-7 |plain| + 2^-9 max|v| + 1e-4`` (``bf16_limit``).
+  precision, and as ``chunked_attention`` does), while l sums the f32 p.
+  Against the plain version, which keeps p in f32, each output element is
+  within ``2^-7 |plain| + 2^-9 max|v| + 1e-4`` (``bf16_limit``).
 * float32 (the parity mode): the IEEE fp32 CUDA-core kernel, within
   ``2e-5 max(1, max|plain|)`` of the plain version.
 
-Both read q, k and v through their strides with no copy: the bf16 kernel
-copies tiles with 16-byte ``cp.async`` where hd has unit stride and rows
-are 16-byte aligned, and loads element by element otherwise.
+The backward kernel computes in f32 on the CUDA cores for both dtypes and
+rounds each output once to the inputs' dtype. Limits: float32 within
+``2e-5 max(1, max|plain|)`` of ``flash_attention_bwd_plain`` (summation
+order only); bfloat16, elementwise against the same backward in float64
+on the same inputs (``bwd_bf16_limit``): ``2^-8 |ref|`` for the one
+rounding of the output to bf16 (half an ulp), plus ``(n + 2 hd + 16) u
+A`` with u = 2^-24, n the terms of the output's sum (G Sq for dk and dv,
+Sk for dq) and A the same sum over absolute values: the standard bound of
+an f32 sum of n products, each of them a few f32 roundings deep (the
+score's hd-term dot, exp, the lse subtraction).
 
-Bound on the H100 at the serve shape: bf16 operations at the tensor-core
-peak (0.2086 ms); the f32 kernel's CUDA-core pipe caps it at about 3.1
-ms. See the source for the design.
+All kernels read their inputs through their strides with no copy.
+
+Bounds on the H100: the forward at the serve shape is bf16 operations at
+the tensor-core peak (0.2086 ms; the f32 kernel's CUDA-core pipe caps it at
+about 3.1 ms); the backward's five products at the full-width training
+shape (2, 2048, 24/8, 128) take 0.13 ms at the bf16 tensor-core peak and
+1.9 ms at the fp32 CUDA-core peak it runs on. See the sources for the
+designs.
 """
 from __future__ import annotations
 
@@ -49,8 +72,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIG = {"flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            *([_L] * 12), _I, ctypes.c_float, _I, _P],
+                            *([_L] * 12), _I, ctypes.c_float, _I, _P, _P],
         "flash_attention_tc_attributes": [_I, ctypes.POINTER(_I)]}
+_BWD_SIG = {"flash_attention_bwd": [_P] * 10 + [_I] * 6
+            + [ctypes.POINTER(_L), _I, ctypes.c_float, _I, _P]}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 NEG_INF = -1e30
@@ -76,28 +101,76 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         f"{v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v must be on one device")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError("flash_attention is forward-only: an input "
-                           "requires grad (the attention backward is a later "
-                           "slice, ROADMAP.md)")
+
+
+def _scores(q, k, causal: bool, dtype=torch.float32):
+    """Scaled scores (B, H, Sq, Sk) in ``dtype``, masked to -1e30, and k's
+    heads repeated for the query heads' groups."""
+    hd, group = q.shape[3], q.shape[2] // k.shape[2]
+    kf = torch.repeat_interleave(k.to(dtype), group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(dtype), kf) / math.sqrt(hd)
+    if causal:
+        mask = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=q.device).tril()
+        s = torch.where(mask, s, torch.full((), NEG_INF, dtype=dtype,
+                                            device=q.device))
+    return s
+
+
+def _plain_forward(q, k, v, causal: bool):
+    """(out in q's dtype, lse f32 (B, H, Sq)) in eager torch."""
+    s = _scores(q, k, causal)
+    vf = torch.repeat_interleave(v.float(), q.shape[2] // k.shape[2], dim=2)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    return out, torch.logsumexp(s, dim=-1)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True) -> torch.Tensor:
     """The function in eager torch, as ``flash_attention_ref``: materialised
     f32 scores, -1e30 masking, f32 softmax, output in q's dtype."""
+    return _plain_forward(q, k, v, causal)[0]
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, causal: bool = True,
+                              dtype=torch.float32, absolute: bool = False):
+    """The backward in eager torch: (dq, dk, dv) of the attention at q, k, v
+    with output o, output gradient do and the forward's row log-sum-exp
+    lse (B, H, Sq), computed in ``dtype`` (float32; float64 for the
+    kernel's bf16 check) and returned in the inputs' dtype (in ``dtype``
+    when ``dtype`` is float64). With ``absolute`` every product takes
+    absolute values: the sums of |terms| that ``bwd_bf16_limit`` reads."""
     B, Sq, H, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     group = H // Hkv
-    kf = torch.repeat_interleave(k.float(), group, dim=2)
-    vf = torch.repeat_interleave(v.float(), group, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(hd)
-    if causal:
-        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device).tril()
-        s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    scale = 1.0 / math.sqrt(hd)
+    f = (lambda t: t.to(dtype).abs()) if absolute else (lambda t: t.to(dtype))
+    s = _scores(q, k, causal, dtype)
+    p = torch.exp(s - lse.to(dtype)[..., None])      # masked pairs: 0
+    rep = lambda t: torch.repeat_interleave(f(t), group, dim=2)  # noqa: E731
+    dof, qf = f(do), f(q)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, rep(v))
+    dsum = torch.einsum("bqhd,bqhd->bhq", dof, f(o))
+    ds = p * (dp + dsum[..., None] if absolute else dp - dsum[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, rep(k)) * scale
+    # the group's query heads add into their kv head
+    dk = dk.reshape(B, -1, Hkv, group, hd).sum(3)
+    dv = dv.reshape(B, -1, Hkv, group, hd).sum(3)
+    out = q.dtype if dtype != torch.float64 else dtype
+    return dq.to(out), dk.to(out), dv.to(out)
+
+
+def bwd_bf16_limit(ref, absref, n_terms: int, hd: int) -> torch.Tensor:
+    """Elementwise limit on |kernel - ref| for a bf16 backward output, from
+    its float64 backward ``ref`` and the sum of absolute terms ``absref``
+    (``flash_attention_bwd_plain(..., float64, absolute=True)``): half a
+    bf16 ulp of the output, plus the f32 error bound of a sum of
+    ``n_terms`` products each a few roundings deep."""
+    u = 2.0 ** -24
+    return 2.0 ** -8 * ref.abs() + (n_terms + 2 * hd + 16) * u * absref
 
 
 def bf16_limit(plain: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -127,32 +200,106 @@ def tc_attributes(hd: int) -> dict:
                      "max_dynamic_smem_bytes"), vals))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """Attention of q (B, Sq, H, hd) over k, v (B, Sk, Hkv, hd) -> fresh
-    contiguous (B, Sq, H, hd) in q's dtype."""
-    _check(q, k, v)
+def _device(q: torch.Tensor, what: str) -> str:
+    """"cpu" or "cuda" (the plain version or the kernel); raise otherwise,
+    and for shapes beyond the kernels' grids."""
     dev = q.device
-    if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    B, _, H, hd = q.shape
+    if dev.type == "cuda" and (hd > MAX_HEAD_DIM or H > 65535 or B > 65535):
+        raise ValueError(f"{what}: hd={hd} (at most {MAX_HEAD_DIM}), H={H} "
+                         f"or B={B} exceeds the grid")
+    return dev.type
+
+
+def _forward(q, k, v, causal: bool, with_lse: bool):
+    """(out, lse or None): the plain version on the CPU, one forward launch
+    on the card (writing the lse only if asked)."""
+    if _device(q, "flash_attention") == "cpu":
+        out, lse = _plain_forward(q, k, v, causal)
+        return out, (lse if with_lse else None)
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    if hd > MAX_HEAD_DIM or H > 65535 or B > 65535:
-        raise ValueError(f"flash_attention: hd={hd} (at most "
-                         f"{MAX_HEAD_DIM}), H={H} or B={B} exceeds the grid")
-    out = torch.empty((B, Sq, H, hd), device=dev, dtype=q.dtype)
+    out = torch.empty((B, Sq, H, hd), device=q.device, dtype=q.dtype)
+    lse = (torch.empty((B, H, Sq), device=q.device, dtype=torch.float32)
+           if with_lse else None)
     lib = _build.load("flash_attention", _SIG)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Sk, H, Hkv, hd, *q.stride(), *k.stride(), *v.stride(),
         int(causal), 1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
-        stream)
+        None if lse is None else lse.data_ptr(), stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True):
+    """(dq, dk, dv), fresh contiguous tensors in q's dtype, of the attention
+    at q, k, v (whose output was o and row log-sum-exp lse) for the output
+    gradient do: ``flash_attention_bwd_plain`` on the CPU, the backward
+    kernel on the card."""
+    if do.dtype != q.dtype or o.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: o and do must be {q.dtype} "
+                        f"and lse float32; got {o.dtype}, {do.dtype}, "
+                        f"{lse.dtype}")
+    if _device(q, "flash_attention_bwd") == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    lse = lse.contiguous()
+    dq = torch.empty((B, Sq, H, hd), device=q.device, dtype=q.dtype)
+    dk = torch.empty((B, Sk, Hkv, hd), device=q.device, dtype=q.dtype)
+    dv = torch.empty_like(dk)
+    dsum = torch.empty((B, H, Sq), device=q.device, dtype=torch.float32)
+    strides = (_L * 20)(*q.stride(), *k.stride(), *v.stride(), *o.stride(),
+                        *do.stride())
+    lib = _build.load("flash_attention_bwd", _BWD_SIG)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, Hkv, hd, strides,
+        int(causal), 1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+        stream)
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the forward kernel (with its lse) and the
+    backward kernel (the plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = _forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention of q (B, Sq, H, hd) over k, v (B, Sk, Hkv, hd) -> fresh
+    contiguous (B, Sq, H, hd) in q's dtype; differentiable through
+    ``FlashAttention`` when autograd needs a gradient of an input."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal, with_lse=False)[0]
 
 
 flash_attention.launches = 0

@@ -15,12 +15,14 @@ import torch
 from repro_torch.common.tree import FlatSpec
 from repro_torch.core.sketch import DEFAULT_K
 from repro_torch.kernels.buffer_agg import buffer_agg
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.grouped_matmul import grouped_matmul
 from repro_torch.kernels.sens_sketch import (layout_table, sens_sketch,
                                              sens_sketch_rows)
 
 KERNELS = {"buffer_agg": buffer_agg, "flash_attention": flash_attention,
+           "flash_attention_bwd": flash_attention_bwd,
            "grouped_matmul": grouped_matmul, "sens_sketch": sens_sketch}
 
 

@@ -10,8 +10,11 @@ summary JSON under ``--out``. Initial weights come from a
 ``torch.Generator`` seeded with ``--seed``. Every algorithm of the
 reference runs (``--alg``: synchronous ``fedavg`` and the seven async
 policies) on the cohort engine (the default, as in the reference) and the
-sequential engine, on the paper's image models; ``--arch`` of another
-family is not ported (ROADMAP.md).
+sequential engine, on the paper's image models and on the dense token
+family: ``--arch fed-lm-smoke`` (or any dense LM id) trains the federated
+LM fine-tuning world, a document-partitioned bigram corpus in ``--seq``
+token sequences (``build_lm_task``); ``--arch`` of another family is not
+ported (ROADMAP.md).
 
 ``--mesh N`` shards the policy server over N ranks and trains the waves
 data-parallel (``SimConfig.mesh``), one process a rank: under ``torchrun``
@@ -44,21 +47,55 @@ from repro_torch.common import sharding
 from repro_torch.configs import get_config
 from repro_torch.core.psa import PSAConfig
 from repro_torch.data import (ClientDataset, dirichlet_partition,
-                              iid_partition, make_calibration_batch,
-                              make_classification, train_test_split)
+                              document_partition, iid_partition,
+                              make_calibration_batch, make_classification,
+                              make_lm_corpus, train_test_split)
+from repro_torch.data.synthetic import SyntheticClassification
 from repro_torch.federated.simulator import (ALGORITHMS, SimConfig,
                                              SweepConfig, run_algorithm,
                                              run_sweep)
 from repro_torch.launch.mesh import make_fed_mesh
 from repro_torch.models import model as model_lib
+from repro_torch.models import registry
+
+
+def build_lm_task(cfg, num_samples: int, alpha: float, num_clients: int,
+                  seed: int, calib_source: str = "gaussian",
+                  seq_len: int = 32):
+    """The federated LM fine-tuning world (the reference's
+    ``build_lm_task``): a synthetic bigram corpus whose head (its first
+    ``n_test`` sequences) is the next-token-accuracy test set and whose rest
+    is document-partitioned across clients (Dirichlet-skewed shard sizes
+    when ``alpha > 0``) into ``(n_i, seq_len)`` token sequences.
+    ``num_samples`` counts sequences across train and test."""
+    n_test = max(2, num_samples // 10)
+    doc_len = 4 * seq_len
+    corpus = make_lm_corpus((num_samples - n_test) * seq_len + doc_len
+                            + n_test * seq_len,
+                            vocab=cfg.vocab_size, seed=seed)
+    test_toks = corpus[:n_test * seq_len].reshape(n_test, seq_len)
+    test = SyntheticClassification(x=test_toks, y=test_toks,
+                                   num_classes=cfg.vocab_size)
+    parts = document_partition(corpus[n_test * seq_len:], num_clients,
+                               seq_len, doc_len=doc_len, alpha=alpha,
+                               seed=seed)
+    clients = [ClientDataset(SyntheticClassification(
+        x=p, y=p, num_classes=cfg.vocab_size)) for p in parts]
+    calib = make_calibration_batch(test, 8, calib_source)
+    return cfg, clients, test, calib
 
 
 def build_task(model_name: str, num_samples: int, alpha: float,
-               num_clients: int, seed: int, calib_source: str = "gaussian"):
-    """The image world of the reference's ``build_task``: synthetic data,
-    a 10% test split, Dirichlet(alpha) (or IID for alpha <= 0) clients and
-    the shared calibration batch."""
+               num_clients: int, seed: int, calib_source: str = "gaussian",
+               seq_len: int = 32):
+    """The reference's ``build_task``: for a token family the LM world
+    (``build_lm_task``); for the image models synthetic data, a 10% test
+    split, Dirichlet(alpha) (or IID for alpha <= 0) clients and the shared
+    calibration batch."""
     cfg = get_config(model_name)
+    if registry.get_family(cfg).data_kind == "tokens":
+        return build_lm_task(cfg, num_samples, alpha, num_clients, seed,
+                             calib_source, seq_len)
     if cfg.family == "cnn":
         full = make_classification(num_samples, cfg.num_classes,
                                    image_hw=cfg.input_hw, seed=seed,
@@ -78,9 +115,11 @@ def build_task(model_name: str, num_samples: int, alpha: float,
 
 
 def main(argv=None):
+    """Run the parsed command; without ``--mesh``, return its result (a
+    ``SimResult``, or a ``SweepResult`` with ``--sweep``)."""
     args = _parser().parse_args(argv)
     if not args.mesh:
-        _run(args)
+        return _run(args)
     elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         _rank(int(os.environ.get("LOCAL_RANK", 0)), args, "env://")
     else:
@@ -117,7 +156,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--clients", type=int, default=50)
     ap.add_argument("--concurrency", type=float, default=0.2)
     ap.add_argument("--horizon", type=float, default=86_400)
-    ap.add_argument("--samples", type=int, default=10_000)
+    ap.add_argument("--samples", type=int, default=10_000,
+                    help="total samples (image) or sequences (token tasks)")
+    ap.add_argument("--seq", type=int, default=32,
+                    help="sequence length for token (LM) tasks")
     ap.add_argument("--engine", default="cohort",
                     choices=["cohort", "sequential"])
     ap.add_argument("--latency", default="uniform",
@@ -151,12 +193,12 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _run(args, mesh=None) -> None:
+def _run(args, mesh=None):
     """One run (or sweep) of the parsed arguments; with ``mesh``, this
     rank's part of it (rank 0 prints and writes)."""
     cfg, clients, test, calib = build_task(
         args.model, args.samples, args.alpha, args.clients, args.seed,
-        args.calib)
+        args.calib, seq_len=args.seq)
     params = model_lib.init_params(torch.Generator().manual_seed(args.seed), cfg)
     sim = SimConfig(num_clients=args.clients, concurrency=args.concurrency,
                     horizon=args.horizon, latency_kind=args.latency,
@@ -173,14 +215,13 @@ def _run(args, mesh=None) -> None:
     if writes:
         os.makedirs(args.out, exist_ok=True)
     if args.sweep:
-        _sweep(args, name, cfg, params, clients, test, sim, psa, calib)
-        return
+        return _sweep(args, name, cfg, params, clients, test, sim, psa, calib)
     t0 = time.time()
     res = run_algorithm(args.alg, cfg, params, clients, test, sim,
                         psa_cfg=psa, calib_batch=calib)
     wall = time.time() - t0
     if not writes:
-        return
+        return res
     rec = {
         "alg": args.alg, "model": args.model, "alpha": args.alpha,
         "latency": [args.latency, args.lat_lo, args.lat_hi],
@@ -195,6 +236,7 @@ def _run(args, mesh=None) -> None:
         json.dump(rec, f, indent=1)
     print(f"[train] {name}: final={res.final_accuracy:.4f} aulc={res.aulc:.4f} "
           f"({wall:.0f}s on {args.device}) -> {path}")
+    return res
 
 
 
@@ -233,6 +275,7 @@ def _sweep(args, name, cfg, params, clients, test, sim, psa, calib):
         print(f"[train]   lane {tag}: final={acc:.4f}")
     print(f"[train] {name}: mean={mean:.4f}+-{std:.4f} ({wall:.0f}s on "
           f"{args.device}, one batched simulation) -> {path}")
+    return res
 
 
 if __name__ == "__main__":

@@ -2,13 +2,16 @@
 
 The reference ``repro.models.config.ModelConfig`` covers every architecture
 family; the port carries the fields its ported paths read: the image models
-(cnn / mlp) and the dense decoder LM (prefill and decode). A dense model is
-described, as in the reference, by a *superblock pattern*: ``block_pattern``
-gives the sequence mixer per layer inside one superblock and ``ffn_pattern``
-the feed-forward kind; the pattern tiles to ``num_layers``. The MoE, SSM and
-frontend fields of the reference, and its attention-chunking and remat knobs,
-come with the slices that read them (ROADMAP.md Queue 1 item 10). Frozen,
-so a config hashes and can key caches.
+(cnn / mlp) and the dense decoder LM (prefill, decode and training). A dense
+model is described, as in the reference, by a *superblock pattern*:
+``block_pattern`` gives the sequence mixer per layer inside one superblock
+and ``ffn_pattern`` the feed-forward kind; the pattern tiles to
+``num_layers``. The MoE, SSM and frontend fields of the reference come with
+the slices that read them (ROADMAP.md Queue 1 item 10c). ``q_chunk`` and
+``kv_chunk`` are the reference's attention chunking: the port's attention
+kernel computes the same function without chunks, so they have no
+numerical effect and are kept so that the configs compare field for field.
+Frozen, so a config hashes and can key caches.
 """
 from __future__ import annotations
 
@@ -42,6 +45,11 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     ffn_act: str = "swiglu"                      # swiglu | gelu | relu | relu2
     tie_embeddings: bool = False
+    remat: str = "full"                          # none | full | dots
+    grad_accum: int = 1
+    num_prefix_tokens: int = 256                 # vlm patch tokens
+    q_chunk: int = 512
+    kv_chunk: int = 2048
     # image fields (the paper's own models)
     cnn_channels: Tuple[int, ...] = ()
     cnn_kernel: int = 5
@@ -60,6 +68,14 @@ class ModelConfig:
     @property
     def num_superblocks(self) -> int:
         return self.num_layers // len(self.block_pattern)
+
+    @property
+    def is_encoder_only(self) -> bool:
+        return not self.causal
+
+    @property
+    def has_decode(self) -> bool:
+        return not self.is_encoder_only
 
     @property
     def vocab_padded(self) -> int:
@@ -103,6 +119,10 @@ class ModelConfig:
             head_dim=d_model // n_heads,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512),
+            num_prefix_tokens=min(self.num_prefix_tokens, 8),
             dtype="float32",
             param_dtype="float32",
+            remat="none",
+            q_chunk=64,
+            kv_chunk=64,
         )

@@ -1,16 +1,21 @@
 """Shared LM layers: norms, RoPE, GQA attention with its KV cache, FFNs,
 embeddings. The port of the reference's ``repro.models.layers`` for the
-dense decoder's prefill and decode.
+dense decoder's training, prefill and decode.
 
 Every layer is a pair ``init_*(gen, cfg, ...) -> params`` and
 ``apply(params, x, ...) -> y`` over plain dicts of tensors, with the
 reference's layouts: ``wq (D, H, hd)``, ``wk``/``wv (D, Hkv, hd)``,
 ``wo (H, hd, D)``, ``(in, out)`` FFN weights, vocab tables padded to
-``cfg.vocab_padded``. Full-sequence attention (prefill) goes through the
-``flash_attention`` kernel, which computes the reference's
-``chunked_attention`` with no window and no query offset; given a cache,
+``cfg.vocab_padded``. Full-sequence attention (training, evaluation,
+prefill) goes through the ``flash_attention`` kernel, which computes the
+reference's ``chunked_attention`` with no window and no query offset, and
+its backward kernel when autograd needs the gradient; given a cache,
 ``attention_forward`` also fills it, where the reference has a separate
-``attention_fill_cache``. Decode attention
+``attention_fill_cache``. With ``members=True`` (the cohort engine's wave)
+the parameters carry a leading member axis B and so does x, ``(B, n, S,
+D)``: the products go through ``member_dot(..., x_members=True,
+w_members=True)`` and attention, which has no parameters, takes the
+members' rows folded into its batch axis. Decode attention
 is plain torch in f32, as the reference computes it in jnp outside any
 kernel. The reference's sharding ``rules`` have no counterpart on one
 device and are dropped.
@@ -21,6 +26,7 @@ Initial weights come from a ``torch.Generator``: the reference's law
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -109,29 +115,44 @@ def init_attention(gen, cfg: ModelConfig, device, lead=()) -> dict:
     }
 
 
+def _dot(members: bool):
+    """member_dot with both operands member-batched, or neither."""
+    return functools.partial(member_dot, x_members=members,
+                             w_members=members)
+
+
 def attention_forward(params, x, cfg: ModelConfig, positions=None,
-                      cache=None):
-    """Full-sequence attention over x (B, S, D) through the flash kernel.
-    With ``cache`` (prefill), token ``i``'s roped k and v also go to slot
-    ``i`` of ``cache``, written in place; its tail slots stay zero until
+                      cache=None, members: bool = False):
+    """Full-sequence attention over x (B, S, D) through the flash kernel;
+    with ``members``, over x (B, n, S, D) with (B, ...) parameters. With
+    ``cache`` (prefill), token ``i``'s roped k and v also go to slot ``i``
+    of ``cache``, written in place; its tail slots stay zero until
     decode."""
-    S = x.shape[1]
+    S = x.shape[-2]
     if cache is not None and cache["k"].shape[1] < S:
         raise NotImplementedError(
             f"a KV cache shorter than the prompt ({cache['k'].shape[1]} < {S}:"
-            f" a sliding-window ring) is not ported (ROADMAP.md Queue 1 item 10)")
+            f" a sliding-window ring) is not ported (ROADMAP.md Queue 1 "
+            f"item 10a)")
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q = member_dot(x, params["wq"].to(x.dtype))
-    k = member_dot(x, params["wk"].to(x.dtype))
-    v = member_dot(x, params["wv"].to(x.dtype))
+    dot = _dot(members)
+    q = dot(x, params["wq"].to(x.dtype))
+    k = dot(x, params["wk"].to(x.dtype))
+    v = dot(x, params["wv"].to(x.dtype))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cache is not None:
         cache["k"][:, :S] = k
         cache["v"][:, :S] = v
-    out = flash_attention(q, k, v, causal=cfg.causal)
-    return member_dot(out, params["wo"].to(x.dtype), ncon=2)
+    if members:     # the members' rows side by side on the kernel's batch
+        lead = q.shape[:2]
+        out = flash_attention(q.flatten(0, 1), k.flatten(0, 1),
+                              v.flatten(0, 1), causal=cfg.causal)
+        out = out.unflatten(0, lead)
+    else:
+        out = flash_attention(q, k, v, causal=cfg.causal)
+    return dot(out, params["wo"].to(x.dtype), ncon=2)
 
 
 def attention_cache_size(cfg: ModelConfig, max_len: int) -> int:
@@ -198,17 +219,18 @@ def init_ffn(gen, cfg: ModelConfig, device, lead=()) -> dict:
     return p
 
 
-def ffn_forward(params, x, cfg: ModelConfig):
-    h = member_dot(x, params["w_in"].to(x.dtype))
+def ffn_forward(params, x, cfg: ModelConfig, members: bool = False):
+    dot = _dot(members)
+    h = dot(x, params["w_in"].to(x.dtype))
     if cfg.ffn_act == "swiglu":
-        h = F.silu(member_dot(x, params["w_gate"].to(x.dtype))) * h
+        h = F.silu(dot(x, params["w_gate"].to(x.dtype))) * h
     elif cfg.ffn_act == "gelu":
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
     elif cfg.ffn_act == "relu2":            # squared ReLU
         h = torch.square(torch.relu(h))
     else:
         h = torch.relu(h)
-    return member_dot(h, params["w_out"].to(x.dtype))
+    return dot(h, params["w_out"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -217,13 +239,16 @@ def ffn_forward(params, x, cfg: ModelConfig):
 
 def init_embed(gen, cfg: ModelConfig, device) -> dict:
     """Pad rows (columns of ``unembed``) stay zero: never indexed, and their
-    logits are masked (``mask_vocab_pad``)."""
+    logits are masked (``mask_vocab_pad``). With ``tie_embeddings`` there is
+    no ``unembed``: the logits read ``tok``'s transpose."""
     pd = param_dtype_of(cfg)
     V, Vp, D = cfg.vocab_size, cfg.vocab_padded, cfg.d_model
-    tok = dense_init(gen, (V, D), pd, device, scale=1.0)
-    un = dense_init(gen, (D, V), pd, device)
-    return {"tok": F.pad(tok, (0, 0, 0, Vp - V)),
-            "unembed": F.pad(un, (0, Vp - V))}
+    p = {"tok": F.pad(dense_init(gen, (V, D), pd, device, scale=1.0),
+                      (0, 0, 0, Vp - V))}
+    if not cfg.tie_embeddings:
+        p["unembed"] = F.pad(dense_init(gen, (D, V), pd, device),
+                             (0, Vp - V))
+    return p
 
 
 def mask_vocab_pad(logits, cfg: ModelConfig):
@@ -236,10 +261,25 @@ def mask_vocab_pad(logits, cfg: ModelConfig):
                                   device=logits.device))
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig):
-    return params["tok"][tokens].to(dtype_of(cfg))
+def embed_tokens(params, tokens, cfg: ModelConfig, members: bool = False):
+    """Rows of the table cast to the compute dtype (cast, then gathered, as
+    the reference: the gradient adds repeated tokens in that dtype); with
+    ``members``, member b's tokens (B, ...) index its own table (B, Vp, D)."""
+    tok = params["tok"].to(dtype_of(cfg))
+    if not members:
+        return tok[tokens]
+    rows = torch.arange(tok.shape[0], device=tokens.device)
+    return tok[rows.view((-1,) + (1,) * (tokens.dim() - 1)), tokens]
+
+
+def unembed_weight(params):
+    """The (D, Vp) unembedding ((B, D, Vp) for member-batched tables):
+    ``unembed``, or ``tok``'s transpose when the embeddings are tied."""
+    if "unembed" in params:
+        return params["unembed"]
+    return params["tok"].transpose(-1, -2)
 
 
 def unembed(params, x, cfg: ModelConfig):
-    logits = member_dot(x, params["unembed"].to(x.dtype))
+    logits = member_dot(x, unembed_weight(params).to(x.dtype))
     return mask_vocab_pad(logits, cfg)

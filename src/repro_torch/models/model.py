@@ -20,24 +20,31 @@ case.
 The dense decoder LM (``family == "dense"``) keeps the reference's
 stacked-superblock layout: ``params["blocks"]["p{i}"]`` leaves carry a
 leading ``num_superblocks`` axis, and a Python loop over superblocks
-indexes them as views (no per-layer copies), where the reference scans.
-Two layer loops share the parameters: the full-sequence one
-(``backbone_forward``; ``forward_logits`` returns every position's logits,
-``prefill`` also fills the KV cache and returns the last position's) and
-``decode_step`` (one token against the cache). The
-cache is stacked like the blocks, ``(nsb, B, C, Hkv, hd)``, and written in
-place. Configurations the port does not cover (other families, a sliding
-window, tied embeddings, a frontend) raise ``NotImplementedError``.
+indexes them as views (no per-layer copies), where the reference scans;
+``cfg.remat == "full"`` checkpoints each superblock
+(``torch.utils.checkpoint``, recomputed in the backward) where the
+reference wraps its scan body in ``jax.checkpoint``. Two layer loops share
+the parameters: the full-sequence one (``backbone_forward``: ``loss_fn``,
+the next-token cross-entropy in sequence chunks of 1,024;
+``forward_logits``, every position's logits; ``prefill``, which also fills
+the KV cache and returns the last position's) and ``decode_step`` (one
+token against the cache). The cache is stacked like the blocks, ``(nsb, B,
+C, Hkv, hd)``, and written in place. With ``members=True`` (the cohort
+engine) every LM leaf carries the member axis before the superblock axis,
+``(B, nsb, ...)``, and the tokens ``(B, n, S)``. Configurations the port
+does not cover (other families, a sliding window, a frontend, ``remat ==
+"dots"``) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
-from repro_torch.common.tree import tree_map
+from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.member_math import member_conv2d, member_dot
@@ -176,8 +183,82 @@ def forward(params, x, cfg: ModelConfig, members: bool = False):
         f"family {cfg.family!r} is not ported (ROADMAP.md Queue 1 item 10)")
 
 
-def loss_fn(params, batch, cfg: ModelConfig):
-    return _mean_xent(forward(params, batch["x"], cfg), batch["y"])
+def loss_fn(params, batch, cfg: ModelConfig, members: bool = False):
+    """The training loss: mean cross-entropy of the image models on
+    ``{"x", "y"}``; for the LM, the mean next-token cross-entropy on
+    ``{"tokens", "labels"}`` (labels < 0 carry no target; position t
+    predicts token t + 1), over the labels that count. With ``members``
+    (the LM), the (B,) per-member losses."""
+    if cfg.family in ("cnn", "mlp"):
+        return _mean_xent(forward(params, batch["x"], cfg), batch["y"])
+    x = layers.embed_tokens(params["embed"], batch["tokens"], cfg, members)
+    hidden = backbone_forward(params, x, cfg, members=members)
+    labels = batch["labels"]
+    if cfg.causal:
+        hidden, labels = hidden[..., :-1, :], labels[..., 1:]
+    return chunked_cross_entropy(hidden, layers.unembed_weight(params["embed"]),
+                                 labels, cfg, members=members)
+
+
+def _xent_from_logits(logits, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (..., N, V) of any dtype, pad vocab columns masked; labels
+    (..., N), < 0 masked. (sum of the rows' nll, count of rows) over N, f32
+    math."""
+    logits = logits.float()
+    mask = labels >= 0
+    safe = torch.where(mask, labels, torch.zeros_like(labels))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe.long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * mask, dim=-1), \
+        torch.sum(mask, dim=-1, dtype=torch.float32)
+
+
+def chunked_cross_entropy(hidden, unembed_w, labels, cfg: ModelConfig,
+                          chunk: int = 1024, members: bool = False):
+    """Mean cross-entropy of hidden (B, S, D) through unembed_w (D, Vp)
+    against labels (B, S), in sequence chunks of ``chunk`` so that the f32
+    logits of only one chunk exist at a time; the reference's scan, as a
+    loop. With ``members``: hidden (B, n, S, D), unembed_w (B, D, Vp),
+    labels (B, n, S) -> the (B,) per-member means."""
+    S, D = hidden.shape[-2], hidden.shape[-1]
+    chunk = min(chunk, S)
+    n = -(-S // chunk)
+    if n * chunk != S:
+        hidden = F.pad(hidden, (0, 0, 0, n * chunk - S))
+        labels = F.pad(labels, (0, n * chunk - S), value=-1)
+    lead = hidden.shape[:1] if members else ()
+    w = unembed_w.to(hidden.dtype)
+    tot = cnt = 0.0
+    for c in range(n):
+        h = hidden[..., c * chunk:(c + 1) * chunk, :].reshape(lead + (-1, D))
+        logits = layers.mask_vocab_pad(
+            member_dot(h, w, x_members=members, w_members=members), cfg)
+        t, k = _xent_from_logits(
+            logits, labels[..., c * chunk:(c + 1) * chunk].reshape(lead + (-1,)))
+        tot, cnt = tot + t, cnt + k
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def token_accuracy(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Masked next-token accuracy (the token families' test metric)."""
+    logits = forward_logits(params, batch, cfg)
+    labels = batch["labels"]
+    if cfg.causal:   # position t predicts token t + 1, as in the loss
+        logits, labels = logits[:, :-1], labels[:, 1:]
+    mask = (labels >= 0).float()
+    hit = (torch.argmax(logits, dim=-1) == labels).float()
+    return torch.sum(hit * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def count_params(cfg: ModelConfig) -> Tuple[int, int]:
+    """(total, active) parameter counts; ``active`` equals ``total`` for the
+    ported families (the reference discounts routed MoE experts)."""
+    if cfg.family in ("cnn", "mlp"):
+        params = init_params(torch.Generator().manual_seed(0), cfg)
+    else:
+        params = init_params(None, cfg, "meta")
+    total = sum(leaf.numel() for leaf in tree_leaves(params))
+    return total, total
 
 
 def predict(params, x, cfg: ModelConfig):
@@ -193,21 +274,24 @@ def accuracy(params, batch, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def check_lm(cfg: ModelConfig) -> None:
-    """Raise for an LM configuration the port does not cover."""
+    """Raise for an LM configuration the port does not cover, naming the
+    ROADMAP.md Queue 1 item that ports it."""
     why = None
     if cfg.family != "dense":
-        why = f"family {cfg.family!r}"
+        why, item = f"family {cfg.family!r}", "10c"
     elif set(cfg.block_pattern) != {"attn"} or set(cfg.ffn_pattern) != {"dense"}:
-        why = f"block pattern {cfg.block_pattern} / {cfg.ffn_pattern}"
-    elif cfg.sliding_window is not None:
-        why = f"sliding_window={cfg.sliding_window}"
-    elif cfg.tie_embeddings:
-        why = "tie_embeddings"
+        why, item = (f"block pattern {cfg.block_pattern} / "
+                     f"{cfg.ffn_pattern}"), "10c"
     elif cfg.frontend is not None:
-        why = f"frontend {cfg.frontend!r}"
+        why, item = f"frontend {cfg.frontend!r}", "10c"
+    elif cfg.sliding_window is not None:
+        why, item = f"sliding_window={cfg.sliding_window}", "10a"
+    elif cfg.remat not in ("none", "full"):
+        why, item = f"remat={cfg.remat!r}", "10d"
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {why} is not ported (ROADMAP.md Queue 1 item 10)")
+            f"{cfg.name}: {why} is not ported (ROADMAP.md Queue 1 item "
+            f"{item})")
 
 
 def init_lm(gen, cfg: ModelConfig, device="cpu") -> dict:
@@ -229,30 +313,58 @@ def _superblock(stacked, i: int):
     return tree_map(lambda a: a[i], stacked)
 
 
-def superblock_forward(params, x, cfg: ModelConfig, positions, cache=None):
-    """One superblock over x (B, S, D). With ``cache`` (this superblock's
-    views of the stacked cache), each attention layer also fills it."""
+def _norm(p, x, cfg: ModelConfig, members: bool = False):
+    """rmsnorm; with ``members`` each member's (D,) scale on its rows."""
+    scale = p["scale"]
+    if members:
+        scale = scale.reshape(scale.shape[:1] + (1,) * (x.dim() - 2)
+                              + scale.shape[-1:])
+    return layers.rmsnorm({"scale": scale}, x, cfg.norm_eps)
+
+
+def superblock_forward(params, x, cfg: ModelConfig, positions, cache=None,
+                       members: bool = False):
+    """One superblock over x (B, S, D) ((B, n, S, D) with ``members``).
+    With ``cache`` (this superblock's views of the stacked cache), each
+    attention layer also fills it."""
     for i in range(len(cfg.block_pattern)):
         pp = params[f"p{i}"]
-        h = layers.rmsnorm(pp["norm1"], x, cfg.norm_eps)
+        h = _norm(pp["norm1"], x, cfg, members)
         x = x + layers.attention_forward(
             pp["mixer"], h, cfg, positions,
-            None if cache is None else cache[f"p{i}"])
-        h = layers.rmsnorm(pp["norm2"], x, cfg.norm_eps)
-        x = x + layers.ffn_forward(pp["ffn"], h, cfg)
+            None if cache is None else cache[f"p{i}"], members=members)
+        h = _norm(pp["norm2"], x, cfg, members)
+        x = x + layers.ffn_forward(pp["ffn"], h, cfg, members)
     return x
 
 
-def backbone_forward(params, x, cfg: ModelConfig, cache=None):
-    """All superblocks and the final norm over x (B, S, D) at positions
-    0..S-1; with ``cache`` (from ``init_cache``) fills it."""
+def backbone_forward(params, x, cfg: ModelConfig, cache=None,
+                     members: bool = False):
+    """All superblocks and the final norm over x (B, S, D) ((B, n, S, D)
+    with ``members``) at positions 0..S-1; with ``cache`` (from
+    ``init_cache``) fills it. Under ``cfg.remat == "full"``, when autograd
+    records, each superblock is checkpointed: its activations are
+    recomputed in the backward."""
     check_lm(cfg)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    positions = torch.arange(x.shape[-2], device=x.device)[None, :]
+    remat = (cfg.remat == "full" and cache is None
+             and torch.is_grad_enabled())
+    # one unbind a leaf, not a select a superblock: the backward of nsb
+    # selects would write and add nsb zero-filled copies of every stacked
+    # leaf; unbind's stacks the superblocks' gradients once
+    blocks = tree_map(lambda a: a.unbind(1 if members else 0),
+                      params["blocks"])
     for s in range(cfg.num_superblocks):
-        x = superblock_forward(_superblock(params["blocks"], s), x, cfg,
-                               positions,
-                               None if cache is None else _superblock(cache, s))
-    return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        sb = tree_map(lambda views: views[s], blocks)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                superblock_forward, sb, x, cfg, positions, None, members,
+                use_reentrant=False)
+        else:
+            x = superblock_forward(
+                sb, x, cfg, positions,
+                None if cache is None else _superblock(cache, s), members)
+    return _norm(params["final_norm"], x, cfg, members)
 
 
 def forward_logits(params, batch: dict, cfg: ModelConfig):

@@ -1,16 +1,22 @@
-"""Model-family registry of the port: the paper's image families.
+"""Model-family registry of the port: the paper's image families and the
+dense token family.
 
 One ``ModelFamily`` entry per family holds the callables the client
 runtime, the cohort engine and the simulator's evaluation loop share (the
-reference's ``repro.models.registry`` image entries).
+reference's ``repro.models.registry`` entries). ``keys`` names a batch's
+two host arrays (``ClientDataset.epochs``, the calibration batch).
 
-``client_loss(params, batch, cfg, members=False)`` is the local-SGD loss.
-Without ``batch["sample_weight"]`` it is the plain mean cross-entropy,
-bit-identical to the sequential client's loss. With it (the cohort
-engine's ``masked_batch``) it is ``sum((lse - gold) * vm) / cnt``, so
-masked rows are exact no-ops; with ``members=True`` the params and the
-batch carry a leading member axis and the result is the (B,) vector of
-per-member losses.
+``client_loss(params, batch, cfg, members=False)`` is the local-SGD loss;
+with ``members=True`` the params and the batch carry a leading member axis
+and the result is the (B,) vector of per-member losses. Image families:
+without ``batch["sample_weight"]`` the plain mean cross-entropy,
+bit-identical to the sequential client's loss; with it (the cohort
+engine's ``masked_batch``) ``sum((lse - gold) * vm) / cnt``, so masked rows
+are exact no-ops. The token family (``"dense"``): ``model.loss_fn``, the
+mean next-token cross-entropy over the labels >= 0 after the causal shift;
+``masked_batch`` turns a masked row's labels into -1, so the row is an
+exact no-op in the loss and in its count. The reference's other token
+families (moe, ssm, hybrid) raise, naming ROADMAP.md Queue 1 item 10c.
 """
 from __future__ import annotations
 
@@ -25,11 +31,12 @@ from repro_torch.models.config import ModelConfig
 
 class ModelFamily(NamedTuple):
     name: str                 # registry key == ModelConfig.family
-    data_kind: str            # "image" (the only kind ported)
+    data_kind: str            # "image" | "tokens"
     client_loss: Callable     # (params, batch, cfg, members=False) -> loss
     masked_batch: Callable    # (xb, yb, vm, cnt) -> batch dict
     batch_fn: Callable        # (x, y, device) -> batch dict (host -> device)
     eval_accuracy: Callable   # (params, batch, cfg) -> scalar
+    keys: tuple               # the batch's (x, y) keys
 
 
 def _batch_fn(x, y, device) -> dict:
@@ -54,13 +61,34 @@ def _image_entry(name: str, mean_loss: Callable) -> ModelFamily:
 
     return ModelFamily(name=name, data_kind="image", client_loss=client_loss,
                        masked_batch=_masked_batch, batch_fn=_batch_fn,
-                       eval_accuracy=model_lib.accuracy)
+                       eval_accuracy=model_lib.accuracy, keys=("x", "y"))
+
+
+def _token_batch_fn(x, y, device) -> dict:
+    return {"tokens": torch.as_tensor(np.asarray(x, np.int64), device=device),
+            "labels": torch.as_tensor(np.asarray(y, np.int64), device=device)}
+
+
+def _token_masked_batch(xb, yb, vm, cnt) -> dict:
+    # a masked row's labels all become -1, the loss's no-target sentinel:
+    # the row adds nothing to the loss, its count or the gradient
+    return {"tokens": xb,
+            "labels": torch.where(vm[..., None] > 0.0, yb,
+                                  torch.full_like(yb, -1))}
 
 
 _REGISTRY = {
     "cnn": _image_entry("cnn", model_lib.cnn_loss),
     "mlp": _image_entry("mlp", model_lib.mlp_loss),
+    "dense": ModelFamily(name="dense", data_kind="tokens",
+                         client_loss=model_lib.loss_fn,
+                         masked_batch=_token_masked_batch,
+                         batch_fn=_token_batch_fn,
+                         eval_accuracy=model_lib.token_accuracy,
+                         keys=("tokens", "labels")),
 }
+# the reference's other token families, and the item that ports them
+_UNPORTED = ("moe", "ssm", "hybrid")
 
 
 def is_registered(family: str) -> bool:
@@ -73,7 +101,8 @@ def get_family(family) -> ModelFamily:
         family = family.family
     entry = _REGISTRY.get(family)
     if entry is None:
+        item = "10c" if family in _UNPORTED else "10"
         raise NotImplementedError(
             f"model family {family!r} is not ported to repro_torch (ported: "
-            f"{sorted(_REGISTRY)}); see ROADMAP.md Queue 1 item 10")
+            f"{sorted(_REGISTRY)}); see ROADMAP.md Queue 1 item {item}")
     return entry

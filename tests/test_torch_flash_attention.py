@@ -136,15 +136,16 @@ def test_strided_inputs_and_no_grad():
                                  "empty"])
 def test_wrapper_rejects_bad_inputs(bad):
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 8, 8, 4, 2, 16, 2))
-    err = {"heads": ValueError, "device": ValueError, "grad": RuntimeError,
+    err = {"heads": ValueError, "device": ValueError, "grad": TypeError,
            "dtype": TypeError, "shape": ValueError, "empty": ValueError}[bad]
     with pytest.raises(err):
         if bad == "heads":                    # H % Hkv != 0
             tfa.flash_attention(q[:, :, :3], k, v)
         elif bad == "device":
             tfa.flash_attention(q, k.to("meta"), v)
-        elif bad == "grad":                   # forward-only: never drop a grad
-            tfa.flash_attention(q.requires_grad_(), k, v)
+        elif bad == "grad":      # the backward takes do in the inputs' dtype
+            o, lse = tfa._plain_forward(q, k, v, True)
+            tfa.flash_attention_bwd(q, k, v, o, o.bfloat16(), lse)
         elif bad == "dtype":
             tfa.flash_attention(q, k.bfloat16(), v)
         elif bad == "shape":

@@ -157,16 +157,20 @@ def test_full_width_cifar_fedpsa_run_matches_reference():
 
 
 def test_calibration_batch_refuses_token_data():
-    """The token branch is not ported: an integer-token dataset raises
-    (naming the ROADMAP item) instead of returning float noise; the image
-    path is the reference's."""
+    """The token branch (ported with the LM training slice: uniform token
+    ids for "gaussian", held-out sequences for "real", labels mirroring the
+    tokens) and the image path are the reference's, output for output."""
+    from repro import data as rdata
     toks = tdata.SyntheticClassification(
         x=np.random.RandomState(0).randint(0, 50, (20, 8)).astype(np.int32),
         y=np.zeros(20, np.int32), num_classes=50)
     for source in ("gaussian", "real"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tdata.make_calibration_batch(toks, 4, source)
-    from repro import data as rdata
+        got = tdata.make_calibration_batch(toks, 4, source)
+        want = rdata.make_calibration_batch(toks, 4, source)
+        assert set(got) == set(want) == {"tokens", "labels"}
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
     img = tdata.make_classification(40, 10, 16, seed=2)
     for source in ("gaussian", "real"):
         got = tdata.make_calibration_batch(img, 8, source)

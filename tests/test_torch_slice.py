@@ -461,12 +461,12 @@ def test_unported_paths_raise(torch_world, case, request):
     cfg, clients, test, calib = torch_world
     sim = SimConfig(engine="sequential", device="cpu", **SIM)
     name = "fedbuff"
-    if case == "token_arch":
+    if case == "token_arch":     # fed-lm-smoke is ported; its ssm sibling not
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tget("fed-lm-smoke")
+            tget("fed-lm-ssm-smoke")
         return
     if case == "cohort_family":  # a family the port's registry lacks
-        cfg = dataclasses.replace(cfg, family="dense")
+        cfg = dataclasses.replace(cfg, family="moe")
         sim = dataclasses.replace(sim, engine="cohort")
         with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
             run_algorithm(name, cfg, load_npz_params(FIXTURE), clients, test,
