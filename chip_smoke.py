@@ -119,11 +119,15 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
 9b. ``[fed-lm]``, federated LM fine-tuning on the dense family (after the
    serve runs, before the profiles): the attention backward kernel
    (``flash_attention_bwd``) against its plain version in f32 at the golden
-   world's wave shape (32, 16, 2/2, 8) and in bf16 at the full-width
-   training shape (2, 2048, 24/8, 128) against the float64 backward
-   (``bwd_bf16_limit``), the forward kernels' lse, repeated runs bit-equal,
-   and its time beside the plain backward and the autograd backward of
-   ``F.scaled_dot_product_attention`` (L2 flushed); the fed-lm world
+   world's wave shape (32, 16, 2/2, 8) (the CUDA-core kernels) and in bf16
+   at the full-width training shape (2, 2048, 24/8, 128) and at edge shapes
+   (hd 16 to 128 on the tensor-core kernels, 256 on the CUDA-core ones)
+   against the float64 backward (``bwd_bf16_tc_limit`` on the tensor
+   cores, ``bwd_bf16_limit`` on the CUDA cores), the forward kernels' lse,
+   repeated runs bit-equal, the tensor-core kernels' registers, spill bytes
+   (none) and shared memory, and the full-width time beside the plain
+   backward, the CUDA-core kernels on the same inputs and the autograd
+   backward of ``F.scaled_dot_product_attention`` (L2 flushed); the fed-lm world
    (``fed-lm-smoke``, 6 clients, seq 16) with fedasync and fedpsa on the
    three engine settings against ``tests/golden/fed-lm-smoke.json``
    (RTOL/ATOL, counters exact), exact launch counts of all five kernels
@@ -133,7 +137,8 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    card, 4 sequences of 2,048 tokens at batch 2: two steps) twice: 64
    forward and 32 backward attention launches a step and nothing else, a
    finite delta, the two runs bit-equal, seconds a step, peak memory and
-   (second run, profiled) the device's busy share.
+   (second run, profiled) the device's busy share and the tensor-core
+   backward kernels once each a backward call.
 
 Then it prints one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a card it exits non-zero
@@ -2862,7 +2867,8 @@ def _profile_run(torch, engine: str) -> None:
 # pass is splitk_reduce)
 PORT_KERNELS = {"grouped_matmul": ("grouped_matmul_kernel", "splitk_reduce"),
                 "flash_attention": ("flash_attention",),
-                "flash_attention_bwd": ("dq_kernel", "dkdv_kernel"),
+                "flash_attention_bwd": ("dq_kernel", "dkdv_kernel",
+                                        "bwd_dq_tc", "bwd_dkdv_tc"),
                 "sens_sketch": ("sens_sketch",), "buffer_agg": ("buffer_agg",)}
 
 
@@ -3076,6 +3082,16 @@ SKETCH_PASSES = 1 + 4
 # step (2 x 2,048 tokens of phi4-mini-3.8b, bf16)
 FEDLM_ATTN = (32, 16, 2, 2, 8)
 FULL_ATTN = (2, 2048, 24, 8, 128)
+# the bf16 backward's edges (B, Sq, Sk, H, Hkv, hd, causal): both hd
+# buckets of the tensor-core kernels (hd 16, 64, 80, 96, 128), GQA and MHA,
+# causal and not, Sq != Sk, ragged tiles, the full width's heads at S =
+# 256; hd 256 on the CUDA-core kernels
+FEDLM_BWD_EDGES = ((2, 64, 64, 4, 2, 16, True), (2, 70, 70, 4, 4, 64, False),
+                   (2, 40, 72, 6, 2, 64, True), (1, 100, 70, 4, 2, 128, False),
+                   (1, 33, 50, 4, 2, 128, True), (1, 200, 200, 8, 2, 80, True),
+                   (1, 300, 260, 6, 3, 96, False),
+                   (2, 256, 256, 24, 8, 128, True),
+                   (1, 65, 65, 2, 1, 256, True))
 # full width: phi4-mini-3.8b's local SGD, 4 sequences of 2,048, batch 2,
 # one epoch: 2 steps
 FULL_LM = dict(arch="phi4-mini-3.8b", seqs=4, seq=2048, batch=2, lr=1e-3,
@@ -3093,23 +3109,76 @@ def _fedlm_bwd_bound(shape) -> tuple:
     """(bf16 tensor-core bound ms, fp32 CUDA-core bound ms, bytes bound ms,
     FLOP, bytes) of the causal backward at ``shape`` in bf16: five products
     of 2 hd FLOP per unmasked pair and head; q, k, v, o, dO read and dq, dk,
-    dv written once (and the lse)."""
+    dv written once (and the lse read)."""
     B, S, H, Hkv, hd = shape
     flops = 5 * 2 * hd * _causal_pairs(S, S) * B * H
-    bytes_ = 2 * (4 * B * S * H * hd + 2 * B * S * Hkv * hd) + 4 * B * H * S
+    bytes_ = 2 * (4 * B * S * H * hd + 4 * B * S * Hkv * hd) + 4 * B * H * S
     return (flops / BF16_TC_FLOPS_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3,
             bytes_ / HBM_BYTES_PER_S * 1e3, flops, bytes_)
 
 
+def _bwd_check(torch, fa, q, k, v, o, do, lse, causal: bool) -> dict:
+    """One backward on the card against its plain version: f32 within 2e-5
+    x max(1, max|plain|); bf16 elementwise against the float64 backward of
+    the same inputs, within the limit of its route (``bwd_bf16_tc_limit``
+    on the tensor cores, ``bwd_bf16_limit`` on the CUDA cores; the former's
+    share of the latter printed as well). A second run with a strided dO
+    must give the same bits."""
+    B, Sq, H, hd = q.shape
+    Sk, G = k.shape[1], H // k.shape[2]
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    dos = do.transpose(1, 2).contiguous().transpose(1, 2)
+    again = fa.flash_attention_bwd(q, k, v, o, dos, lse, causal)
+    torch.cuda.synchronize()
+    r = {"same": all(torch.equal(a, b) for a, b in zip(got, again)),
+         "route": fa.bwd_route(q.dtype, hd),
+         "finite": all(bool(torch.isfinite(a).all()) for a in got)}
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
+    r["errs"] = [float((a.float() - b.float()).abs().max())
+                 for a, b in zip(got, plain)]
+    del plain
+    if q.dtype == torch.float32:
+        tols = [2e-5 * max(1.0, float(b.abs().max())) for b in
+                fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal)]
+        r["share"] = max(e / t for e, t in zip(r["errs"], tols))
+        r["note"] = f"tol 2e-5 x max(1, max|plain|): {r['share']:.3f} of it"
+        return r
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal,
+                                       dtype=torch.float64)
+    absref = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal,
+                                          dtype=torch.float64, absolute=True)
+    gate = (fa.bwd_bf16_tc_limit if r["route"] == "tc"
+            else fa.bwd_bf16_limit)
+    shares, old, errs64 = [], [], []
+    for a, rf, ab, n in zip(got, ref, absref, (Sk, G * Sq, G * Sq)):
+        err = (a.double() - rf).abs()
+        errs64.append(float(err.max()))
+        for out, lim in ((shares, gate), (old, fa.bwd_bf16_limit)):
+            out.append(float(torch.where(err == 0, 0.0,
+                                         err / lim(rf, ab, n, hd)).max()))
+        del err
+    r["share"], r["old_share"] = max(shares), max(old)
+    r["note"] = (f"vs float64 max|err| dq/dk/dv {errs64[0]:.3e}/"
+                 f"{errs64[1]:.3e}/{errs64[2]:.3e}, worst element at "
+                 f"{r['share']:.3f} of {gate.__name__} (dq/dk/dv "
+                 f"{shares[0]:.3f}/{shares[1]:.3f}/{shares[2]:.3f}); "
+                 f"{r['old_share']:.3f} of bwd_bf16_limit")
+    return r
+
+
 def phase_fedlm_kernels(torch, dev) -> dict:
-    """The attention backward kernel and the forward's lse on the card:
+    """The attention backward kernels and the forward's lse on the card:
     f32 at the golden world's wave shape against the plain backward (2e-5 x
-    max(1, max|plain|)); bf16 at the full-width shape against the float64
-    backward of the same inputs, elementwise within ``bwd_bf16_limit``; the
-    lse against the plain forward's (2e-5 x max(1, max|lse|)); repeated runs
-    bit-equal. Then its time (L2 flushed) beside the plain backward's and
-    the autograd backward of ``F.scaled_dot_product_attention`` (a
-    yardstick the port never calls)."""
+    max(1, max|plain|)); bf16 at the full-width shape and at the edge
+    shapes ``FEDLM_BWD_EDGES`` against the float64 backward of the same
+    inputs, elementwise within the limit of the route (``_bwd_check``);
+    the lse against the plain forward's (2e-5 x max(1, max|lse|));
+    repeated runs bit-equal; the tensor-core kernels' registers, spill
+    bytes (none allowed) and shared memory from the runtime. Then the
+    time of the full-width backward (L2 flushed) beside the plain
+    backward's, the CUDA-core kernels' on the same bf16 inputs (the
+    route f32 and hd 256 take) and the autograd backward of ``F.scaled_dot_product_attention``
+    (a yardstick the port never calls)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(20)
@@ -3121,43 +3190,47 @@ def phase_fedlm_kernels(torch, dev) -> dict:
         _, lse_p = fa._plain_forward(q, k, v, True)
         lse_err = float((lse - lse_p).abs().max())
         lse_tol = 2e-5 * max(1.0, float(lse_p.abs().max()))
-        got = fa.flash_attention_bwd(q, k, v, o, do, lse, True)
-        again = fa.flash_attention_bwd(q, k, v, o, do, lse, True)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, True)
-        errs = [float((a.float() - b.float()).abs().max())
-                for a, b in zip(got, plain)]
+        r = _bwd_check(torch, fa, q, k, v, o, do, lse, True)
         what = f"B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal {str(dt)[6:]}"
-        if dt == torch.float32:
-            tols = [2e-5 * max(1.0, float(b.abs().max())) for b in plain]
-            share = max(e / t for e, t in zip(errs, tols))
-            note = f"tol 2e-5 x max(1, max|plain|): {share:.3f} of it"
-        else:
-            ref = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, True,
-                                               dtype=torch.float64)
-            absref = fa.flash_attention_bwd_plain(
-                q, k, v, o, do, lse, True, dtype=torch.float64, absolute=True)
-            G = H // Hkv
-            share = max(float(((a.double() - r).abs() / fa.bwd_bf16_limit(
-                r, ab, n, hd)).max()) for a, r, ab, n in zip(
-                    got, ref, absref, (S, G * S, G * S)))
-            errs64 = [float((a.double() - r).abs().max())
-                      for a, r in zip(got, ref)]
-            note = (f"vs float64 max|err| dq/dk/dv {errs64[0]:.3e}/"
-                    f"{errs64[1]:.3e}/{errs64[2]:.3e}, worst element at "
-                    f"{share:.3f} of bwd_bf16_limit")
-            del ref, absref
-        log(f"[fed-lm] flash_attention_bwd {what}: vs plain max|err| dq/dk/dv "
-            f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}; {note}; repeated run "
-            f"bit-equal {same}; forward lse max|err| {lse_err:.3e} "
+        log(f"[fed-lm] flash_attention_bwd {what} ({r['route']}): vs plain "
+            f"max|err| dq/dk/dv {r['errs'][0]:.3e}/{r['errs'][1]:.3e}/"
+            f"{r['errs'][2]:.3e}; {r['note']}; repeated run (strided dO) "
+            f"bit-equal {r['same']}; forward lse max|err| {lse_err:.3e} "
             f"(tol {lse_tol:.3e})")
-        if not (share <= 1.0 and same and lse_err <= lse_tol):
-            raise AssertionError(f"flash_attention_bwd {what}: share {share}, "
-                                 f"bit-equal {same}, lse {lse_err}")
+        if not (r["share"] <= 1.0 and r["same"] and r["finite"]
+                and lse_err <= lse_tol):
+            raise AssertionError(f"flash_attention_bwd {what}: {r}, lse "
+                                 f"{lse_err}")
         out["f32" if dt == torch.float32 else "bf16"] = {
-            "max_abs_err": max(errs), "share": share, "lse_err": lse_err}
-        del got, again, plain
+            "max_abs_err": max(r["errs"]), "share": r["share"],
+            "old_share": r.get("old_share"), "lse_err": lse_err}
+        del q, k, v, do, o, lse, lse_p
+    worst = 0.0
+    for B, Sq, Sk, H, Hkv, hd, causal in FEDLM_BWD_EDGES:
+        q, do = (_rand(torch, rng, (B, Sq, H, hd), dev).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (_rand(torch, rng, (B, Sk, Hkv, hd), dev).to(torch.bfloat16)
+                for _ in range(2))
+        o, lse = fa._forward(q, k, v, causal, with_lse=True)
+        r = _bwd_check(torch, fa, q, k, v, o, do, lse, causal)
+        what = (f"B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} hd={hd} "
+                f"{'causal' if causal else 'full'} bf16")
+        log(f"[fed-lm] flash_attention_bwd {what} ({r['route']}): "
+            f"{r['note']}; bit-equal {r['same']}")
+        if not (r["share"] <= 1.0 and r["same"] and r["finite"]):
+            raise AssertionError(f"flash_attention_bwd {what}: {r}")
+        worst = max(worst, r["share"])
+    out["edges_worst_share"] = worst
+    # read from the runtime after the launches above set the attributes
+    attrs = {hd: fa.bwd_tc_attributes(hd) for hd in (64, 128)}
+    for hd, at in attrs.items():
+        log(f"[fed-lm] tensor-core backward, hd bucket {hd}: " + "; ".join(
+            f"{n} {a['registers']} registers, {a['local_bytes']} bytes "
+            f"local a thread, {a['max_dynamic_smem_bytes']} bytes dynamic "
+            f"shared memory" for n, a in at.items()))
+        if any(a["local_bytes"] for a in at.values()):
+            raise AssertionError(f"tensor-core backward spills at hd {hd}: "
+                                 f"{at}")
     # timing at the full-width shape, bf16
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
     q, k, v, do = _fedlm_attn_inputs(torch, rng, dev, FULL_ATTN, torch.bfloat16)
@@ -3172,21 +3245,33 @@ def phase_fedlm_kernels(torch, dev) -> dict:
     r = dict(
         shape=f"B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal bf16",
         ms=_time_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
-                                                          True), 10, flush),
+                                                          True), 20, flush),
         plain_ms=_time_ms(torch, lambda: fa.flash_attention_bwd_plain(
             q, k, v, o, do, lse, True), 5, flush),
+        cuda_core_ms=_time_ms(torch, lambda: fa._bwd_cuda(
+            q, k, v, o, do, lse, True, "cuda_core"), 3, flush),
         library_ms=_time_ms(torch, lambda: torch.autograd.grad(
-            ot, (qt, kt, vt), dot, retain_graph=True), 10, flush),
+            ot, (qt, kt, vt), dot, retain_graph=True), 20, flush),
         bound_ms=max(bf, bb), bound_by="operations" if bf >= bb else "bytes",
         fp32_bound_ms=b32, flops=flops, bytes=bytes_)
-    r["design"] = _ptxas("flash_attention_bwd", "dkdv_kernelILi128E")
-    log(f"[timing] flash_attention_bwd {r['shape']}: kernel "
-        f"{r['ms'] * 1e3:.1f}us plain {r['plain_ms'] * 1e3:.1f}us library "
-        f"(SDPA backward) {r['library_ms'] * 1e3:.1f}us; {flops:.4e} FLOP, "
-        f"{bytes_ / 1e6:.1f} MB: bound {bf * 1e3:.1f}us at the bf16 "
-        f"tensor-core peak ({100 * bf / r['ms']:.2f}% of it), "
-        f"{b32 * 1e3:.1f}us at the fp32 peak ({100 * b32 / r['ms']:.2f}%), "
-        f"{bb * 1e3:.1f}us by bytes; {r['design']}")
+    at = attrs[128]
+    r["design"] = "; ".join(
+        f"{n}: {a['max_dynamic_smem_bytes']} bytes dynamic smem, "
+        f"{a['registers']} registers, {a['local_bytes']} bytes local a "
+        f"thread (cudaFuncGetAttributes); "
+        f"{_ptxas('flash_attention_bwd', f'bwd_{n}_tcILi128E')}"
+        for n, a in at.items())
+    log(f"[timing] flash_attention_bwd {r['shape']}: tensor-core kernels "
+        f"{r['ms'] * 1e3:.1f}us, the CUDA-core kernels on the same inputs "
+        f"{r['cuda_core_ms'] * 1e3:.1f}us, plain {r['plain_ms'] * 1e3:.1f}us, "
+        f"library (SDPA backward) {r['library_ms'] * 1e3:.1f}us; "
+        f"{flops:.4e} FLOP, {bytes_ / 1e6:.1f} MB: bound {bf * 1e3:.1f}us at "
+        f"the bf16 tensor-core peak ({100 * bf / r['ms']:.2f}% of it), "
+        f"{b32 * 1e3:.1f}us at the fp32 peak, {bb * 1e3:.1f}us by bytes; "
+        f"{r['design']}")
+    if not r["ms"] < b32:
+        raise AssertionError(f"tensor-core backward {r['ms']} ms is not below"
+                             f" the fp32 CUDA-core bound {b32} ms")
     del q, k, v, do, o, lse, qt, kt, vt, ot, dot, flush
     out["timing"] = r
     return out
@@ -3344,9 +3429,11 @@ def phase_fedlm_full(torch, dev, smi: str) -> dict:
     4 sequences of 2,048 tokens from ``make_lm_corpus`` at the full vocab,
     one epoch at batch 2: two steps. Gates: per step flash_attention 2 x
     32 (the forward and remat's recompute) and its backward 32, no other
-    kernel; the delta finite; a second run bit-equal (leaf checksums).
-    Prints seconds a step, peak device memory and (second run, under a
-    device-only profile) the device's busy share."""
+    kernel; the delta finite; a second run bit-equal (leaf checksums); in
+    the second run's device-only profile, the backward's tensor-core
+    kernels ``bwd_dq_tc`` and ``bwd_dkdv_tc`` once each a backward call.
+    Prints seconds a step, peak device memory and the device's busy
+    share."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.common.tree import tree_leaves
     from repro_torch.configs import get_config
@@ -3404,6 +3491,25 @@ def phase_fedlm_full(torch, dev, smi: str) -> dict:
             stats["busy_share"] = _device_busy(
                 torch, prof, f"fed-lm full width local_update, {steps} steps",
                 wall)
+            # the bf16 hd-128 backward went to the tensor-core kernels:
+            # each of the two launched once a backward call
+            from torch.autograd import DeviceType
+            tc, tc_us = {}, {}
+            for n in ("bwd_dq_tc", "bwd_dkdv_tc"):
+                evs = [e for e in prof.events() if n in e.name
+                       and e.device_type == DeviceType.CUDA]
+                tc[n] = len(evs)
+                tc_us[n] = sum(e.time_range.elapsed_us() for e in evs) \
+                    / max(1, len(evs))
+            log(f"[fed-lm] full width: tensor-core backward kernels in the "
+                f"trace {tc}, us a launch "
+                f"{ {n: round(u, 1) for n, u in tc_us.items()} }")
+            if set(tc.values()) != {want["flash_attention_bwd"]}:
+                raise AssertionError(f"full-width local_update: tensor-core "
+                                     f"kernels {tc}, want "
+                                     f"{want['flash_attention_bwd']} each")
+            stats["tc_kernels"] = tc
+            stats["tc_kernel_us"] = tc_us
         stats.setdefault("s_per_step", []).append(wall / steps)
         stats.setdefault("peak_bytes", []).append(peak)
         stats["launches"] = counts
@@ -3514,15 +3620,22 @@ def main() -> int:
         "max_abs_err": fedlm_kern["f32"]["max_abs_err"],
         "max_abs_err_bf16": fedlm_kern["bf16"]["max_abs_err"],
         "bf16_worst_share_of_limit": fedlm_kern["bf16"]["share"],
-        "tolerance": "f32 2e-5 * max(1, max|plain|); bf16 elementwise vs "
-                     "float64 2^-8 |ref| + (n + 2 hd + 16) 2^-24 sum|terms|",
+        "bf16_worst_share_of_cuda_core_limit": fedlm_kern["bf16"]["old_share"],
+        "bf16_edges_worst_share": fedlm_kern["edges_worst_share"],
+        "tensor_core_kernel_launches_full_width": fedlm_full["tc_kernels"],
+        "tolerance": "f32 2e-5 * max(1, max|plain|); bf16 hd <= 128 (tensor "
+                     "cores) elementwise vs float64 2^-8 |ref| + (2^-8 + (n + "
+                     "2 hd + 16) 2^-24) sum|terms|; bf16 hd > 128 (CUDA "
+                     "cores) 2^-8 |ref| + (n + 2 hd + 16) 2^-24 sum|terms|",
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "fp32_bound_ms": r["fp32_bound_ms"],
+        "cuda_core_ms": r["cuda_core_ms"],
         "library_ms": r["library_ms"], "shape": r["shape"],
         "design": r["design"]})
     log(json.dumps({"serve": {**serve_stats, **serve_check}}))
     log(json.dumps({"fed_lm_full_width": {
-        k: fedlm_full[k] for k in ("s_per_step", "peak_bytes", "busy_share")}}))
+        k: fedlm_full[k] for k in ("s_per_step", "peak_bytes", "busy_share",
+                                   "tc_kernel_us")}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,13 +4,14 @@
 // q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd), o and dout (B, Sq, H, hd), all
 // f32 or all bf16, read through their element strides; lse f32 (B, H, Sq).
 // Out: dq (B, Sq, H, hd), dk and dv (B, Sk, Hkv, hd), contiguous, in the
-// inputs' dtype; all arithmetic in f32 on the CUDA cores.
+// inputs' dtype.
 //
 // Replaces: the TPU side has no backward kernel. The reference trains
 // through JAX's autodiff of models/layers.py chunked_attention (its forward
-// is the function of repro/kernels/flash_attention.py); this kernel is the
-// gradient of the port's forward kernel (csrc/flash_attention.cu), bound to
-// it by kernels/flash_attention.py's FlashAttention autograd function.
+// is the function of repro/kernels/flash_attention.py); these kernels are
+// the gradient of the port's forward kernels (csrc/flash_attention.cu),
+// bound to them by kernels/flash_attention.py's FlashAttention autograd
+// function.
 //
 // Math (FA-2): P = exp(s * scale - lse) with s = q.k (masked pairs 0),
 // D_i = sum_d dO_id O_id, dS = P o (dO V^T - D), dV = P^T dO,
@@ -21,13 +22,68 @@
 // (QK^T, dO V^T, P^T dO, dS^T Q, dS K). At the full-width training shape
 // (B = 2, S = 2048, H = 24, Hkv = 8, hd = 128, causal) that is 1.29e11 FLOP:
 // 0.13 ms at the bf16 tensor-core peak (989 TFLOP/s) and 1.9 ms at the fp32
-// CUDA-core peak (67 TFLOP/s) that this design runs on; the bytes (q, k, v,
-// o, dO read once, dq, dk, dv written once: 88 MB in bf16) take 26 us.
+// CUDA-core peak (67 TFLOP/s); the bytes (q, k, v, o, dO and the lse read
+// once, dq, dk, dv written once: 134.6 MB in bf16) take 40 us.
 //
-// Design (simple first; a wgmma/TMA redesign is later work):
-//   two kernels, launched in order on the caller's stream, no float atomics
-//   anywhere, every sum in a fixed order, so repeated runs give the same
-//   bits.
+// Two designs, chosen by dtype and hd (a documented dispatch, not a
+// fallback: the wrapper picks one entry point and neither catches the
+// other's failure). Both launch two kernels in order on the caller's
+// stream, use no float atomics and sum everything in a fixed order, so
+// repeated runs give the same bits; both recompute S and dP in the dQ pass
+// (seven products where the bound counts five), the price of a dQ free of
+// atomics. A two-pass dQ over key-tile partials would write and read a
+// 64 x hd f32 partial per (query tile, key tile) pair, about 830 MB at the
+// full-width shape (0.5 ms of HBM), against two more tensor-core products.
+//
+// bf16, hd <= 128 (entry flash_attention_bwd_tc; the full-width training
+//   path): bwd_dq_tc and bwd_dkdv_tc on the tensor cores, built from the
+//   forward's wgmma blocks (wgmma_bf16.cuh): tiles in shared memory in the
+//   128-byte swizzle, hd zero-filled to its bucket (64, 128; exact), 16-byte
+//   cp.async loads, 256 threads as two warpgroups of 64 rows each, one block
+//   an SM (__launch_bounds__(256, 1): up to 255 registers a thread).
+//   Arithmetic, the reference's own rounding (its forward rounds p to bf16
+//   before PV, so its gradient of v reads a bf16 p): S = Q K^T and
+//   dP = dO V^T are bf16 x bf16 products with f32 accumulation (mma_ss, both
+//   operands K-major); P = 2^(s scale log2 e - lse log2 e) (ex2.approx) and
+//   dS = P (dP - D) in f32 registers; P and dS are each rounded once to
+//   bf16 as the register-A fragment of dV = P^T dO, dK = scale dS^T Q and
+//   dQ = scale dS K (mma_rs, B MN-major); each output is rounded once to
+//   bf16. Limit (kernels/flash_attention.py bwd_bf16_tc_limit): elementwise
+//   against the float64 backward, 2^-8 |ref| + (2^-8 + (n + 2 hd + 16) u)
+//   sum|terms| with u = 2^-24.
+//   bwd_dq_tc: one block per (b, h, 128-query tile), grid (H, B, q tiles)
+//     with the tile index reversed so the long causal tiles start first. Q
+//     and dO stay resident (2 x 32 KB at hd 128); 64-key K and V tiles come
+//     through a 2-stage ring, tile t + 1 in flight while tile t is computed.
+//     The prologue computes D_i from O and dO in global memory (two threads
+//     a row, one xor-shuffle) while the first copies fly, and stores it for
+//     the second kernel. Per key tile: S and dP (16 m64n64k16), P, dS, then
+//     dQ += dS K (8 more); causal tiles wholly above a warpgroup's rows are
+//     skipped and the diagonal tile is masked.
+//   bwd_dkdv_tc: one block per (b, kv head, 128-key tile), grid (Hkv, B,
+//     key tiles) with key tile 0 first (under causal masking it sees every
+//     query). K and V stay resident; the block loops over the group's G
+//     query heads and, for each, over the 64-query tiles that see its keys
+//     (causal: from the tile holding query k0), streaming Q, dO, lse and D
+//     through a 2-stage ring. It computes the transposed tiles S^T = K Q^T
+//     and dP^T = V dO^T, so P^T and dS^T sit in registers as the A operand
+//     of dV += P^T dO and dK += dS^T Q; lse and D index the columns. The GQA
+//     sum stays in the block, head then query tile: no atomics.
+//   Registers at hd 128: dK and dV accumulators 64 each, S^T and dP^T 32
+//   each (dq: dQ 64, S and dP 32 each). Shared memory: 132,608 bytes (dq)
+//   and 133,120 (dkdv), set above 48 KB through cudaFuncSetAttribute once a
+//   bucket; flash_attention_bwd_tc_attributes reports both kernels'
+//   registers, spill bytes and shared memory. Not yet: TMA loads with a
+//   producer warp, setmaxnreg, warpgroups ping-ponging so one's softmax
+//   overlaps the other's products, 128-row tiles, hd 256.
+//
+// f32, and bf16 with hd > 128 (entry flash_attention_bwd; the parity mode
+//   of the fed-lm golden): dq_kernel and dkdv_kernel, all arithmetic in f32
+//   on the CUDA cores (capped by the fp32 peak), each output rounded once.
+//   Limits: f32 within 2e-5 max(1, max|plain|) of the plain backward; bf16
+//   (bwd_bf16_limit) 2^-8 |ref| + (n + 2 hd + 16) u sum|terms| against
+//   float64. At hd 256 a 64 x 256 f32 dK and dV pair does not fit in the
+//   registers beside the score tiles, so hd 256 stays here.
 //   dq_kernel: one block per (b, h, 64-query tile) (32 at hd 256). Its
 //     prologue computes D_i for its rows from O and dO and stores it for
 //     the second kernel. It loops over the key tiles its queries can see,
@@ -43,13 +99,13 @@
 //   128, 256) zero-filled past hd (exact). 256 threads as a 16 x 16 grid:
 //   for the score tile a thread holds a (tile / 16) x (tile / 16) register
 //   micro-tile (4 x 4 at 64), rows ty + 16 a and columns tx + 16 b; for the
-//   outputs (tile / 16) rows x (HD / 16) columns. The dQ pass recomputes S
-//   and dP (seven products in all where the bound counts five), the price
-//   of keeping dQ free of atomics.
+//   outputs (tile / 16) rows x (HD / 16) columns.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -376,6 +432,523 @@ int run(const void* q, const void* k, const void* v, const void* o,
   return launch<256, T>(a, B, stream);
 }
 
+
+// ---- bf16, hd <= 128: the tensor-core kernels ------------------------------
+
+namespace tc {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kVec = 1;    // flags: q, k, v, dout take the cp.async loaders
+constexpr int kOVec = 2;   // o and dout rows read as 16-byte vectors
+
+// 4-byte copy to shared memory, zero if bytes is 0
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// bf16 pairs of two 16-byte vectors, multiplied and added into acc in order
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b,
+                                      float acc) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    acc = fmaf(u.x, w.x, acc);
+    acc = fmaf(u.y, w.y, acc);
+  }
+  return acc;
+}
+
+// one row's dq/dk/dv fragment (f32, times mul) as bf16: register 4 j + 2
+// half + e holds column 64 n + 8 j + 2 (lane % 4) + e
+template <int kNB>
+__device__ __forceinline__ void store_row(bf16* op, const float (&acc)[kNB][32],
+                                          int half, int lane, int hd,
+                                          float mul) {
+#pragma unroll
+  for (int n = 0; n < kNB; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 64 * n + 8 * j + 2 * (lane % 4);
+      const float x0 = acc[n][4 * j + 2 * half] * mul;
+      const float x1 = acc[n][4 * j + 2 * half + 1] * mul;
+      if (c + 1 < hd) {
+        if (hd % 2 == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(op + c) =
+              __floats2bfloat162_rn(x0, x1);
+        } else {
+          op[c] = __float2bfloat16(x0);
+          op[c + 1] = __float2bfloat16(x1);
+        }
+      } else if (c < hd) {
+        op[c] = __float2bfloat16(x0);
+      }
+    }
+}
+
+template <int HDB>
+constexpr int dq_smem_bytes() {  // Q, dO, 2 x (K, V), D, alignment
+  return 2 * kBQ * HDB * 2 + 4 * kBK * HDB * 2 + kBQ * 4 + 1024;
+}
+
+template <int HDB>
+constexpr int dkdv_smem_bytes() {  // K, V, 2 x (Q, dO), 2 x (lse, D), align
+  return 2 * kBQ * HDB * 2 + 4 * kBK * HDB * 2 + 4 * kBK * 4 + 1024;
+}
+
+// dQ of a (b, h, 128-query tile): two warpgroups of 64 query rows; K and V
+// tiles of 64 keys through a 2-stage cp.async ring.
+template <int HDB>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_dq_tc(Args<bf16> A, float scale_log2, int flags) {
+  constexpr int kNB = HDB / 64;               // 64-wide hd blocks
+  constexpr int kQBytes = kBQ * HDB * 2;      // a 128-row tile
+  constexpr int kTBytes = kBK * HDB * 2;      // a 64-row tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = sm;
+  unsigned char* sdO = sm + kQBytes;
+  unsigned char* ring = sm + 2 * kQBytes;     // stage s: K, V at 2 s tiles
+  float* sD = reinterpret_cast<float*>(ring + 4 * kTBytes);
+
+  const int qt = gridDim.z - 1 - blockIdx.z;  // long causal tiles first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (A.H / A.Hkv);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;                   // warpgroup: rows 64 wg ..
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const bool vec = flags & kVec;
+  const int q0 = qt * kBQ;
+  const int w0 = q0 + 64 * wg;
+  const int r_lo = 64 * wg + 16 * warp + lane / 4;  // fragment rows r_lo,
+  const int qi_lo = q0 + r_lo, qi_hi = qi_lo + 8;   // r_lo + 8 of the tile
+  const bf16* qb = A.q + (long long)b * A.sq.b + (long long)q0 * A.sq.s +
+                   (long long)h * A.sq.h;
+  const bf16* dob = A.dout + (long long)b * A.sdo.b +
+                    (long long)q0 * A.sdo.s + (long long)h * A.sdo.h;
+  const bf16* kb = A.k + (long long)b * A.sk.b + (long long)hk * A.sk.h;
+  const bf16* vb = A.v + (long long)b * A.sv.b + (long long)hk * A.sv.h;
+
+  int nt = (A.Sk + kBK - 1) / kBK;
+  if (A.causal) nt = min(nt, min(q0 + kBQ - 1, A.Sq - 1) / kBK + 1);
+
+  load_tile<kBQ, HDB>(sQ, qb, A.Sq - q0, A.hd, A.sq.s, A.sq.d, vec, tid);
+  load_tile<kBQ, HDB>(sdO, dob, A.Sq - q0, A.hd, A.sdo.s, A.sdo.d, vec, tid);
+  load_kv<HDB>(ring, kb, vb, 0, A.Sk, A.hd, A.sk.s, A.sk.d, A.sv.s, A.sv.d,
+               vec, tid);
+  cp_async_commit();
+
+  // prologue, while the copies fly: D_i = sum_d dO_id O_id in f32 from
+  // global memory, two threads a row (16-byte chunks 2 i + half, then one
+  // xor-shuffle: a fixed order); stored for the dkdv kernel
+  const long long row0 = ((long long)b * A.H + h) * A.Sq;
+  {
+    const int r = tid / 2, half = tid % 2, qi = q0 + r;
+    float acc = 0.0f;
+    if (qi < A.Sq) {
+      const bf16* po = A.o + (long long)b * A.so.b + (long long)qi * A.so.s +
+                       (long long)h * A.so.h;
+      const bf16* pd = A.dout + (long long)b * A.sdo.b +
+                       (long long)qi * A.sdo.s + (long long)h * A.sdo.h;
+      if (flags & kOVec) {
+#pragma unroll
+        for (int i = 0; i < HDB / 16; ++i) {
+          const int c = 16 * i + 8 * half;
+          if (c < A.hd)
+            acc = dot8(*reinterpret_cast<const uint4*>(pd + c),
+                       *reinterpret_cast<const uint4*>(po + c), acc);
+        }
+      } else {
+        for (int c = half; c < A.hd; c += 2)
+          acc = fmaf(__bfloat162float(pd[(long long)c * A.sdo.d]),
+                     __bfloat162float(po[(long long)c * A.so.d]), acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      sD[r] = acc;
+      if (qi < A.Sq) A.D[row0 + qi] = acc;
+    }
+  }
+  // the rows' lse in base-2 units of the scaled score
+  const float l_lo = qi_lo < A.Sq ? A.lse[row0 + qi_lo] * kLog2e : 0.0f;
+  const float l_hi = qi_hi < A.Sq ? A.lse[row0 + qi_hi] * kLog2e : 0.0f;
+  __syncthreads();
+  const float D_lo = sD[r_lo], D_hi = sD[r_lo + 8];
+
+  float dq[kNB][32];
+#pragma unroll
+  for (int n = 0; n < kNB; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[n][i] = 0.0f;
+  const bool rows_live = w0 < A.Sq;
+
+  for (int t = 0; t < nt; ++t) {
+    unsigned char* sK = ring + (t & 1) * 2 * kTBytes;
+    unsigned char* sV = sK + kTBytes;
+    if (t + 1 < nt)
+      load_kv<HDB>(ring + ((t + 1) & 1) * 2 * kTBytes, kb, vb, (t + 1) * kBK,
+                   A.Sk, A.hd, A.sk.s, A.sk.d, A.sv.s, A.sv.d, vec, tid);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and Q, dO) have landed; t + 1 may fly
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    const int k0 = t * kBK;
+    if (rows_live && (!A.causal || k0 <= w0 + 63)) {
+      // S = Q K^T and dP = dO V^T for this warpgroup's 64 rows
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+      const uint32_t qa = smem_u32(sQ) + wg * 64 * 128;
+      const uint32_t oa = smem_u32(sdO) + wg * 64 * 128;
+      const uint32_t ka = smem_u32(sK), va = smem_u32(sV);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < HDB / 16; ++ks)
+        mma_ss(s, desc(qa + (ks / 4) * kBQ * 128 + (ks % 4) * 32, 16, 1024),
+               desc(ka + (ks / 4) * kBK * 128 + (ks % 4) * 32, 16, 1024));
+#pragma unroll
+      for (int ks = 0; ks < HDB / 16; ++ks)
+        mma_ss(dp, desc(oa + (ks / 4) * kBQ * 128 + (ks % 4) * 32, 16, 1024),
+               desc(va + (ks / 4) * kBK * 128 + (ks % 4) * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+      keep(s);
+      keep(dp);
+
+      // P = 2^(s scale log2 e - lse log2 e) and dS = P (dP - D) in f32:
+      // register 4 j + e (+2) holds row qi_lo (qi_hi), key
+      // k0 + 8 j + 2 (lane % 4) + e; dS overwrites s
+      const bool masked = k0 + kBK > A.Sk || (A.causal && k0 + kBK - 1 > w0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kj = k0 + 8 * j + 2 * (lane % 4) + e;
+          float p_lo = ex2(fmaf(s[4 * j + e], scale_log2, -l_lo));
+          float p_hi = ex2(fmaf(s[4 * j + 2 + e], scale_log2, -l_hi));
+          if (masked) {
+            if (!(kj < A.Sk && (!A.causal || kj <= qi_lo))) p_lo = 0.0f;
+            if (!(kj < A.Sk && (!A.causal || kj <= qi_hi))) p_hi = 0.0f;
+          }
+          s[4 * j + e] = p_lo * (dp[4 * j + e] - D_lo);
+          s[4 * j + 2 + e] = p_hi * (dp[4 * j + 2 + e] - D_hi);
+        }
+      }
+      // dS rounded to bf16 once, as the register-A fragment of each
+      // 16-key slice kk
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          da[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+
+      // dQ += dS K: the K tile as B, MN-major (transpose bit)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int n = 0; n < kNB; ++n)
+          mma_rs(dq[n], da[kk],
+                 desc(ka + n * kBK * 128 + kk * 2048, kBK * 128, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int n = 0; n < kNB; ++n) keep(dq[n]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) keep(da[kk]);
+    }
+    __syncthreads();  // every reader of stage t & 1 is done before reuse
+  }
+
+  if (!rows_live) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = half ? qi_hi : qi_lo;
+    if (qi < A.Sq)
+      store_row<kNB>(A.dq + (((long long)b * A.Sq + qi) * A.H + h) * A.hd,
+                     dq, half, lane, A.hd, A.scale);
+  }
+}
+
+// dK and dV of a (b, kv head, 128-key tile): two warpgroups of 64 key rows
+// hold K and V; the group's query heads, then their 64-query tiles, stream
+// Q, dO, lse and D through a 2-stage cp.async ring.
+template <int HDB>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_dkdv_tc(Args<bf16> A, float scale_log2, int flags) {
+  constexpr int kNB = HDB / 64;
+  constexpr int kKBytes = kBQ * HDB * 2;      // a 128-row K or V tile
+  constexpr int kTBytes = kBK * HDB * 2;      // a 64-row Q or dO tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sm;
+  unsigned char* sV = sm + kKBytes;
+  unsigned char* ring = sm + 2 * kKBytes;     // stage s: Q, dO at 2 s tiles
+  float* sLD = reinterpret_cast<float*>(ring + 4 * kTBytes);  // [s][lse, D]
+
+  const int kt = blockIdx.z;  // key tile 0 first: causal, it sees every query
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int G = A.H / A.Hkv;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;                   // warpgroup: keys 64 wg ..
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const bool vec = flags & kVec;
+  const int k0 = kt * kBQ;
+  const int w0 = k0 + 64 * wg;
+  const int kj_lo = w0 + 16 * warp + lane / 4, kj_hi = kj_lo + 8;
+  const bf16* kb = A.k + (long long)b * A.sk.b + (long long)k0 * A.sk.s +
+                   (long long)hk * A.sk.h;
+  const bf16* vb = A.v + (long long)b * A.sv.b + (long long)k0 * A.sv.s +
+                   (long long)hk * A.sv.h;
+
+  load_tile<kBQ, HDB>(sK, kb, A.Sk - k0, A.hd, A.sk.s, A.sk.d, vec, tid);
+  load_tile<kBQ, HDB>(sV, vb, A.Sk - k0, A.hd, A.sv.s, A.sv.d, vec, tid);
+
+  // iterations it = g per + (qt - first): head g of the group, query tile
+  // qt; causal: from the tile holding query k0
+  const int nq = (A.Sq + kBK - 1) / kBK;
+  const int first = A.causal ? min(k0 / kBK, nq) : 0;
+  const int per = nq - first;
+  const int n_it = G * per;
+  auto load_q = [&](int it, int st) {
+    const int h = hk * G + it / per, q0 = (first + it % per) * kBK;
+    load_kv<HDB>(ring + st * 2 * kTBytes,
+                 A.q + (long long)b * A.sq.b + (long long)h * A.sq.h,
+                 A.dout + (long long)b * A.sdo.b + (long long)h * A.sdo.h, q0,
+                 A.Sq, A.hd, A.sq.s, A.sq.d, A.sdo.s, A.sdo.d, vec, tid);
+    if (tid < 2 * kBK) {
+      const int i = tid % kBK;
+      const float* src = (tid < kBK ? A.lse : A.D) +
+                         ((long long)b * A.H + h) * A.Sq + q0 + i;
+      const bool in = q0 + i < A.Sq;
+      cp_async4(smem_u32(sLD + st * 2 * kBK + tid), in ? src : A.lse,
+                in ? 4 : 0);
+    }
+  };
+
+  float dk[kNB][32], dv[kNB][32];
+#pragma unroll
+  for (int n = 0; n < kNB; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[n][i] = dv[n][i] = 0.0f;
+
+  if (n_it > 0) load_q(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) load_q(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // stage st (and K, V) have landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    const int q0 = (first + it % per) * kBK;
+    if (w0 < A.Sk && (!A.causal || w0 <= q0 + kBK - 1)) {
+      // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+      const uint32_t ka = smem_u32(sK) + wg * 64 * 128;
+      const uint32_t va = smem_u32(sV) + wg * 64 * 128;
+      const uint32_t qa = smem_u32(ring + st * 2 * kTBytes);
+      const uint32_t oa = qa + kTBytes;
+      const float* sL = sLD + st * 2 * kBK;
+      const float* sDD = sL + kBK;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < HDB / 16; ++ks)
+        mma_ss(s, desc(ka + (ks / 4) * kBQ * 128 + (ks % 4) * 32, 16, 1024),
+               desc(qa + (ks / 4) * kBK * 128 + (ks % 4) * 32, 16, 1024));
+#pragma unroll
+      for (int ks = 0; ks < HDB / 16; ++ks)
+        mma_ss(dp, desc(va + (ks / 4) * kBQ * 128 + (ks % 4) * 32, 16, 1024),
+               desc(oa + (ks / 4) * kBK * 128 + (ks % 4) * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+      keep(s);
+      keep(dp);
+
+      // P^T and dS^T = P^T (dP^T - D) in f32: register 4 j + e (+2) holds
+      // key kj_lo (kj_hi), query q0 + 8 j + 2 (lane % 4) + e, whose lse and
+      // D index the column; P^T stays in s, dS^T overwrites dp
+      const bool masked = q0 + kBK > A.Sq || w0 + 64 > A.Sk ||
+                          (A.causal && w0 + 63 > q0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(sL + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(sDD + c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = q0 + c + e;
+          const float l = (e ? l2.y : l2.x) * kLog2e;
+          const float d = e ? d2.y : d2.x;
+          float p_lo = ex2(fmaf(s[4 * j + e], scale_log2, -l));
+          float p_hi = ex2(fmaf(s[4 * j + 2 + e], scale_log2, -l));
+          if (masked) {
+            const bool q_in = qi < A.Sq;
+            if (!(q_in && kj_lo < A.Sk && (!A.causal || kj_lo <= qi)))
+              p_lo = 0.0f;
+            if (!(q_in && kj_hi < A.Sk && (!A.causal || kj_hi <= qi)))
+              p_hi = 0.0f;
+          }
+          s[4 * j + e] = p_lo;
+          s[4 * j + 2 + e] = p_hi;
+          dp[4 * j + e] = p_lo * (dp[4 * j + e] - d);
+          dp[4 * j + 2 + e] = p_hi * (dp[4 * j + 2 + e] - d);
+        }
+      }
+      // P^T and dS^T rounded to bf16 once, as register-A fragments of each
+      // 16-query slice kk
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+          da[kk][i] = pack_bf16(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1]);
+        }
+
+      // dV += P^T dO and dK += dS^T Q: the dO and Q tiles as B, MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int n = 0; n < kNB; ++n) {
+          mma_rs(dv[n], pa[kk],
+                 desc(oa + n * kBK * 128 + kk * 2048, kBK * 128, 1024));
+          mma_rs(dk[n], da[kk],
+                 desc(qa + n * kBK * 128 + kk * 2048, kBK * 128, 1024));
+        }
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int n = 0; n < kNB; ++n) {
+        keep(dv[n]);
+        keep(dk[n]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        keep(pa[kk]);
+        keep(da[kk]);
+      }
+    }
+    __syncthreads();  // every reader of stage st is done before reuse
+  }
+  cp_async_wait<0>();  // no copy outlives the block (n_it = 0: K and V)
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int kj = half ? kj_hi : kj_lo;
+    if (kj >= A.Sk) continue;
+    const long long off = (((long long)b * A.Sk + kj) * A.Hkv + hk) * A.hd;
+    store_row<kNB>(A.dk + off, dk, half, lane, A.hd, A.scale);
+    store_row<kNB>(A.dv + off, dv, half, lane, A.hd, 1.0f);
+  }
+}
+
+template <int HDB>
+int launch(const Args<bf16>& a, int B, int flags, cudaStream_t stream) {
+  constexpr int dq_smem = dq_smem_bytes<HDB>();
+  constexpr int kv_smem = dkdv_smem_bytes<HDB>();
+  static bool ready = false;  // the attributes are set once per bucket
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        bwd_dq_tc<HDB>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(bwd_dkdv_tc<HDB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kv_smem);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  const float scale_log2 = a.scale * kLog2e;
+  dim3 gq(a.H, B, (a.Sq + kBQ - 1) / kBQ);
+  bwd_dq_tc<HDB><<<gq, kThreads, dq_smem, stream>>>(a, scale_log2, flags);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dim3 gk(a.Hkv, B, (a.Sk + kBQ - 1) / kBQ);
+  bwd_dkdv_tc<HDB><<<gk, kThreads, kv_smem, stream>>>(a, scale_log2, flags);
+  return (int)cudaGetLastError();
+}
+
+// hd is padded with zeros to its bucket, 64 or 128
+int bucket(int hd) { return hd <= 64 ? 64 : 128; }
+
+int run(const void* q, const void* k, const void* v, const void* o,
+        const void* dout, const float* lse, float* D, void* dq, void* dk,
+        void* dv, int B, int Sq, int Sk, int H, int Hkv, int hd,
+        const long long* s, int causal, float scale, cudaStream_t stream) {
+  Args<bf16> a;
+  a.q = (const bf16*)q;
+  a.k = (const bf16*)k;
+  a.v = (const bf16*)v;
+  a.o = (const bf16*)o;
+  a.dout = (const bf16*)dout;
+  a.lse = lse;
+  a.D = D;
+  a.dq = (bf16*)dq;
+  a.dk = (bf16*)dk;
+  a.dv = (bf16*)dv;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.hd = hd;
+  a.causal = causal;
+  a.scale = scale;
+  Strides* st_[5] = {&a.sq, &a.sk, &a.sv, &a.so, &a.sdo};
+  for (int i = 0; i < 5; ++i)
+    *st_[i] = Strides{s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]};
+  // 16-byte copies need a unit hd stride, 16-byte-aligned rows and bases
+  const void* ptrs[5] = {q, k, v, o, dout};
+  bool ok[5];
+  for (int i = 0; i < 5; ++i) {
+    ok[i] = s[4 * i + 3] == 1 && (uintptr_t)ptrs[i] % 16 == 0;
+    for (int j = 0; j < 3; ++j)
+      if (s[4 * i + j] % 8 != 0) ok[i] = false;
+  }
+  int flags = 0;
+  if (ok[0] && ok[1] && ok[2] && ok[4]) flags |= kVec;
+  if (ok[3] && ok[4] && hd % 8 == 0) flags |= kOVec;
+  if (bucket(hd) == 64) return launch<64>(a, B, flags, stream);
+  return launch<128>(a, B, flags, stream);
+}
+
+// The runtime's attributes of the two kernels that hd launches, into
+// out[0..3] (dq) and out[4..7] (dkdv): registers a thread, local (spill)
+// bytes a thread, static and maximum dynamic shared memory a block (the
+// latter as the first launch of that bucket set it)
+int attributes(int hd, int* out) {
+  const bool b64 = bucket(hd) == 64;
+  const void* fs[2] = {
+      b64 ? (const void*)bwd_dq_tc<64> : (const void*)bwd_dq_tc<128>,
+      b64 ? (const void*)bwd_dkdv_tc<64> : (const void*)bwd_dkdv_tc<128>};
+  for (int i = 0; i < 2; ++i) {
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(&a, fs[i]);
+    if (e != cudaSuccess) return (int)e;
+    out[4 * i] = a.numRegs;
+    out[4 * i + 1] = (int)a.localSizeBytes;
+    out[4 * i + 2] = (int)a.sharedSizeBytes;
+    out[4 * i + 3] = a.maxDynamicSharedSizeBytes;
+  }
+  return 0;
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q, k, v, o, dout: device pointers read through their element strides,
@@ -401,4 +974,31 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                               H, Hkv, hd, strides, causal, scale, st);
   return run<float>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Sk, H, Hkv,
                     hd, strides, causal, scale, st);
+}
+
+// The bf16 tensor-core kernels, hd <= 128: arguments as flash_attention_bwd
+// less the dtype flag (all bf16). Launches bwd_dq_tc, then bwd_dkdv_tc, on
+// `stream`; returns the first non-zero cudaGetLastError().
+extern "C" int flash_attention_bwd_tc(const void* q, const void* k,
+                                      const void* v, const void* o,
+                                      const void* dout, const float* lse,
+                                      float* D, void* dq, void* dk, void* dv,
+                                      int B, int Sq, int Sk, int H, int Hkv,
+                                      int hd, const long long* strides,
+                                      int causal, float scale, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv != 0 || hd < 1 ||
+      hd > 128 || B > 65535 || (Sq + 127) / 128 > 65535 ||
+      (Sk + 127) / 128 > 65535)
+    return (int)cudaErrorInvalidValue;
+  return tc::run(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Sk, H, Hkv, hd,
+                 strides, causal, scale, (cudaStream_t)stream);
+}
+
+// The tensor-core kernels' runtime attributes for head dim hd, into
+// out[8]: dq's registers, local bytes (a thread), static shared bytes,
+// maximum dynamic shared bytes (a block), then dkdv's. Returns a
+// cudaError_t.
+extern "C" int flash_attention_bwd_tc_attributes(int hd, int* out) {
+  if (hd < 1 || hd > 128) return (int)cudaErrorInvalidValue;
+  return tc::attributes(hd, out);
 }

@@ -2,8 +2,10 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, under ``build/repro_torch/`` at the repo
-root, at first CUDA use. The library name carries a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one is reused.
+root, at first CUDA use. The library name carries a hash of the source, of
+every header under ``csrc/`` (``*.cuh``, which the sources share) and of
+the flags, so an edited source or header rebuilds and an unchanged one is
+reused.
 All sources compile in parallel (one ``nvcc`` each, started together).
 The libraries are loaded with ``ctypes``; a failed build raises.
 """
@@ -47,9 +49,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, dict]:

@@ -25,7 +25,8 @@ one, it goes through ``FlashAttention``: the forward kernel also writes
 the row log-sum-exp, f32 (B, H, Sq), and the backward is
 ``flash_attention_bwd`` (dq, dk, dv from q, k, v, o, do and that lse).
 ``flash_attention.launches`` counts forward launches,
-``flash_attention_bwd.launches`` backward ones (two kernels, one count).
+``flash_attention_bwd.launches`` backward ones (two kernels, one count, on
+either route).
 
 On a CUDA tensor the forward kernel is chosen by dtype (a dispatch, not a
 fallback; neither ever catches the other's failure):
@@ -39,25 +40,39 @@ fallback; neither ever catches the other's failure):
 * float32 (the parity mode): the IEEE fp32 CUDA-core kernel, within
   ``2e-5 max(1, max|plain|)`` of the plain version.
 
-The backward kernel computes in f32 on the CUDA cores for both dtypes and
-rounds each output once to the inputs' dtype. Limits: float32 within
-``2e-5 max(1, max|plain|)`` of ``flash_attention_bwd_plain`` (summation
-order only); bfloat16, elementwise against the same backward in float64
-on the same inputs (``bwd_bf16_limit``): ``2^-8 |ref|`` for the one
-rounding of the output to bf16 (half an ulp), plus ``(n + 2 hd + 16) u
-A`` with u = 2^-24, n the terms of the output's sum (G Sq for dk and dv,
-Sk for dq) and A the same sum over absolute values: the standard bound of
-an f32 sum of n products, each of them a few f32 roundings deep (the
-score's hd-term dot, exp, the lse subtraction).
+The backward is chosen by dtype and head dim (``bwd_route``; a
+documented dispatch, not a fallback: neither entry point ever catches the
+other's failure):
+
+* bfloat16 with hd <= 128 (the full-width training path; hd buckets 64
+  and 128, zero-filled past hd): the tensor-core kernels
+  (``flash_attention_bwd_tc``). S = QK^T and dP = dO V^T are bf16
+  ``wgmma`` products with f32 accumulation; P and dS = P (dP - D) are
+  f32 and are each rounded once to bf16 before the products that read
+  them (dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K), as the
+  reference's autodiff reads its bf16 p; each output is rounded once.
+  Limit, elementwise against the same backward in float64 on the same
+  inputs (``bwd_bf16_tc_limit``): ``2^-8 |ref| + (2^-8 + (n + 2 hd + 16)
+  u) A``, with A the sum of the output's terms over absolute values.
+* float32 (the parity mode the fed-lm golden rests on) and bfloat16 with
+  hd > 128: the CUDA-core kernels (``flash_attention_bwd``), all
+  arithmetic in f32, each output rounded once. Limits: float32 within
+  ``2e-5 max(1, max|plain|)`` of ``flash_attention_bwd_plain`` (summation
+  order only); bfloat16 against float64 (``bwd_bf16_limit``): ``2^-8
+  |ref|`` for the one rounding of the output to bf16 (half an ulp), plus
+  ``(n + 2 hd + 16) u A`` with u = 2^-24, n the terms of the output's sum
+  (G Sq for dk and dv, Sk for dq): the standard bound of an f32 sum of n
+  products, each of them a few f32 roundings deep (the score's hd-term
+  dot, exp, the lse subtraction).
 
 All kernels read their inputs through their strides with no copy.
 
 Bounds on the H100: the forward at the serve shape is bf16 operations at
 the tensor-core peak (0.2086 ms; the f32 kernel's CUDA-core pipe caps it at
 about 3.1 ms); the backward's five products at the full-width training
-shape (2, 2048, 24/8, 128) take 0.13 ms at the bf16 tensor-core peak and
-1.9 ms at the fp32 CUDA-core peak it runs on. See the sources for the
-designs.
+shape (2, 2048, 24/8, 128) take 0.13 ms at the bf16 tensor-core peak (the
+tensor-core kernels) and 1.9 ms at the fp32 CUDA-core peak (the CUDA-core
+kernels). See the sources for the designs.
 """
 from __future__ import annotations
 
@@ -75,9 +90,13 @@ _SIG = {"flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             *([_L] * 12), _I, ctypes.c_float, _I, _P, _P],
         "flash_attention_tc_attributes": [_I, ctypes.POINTER(_I)]}
 _BWD_SIG = {"flash_attention_bwd": [_P] * 10 + [_I] * 6
-            + [ctypes.POINTER(_L), _I, ctypes.c_float, _I, _P]}
+            + [ctypes.POINTER(_L), _I, ctypes.c_float, _I, _P],
+            "flash_attention_bwd_tc": [_P] * 10 + [_I] * 6
+            + [ctypes.POINTER(_L), _I, ctypes.c_float, _P],
+            "flash_attention_bwd_tc_attributes": [_I, ctypes.POINTER(_I)]}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
+TC_BWD_MAX_HEAD_DIM = 128   # bf16 backward on the tensor cores up to here
 NEG_INF = -1e30
 BF16_LIMIT = "2^-7 |plain| + 2^-9 max|v| + 1e-4"   # bf16_limit, elementwise
 
@@ -173,6 +192,34 @@ def bwd_bf16_limit(ref, absref, n_terms: int, hd: int) -> torch.Tensor:
     return 2.0 ** -8 * ref.abs() + (n_terms + 2 * hd + 16) * u * absref
 
 
+def bwd_bf16_tc_limit(ref, absref, n_terms: int, hd: int) -> torch.Tensor:
+    """Elementwise limit on |kernel - ref| for an output of the bf16
+    tensor-core backward, from its float64 backward ``ref`` and the sum of
+    absolute terms ``absref`` (as ``bwd_bf16_limit``). Each output y (dV_jd,
+    dK_jd, dQ_id) is m fl32(sum_t a_t b_t) rounded to bf16, with b_t an
+    exact bf16 input (dO, Q or K), a_t the bf16 rounding of an f32 P or dS,
+    and m the scale (1 for dV). Term by term, with u = 2^-24:
+
+    * the output's rounding to bf16, which keeps 8 significant bits: at
+      most 2^-8 |y|, i.e. 2^-8 |ref| to first order;
+    * the operand's rounding, once per term: |bf16(a) - a| <= 2^-8 |a|.
+      For dV that moves term i by at most 2^-8 P_ij |dO_id|; for dK and dQ
+      by at most 2^-8 |dS_ij| |Q_id| (|K_jd|), with |dS_ij| <= P_ij
+      (|dP_ij| + |D_i|), all times m. Summed, each is at most 2^-8 absref,
+      which holds exactly these absolute terms;
+    * the f32 work before the rounding, as in ``bwd_bf16_limit``: the
+      hd-term dots of S, dP and D (bf16 products are exact, the sums f32),
+      exp and the lse subtraction, at most (2 hd + 16) u absref; and the
+      f32 sum of the n terms, at most n u absref.
+
+    In all: ``2^-8 |ref| + (2^-8 + (n + 2 hd + 16) u) absref``. The 2^-8 a
+    rounding is bf16's unit roundoff; ``bf16_limit`` charges p's rounding
+    in the forward at 2^-9 (ROADMAP Queue 3)."""
+    u = 2.0 ** -24
+    return 2.0 ** -8 * ref.abs() + (2.0 ** -8 + (n_terms + 2 * hd + 16) * u) \
+        * absref
+
+
 def bf16_limit(plain: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Elementwise limit on |kernel - plain| for bf16 inputs, from the
     plain output (B, Sq, H, hd) and v (B, Sk, Hkv, hd): rounding p_j to
@@ -198,6 +245,20 @@ def tc_attributes(hd: int) -> dict:
                  "flash_attention_tc_attributes")
     return dict(zip(("registers", "local_bytes", "static_smem_bytes",
                      "max_dynamic_smem_bytes"), vals))
+
+
+def bwd_tc_attributes(hd: int) -> dict:
+    """The CUDA runtime's attributes of the two bf16 tensor-core backward
+    kernels that head dim ``hd`` launches, ``{"dq": {...}, "dkdv": {...}}``
+    with the keys of ``tc_attributes``. Needs a card."""
+    vals = (_I * 8)()
+    lib = _build.load("flash_attention_bwd", _BWD_SIG)
+    _build.check(lib.flash_attention_bwd_tc_attributes(hd, vals),
+                 "flash_attention_bwd_tc_attributes")
+    keys = ("registers", "local_bytes", "static_smem_bytes",
+            "max_dynamic_smem_bytes")
+    return {name: dict(zip(keys, vals[4 * i:4 * i + 4]))
+            for i, name in enumerate(("dq", "dkdv"))}
 
 
 def _device(q: torch.Tensor, what: str) -> str:
@@ -236,17 +297,36 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
     return out, lse
 
 
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The backward kernels a CUDA tensor of ``dtype`` and head dim ``hd``
+    goes to: ``"tc"`` (bf16, hd <= 128: the tensor-core kernels) or
+    ``"cuda_core"`` (f32, and bf16 above hd 128)."""
+    return ("tc" if dtype == torch.bfloat16 and hd <= TC_BWD_MAX_HEAD_DIM
+            else "cuda_core")
+
+
+# the C entry point of each route
+BWD_ENTRY = {"tc": "flash_attention_bwd_tc", "cuda_core": "flash_attention_bwd"}
+
+
 def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True):
     """(dq, dk, dv), fresh contiguous tensors in q's dtype, of the attention
     at q, k, v (whose output was o and row log-sum-exp lse) for the output
-    gradient do: ``flash_attention_bwd_plain`` on the CPU, the backward
-    kernel on the card."""
+    gradient do: ``flash_attention_bwd_plain`` on the CPU, on the card the
+    kernels ``bwd_route`` names."""
     if do.dtype != q.dtype or o.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError(f"flash_attention_bwd: o and do must be {q.dtype} "
                         f"and lse float32; got {o.dtype}, {do.dtype}, "
                         f"{lse.dtype}")
     if _device(q, "flash_attention_bwd") == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
+    return _bwd_cuda(q, k, v, o, do, lse, causal,
+                     bwd_route(q.dtype, q.shape[3]))
+
+
+def _bwd_cuda(q, k, v, o, do, lse, causal: bool, route: str):
+    """One launch of the route's backward kernels (two kernels, one
+    count)."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     lse = lse.contiguous()
@@ -258,13 +338,14 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True):
                         *do.stride())
     lib = _build.load("flash_attention_bwd", _BWD_SIG)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, Hkv, hd, strides,
-        int(causal), 1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
-        stream)
-    _build.check(err, "flash_attention_bwd")
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, Hkv, hd, strides,
+            int(causal), 1.0 / math.sqrt(hd)]
+    if route == "cuda_core":
+        args.append(int(q.dtype == torch.bfloat16))
+    err = getattr(lib, BWD_ENTRY[route])(*args, stream)
+    _build.check(err, BWD_ENTRY[route])
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -311,10 +311,12 @@ def test_bf16_local_sgd_promotes_like_the_reference():
 
 @pytest.mark.gpu
 def test_flash_attention_bwd_cuda_matches_plain_on_card():
-    """The backward kernel against its plain version on the card: f32
-    within 2e-5 x max(1, max|plain|), bf16 elementwise within
-    ``bwd_bf16_limit`` of the float64 backward, GQA and not, causal and
-    not, Sq != Sk, a strided dO; repeated runs bit-equal (no atomics)."""
+    """The backward kernels against their plain version on the card: f32
+    within 2e-5 x max(1, max|plain|); bf16 elementwise against the float64
+    backward, within ``bwd_bf16_tc_limit`` on the tensor-core kernels (hd
+    <= 128) and ``bwd_bf16_limit`` on the CUDA-core ones (hd 256); GQA and
+    not, causal and not, Sq != Sk, the full width's heads at S = 256, a
+    strided dO; repeated runs bit-equal (no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
     dev = torch.device("cuda")
@@ -322,7 +324,8 @@ def test_flash_attention_bwd_cuda_matches_plain_on_card():
     for B, Sq, Sk, H, Hkv, hd, causal in [(3, 40, 40, 6, 2, 16, True),
                                           (2, 70, 70, 4, 4, 64, False),
                                           (1, 33, 50, 4, 2, 128, True),
-                                          (1, 65, 65, 2, 1, 256, True)]:
+                                          (1, 65, 65, 2, 1, 256, True),
+                                          (2, 256, 256, 24, 8, 128, True)]:
         for dt in (torch.float32, torch.bfloat16):
             q, do = (torch.from_numpy(rng.standard_normal(
                 (B, Sq, H, hd)).astype(np.float32)).to(dev, dt)
@@ -348,7 +351,9 @@ def test_flash_attention_bwd_cuda_matches_plain_on_card():
                 q, k, v, o, do, lse, causal, dtype=torch.float64,
                 absolute=True)
             G = H // Hkv
+            limit = (tfa.bwd_bf16_tc_limit if tfa.bwd_route(dt, hd) == "tc"
+                     else tfa.bwd_bf16_limit)
             for a, r, ab, n in zip(got, ref, absref, (Sk, G * Sq, G * Sq)):
                 assert a.dtype == dt
-                lim = tfa.bwd_bf16_limit(r, ab, n, hd)
+                lim = limit(r, ab, n, hd)
                 assert bool(((a.double() - r).abs() <= lim).all())
