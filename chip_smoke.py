@@ -21,9 +21,18 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    the ``grouped_matmul`` mask (also through its split-K
    second pass) and bf16 promotion, ``flash_attention`` in f32
    (CUDA-core kernel) and bf16 (tensor-core kernel, with the worst
-   element's share of its limit) at the serve shape, the reference tests'
-   shapes and Sq != Sk, and bit-identical repeated runs of the reducing
-   kernels;
+   element's share of its limit) at the serve prefill shapes of
+   ``phi4-mini-3.8b``, ``codeqwen1.5-7b`` and ``minitron-8b``
+   (``FA_SERVE_SHAPES``), the reference tests' shapes and Sq != Sk, and
+   bit-identical repeated runs of the reducing
+   kernels; ``flash_attention`` with a sliding window at
+   ``FA_WINDOW_SHAPES`` (the long-context shape (1, 16384, 24/8, 128) with
+   window 8,192, the full-width (2, 2048, 24/8, 128) with 512, the
+   windowed fed-lm run's wave (32, 16, 2/2, 8) with 8, windows below a
+   tile and off 64, Sq != Sk, MHA, hd 256, causal=False, rows that see no
+   key) against the plain version one kv head at a time, f32 and
+   bf16 (each bf16 case's share of ``bf16_limit`` and of its 2^-9 form),
+   repeats bit-equal, and a window of at least Sk bit-equal to none;
 4. kernel timing: CUDA events around each launch (L2 flushed before each),
    kernel / plain version / one-call library yardstick / computed bound,
    the kernel's share of its bound and its ratio to the library call;
@@ -31,7 +40,10 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    one-leaf calls, and a wave of 8, and its probe (the hashing without
    the loads, the SM clock and the blocks' span, other grids); for the
    kernels redesigned for Hopper their registers and shared memory
-   (ptxas) and ``grouped_matmul``'s split count and blocks;
+   (ptxas) and ``grouped_matmul``'s split count and blocks; the windowed
+   forward at the long-context shape beside the unwindowed kernel on the
+   same inputs, the band's bound and its pair ratio (0.75), and SDPA with
+   the band as a boolean mask;
 5. golden: every async policy's run on the golden world reproduces
    ``tests/golden/<policy>.json`` on the card (fedpsa, fedbuff, fedasync,
    ca2fl, fedfa, fedpac, asyncfeded), and asyncfeded's cosine and sketch
@@ -115,7 +127,13 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    B = 8, prompt 2,048 and 32 generated tokens: ``flash_attention``
    launched exactly 32 times per prefill and 0 times per decode step,
    decode's logits at position S against a prefill of S + 1 tokens, the
-   prefill's seconds, decode tokens/s and peak device memory;
+   prefill's seconds, decode tokens/s and peak device memory; then the
+   same checks and a counted run for ``phi4-mini-3.8b``'s long-context
+   variant (window 8,192; B = 1, a prompt of 16,384, so prefill rolls the
+   prompt's tail into the 8,192-slot ring, and 32 tokens through it:
+   ``serve.generate`` on ``cfg.for_long_context()``) and for
+   ``codeqwen1.5-7b`` and ``minitron-8b`` at B = 8, prompt 2,048, gen 32,
+   each through ``serve.main``;
 9b. ``[fed-lm]``, federated LM fine-tuning on the dense family (after the
    serve runs, before the profiles): the attention backward kernel
    (``flash_attention_bwd``) against its plain version in f32 at the golden
@@ -138,7 +156,16 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    forward and 32 backward attention launches a step and nothing else, a
    finite delta, the two runs bit-equal, seconds a step, peak memory and
    (second run, profiled) the device's busy share and the tensor-core
-   backward kernels once each a backward call.
+   backward kernels once each a backward call. With a window: the
+   backward at ``FEDLM_BWD_WINDOW`` (the tensor-core kernels at the
+   long-context and full-width shapes and at edges against float64, the
+   CUDA-core ones in f32, at the windowed fed-lm run's wave shape
+   included, and at hd 256), its time at the long-context
+   shape beside the unwindowed backward and SDPA's with the mask, and
+   ``fed-lm-smoke`` with a window of 8, fedasync and fedpsa on
+   cohort/grouped, against the reference's digests in
+   ``tests/torch_fixtures/fed_lm_window8_digests.json`` with exact launch
+   counts.
 
 Then it prints one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a card it exits non-zero
@@ -205,6 +232,10 @@ GM_EDGE_SHAPES = ((1, 8, 16, 16), (3, 130, 200, 96), (5, 1, 7, 3),
 # prompt 2,048) as (B, Sq, Sk, H, Hkv, hd, causal), then
 # tests/test_flash_attention.py's shapes and a top-left causal Sq != Sk
 FA_SERVE = (8, 2048, 2048, 24, 8, 128, True)
+# the prefill shapes of the other two serve runs at B = 8, prompt 2,048:
+# codeqwen1.5-7b (MHA, 32/32) and minitron-8b (32/8)
+FA_SERVE_SHAPES = (FA_SERVE, (8, 2048, 2048, 32, 32, 128, True),
+                   (8, 2048, 2048, 32, 8, 128, True))
 FA_EDGE_SHAPES = ((2, 64, 64, 4, 2, 16, True), (1, 128, 128, 8, 8, 32, True),
                   (2, 64, 64, 4, 1, 16, False), (1, 100, 100, 2, 2, 8, True),
                   (1, 33, 33, 4, 2, 64, False), (2, 40, 72, 6, 2, 32, True),
@@ -214,6 +245,32 @@ FA_EDGE_SHAPES = ((2, 64, 64, 4, 2, 16, True), (1, 128, 128, 8, 8, 32, True),
 # exact in f32, so the matrix unit with f32 accumulation does the same work)
 BF16_TC_FLOPS_PER_S = 989e12
 SERVE = dict(arch="phi4-mini-3.8b", batch=8, prompt=2048, gen=32, seed=0)
+# the serve path's other runs: phi4-mini-3.8b's long-context variant
+# (window 8,192; a prompt of twice the window, so prefill rolls the prompt's
+# tail into the ring, and 32 tokens decoded through the ring) and the two
+# other dense configs that fit the card, at the serve shape
+SERVE_LONG = dict(arch="phi4-mini-3.8b", batch=1, prompt=16384, gen=32,
+                  seed=0, long_context=True)
+SERVE_MORE = tuple(dict(SERVE, arch=a) for a in ("codeqwen1.5-7b",
+                                                 "minitron-8b"))
+# sliding-window attention as (B, Sq, Sk, H, Hkv, hd, causal, window): the
+# long-context prefill's shape and the full-width training shape with a
+# window of 512, and the windowed fed-lm run's wave (fed-lm-smoke, 32
+# sequences of 16, 2/2 heads of 8, window 8); then windows below a tile
+# and not a multiple of 64, Sq < Sk
+# and Sq > Sk, MHA (32/32), hd 256, causal=False, and causal=False with rows
+# that see no key (Sq >= Sk + window: the mean of v, as the reference)
+FA_WINDOW = (1, 16384, 16384, 24, 8, 128, True, 8192)
+FA_WINDOW_SHAPES = (FA_WINDOW, (2, 2048, 2048, 24, 8, 128, True, 512),
+                    (32, 16, 16, 2, 2, 8, True, 8),
+                    (2, 300, 300, 8, 2, 64, True, 17),
+                    (2, 300, 300, 8, 2, 64, True, 200),
+                    (2, 200, 320, 6, 2, 64, True, 100),
+                    (2, 320, 200, 6, 2, 128, True, 150),
+                    (1, 1024, 1024, 32, 32, 128, True, 300),
+                    (1, 300, 300, 4, 2, 256, True, 77),
+                    (2, 333, 333, 6, 3, 128, False, 129),
+                    (1, 400, 200, 4, 2, 64, False, 50))
 # decode logits at position S vs the last logits of a prefill of S + 1
 # tokens, in bf16 through 32 layers: max |diff| <= SERVE_TOL * max |prefill|
 SERVE_TOL = 5e-2
@@ -364,6 +421,7 @@ def phase_parity(torch, dev):
     errs["grouped_matmul"] = _parity_grouped(torch, dev, rng)
     (errs["flash_attention"], errs["flash_attention_bf16"],
      errs["flash_attention_bf16_share"]) = _parity_flash(torch, dev, rng)
+    errs["flash_attention_window"] = _parity_flash_window(torch, dev, rng)
     return errs
 
 
@@ -564,8 +622,9 @@ def _parity_grouped(torch, dev, rng) -> float:
 
 def _parity_flash(torch, dev, rng) -> tuple:
     """flash_attention vs its plain version (materialised f32 softmax) at
-    the serve shape and the edge shapes, f32 and bf16, and bit-identical
-    repeated runs at the serve shape. Tolerances: f32 max|err| <= 2e-5 *
+    the serve prefill shapes (``FA_SERVE_SHAPES``: phi4-mini-3.8b,
+    codeqwen1.5-7b, minitron-8b) and the edge shapes, f32 and bf16, and
+    bit-identical repeated runs at the serve shapes. Tolerances: f32 max|err| <= 2e-5 *
     max(1, max|plain|) (online vs materialised softmax, rounding only);
     bf16 elementwise within the kernel module's ``bf16_limit`` (p rounded
     to bf16 before PV, then one output rounding; derived there).
@@ -574,7 +633,7 @@ def _parity_flash(torch, dev, rng) -> tuple:
     from repro_torch.kernels import flash_attention as fa
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_share = 0.0
-    for B, Sq, Sk, H, Hkv, hd, causal in (FA_SERVE,) + FA_EDGE_SHAPES:
+    for B, Sq, Sk, H, Hkv, hd, causal in FA_SERVE_SHAPES + FA_EDGE_SHAPES:
         q = _rand(torch, rng, (B, Sq, H, hd), dev)
         k = _rand(torch, rng, (B, Sk, Hkv, hd), dev)
         v = _rand(torch, rng, (B, Sk, Hkv, hd), dev)
@@ -594,9 +653,11 @@ def _parity_flash(torch, dev, rng) -> tuple:
                 what = f"tol={tol:.3e}"
             else:
                 share = float((diff / fa.bf16_limit(want, c)).max())
+                old = float((diff / _bf16_limit_2m9(torch, want, c)).max())
                 worst_share = max(worst_share, share)
                 what = (f"limit {fa.BF16_LIMIT}, worst element at "
-                        f"{share:.3f} of it")
+                        f"{share:.3f} of it, {old:.3f} of it with 2^-9 for "
+                        f"p's rounding")
             log(f"[parity] flash_attention B={B} Sq={Sq} Sk={Sk} H={H} "
                 f"Hkv={Hkv} hd={hd} causal={causal} {str(dt)[6:]} "
                 f"max|err|={err:.3e} {what}")
@@ -605,15 +666,105 @@ def _parity_flash(torch, dev, rng) -> tuple:
                                      f" {dt}: max|err| {err}, {share} of limit")
             del diff
             worst[dt] = max(worst[dt], err)
-            if (B, Sq, Sk, H, Hkv, hd, causal) == FA_SERVE:
+            if (B, Sq, Sk, H, Hkv, hd, causal) in FA_SERVE_SHAPES:
                 if not torch.equal(got, fa.flash_attention(a, b, c,
                                                            causal=causal)):
                     raise AssertionError("flash_attention is not bit-identical"
                                          " across runs")
-                log(f"[parity] flash_attention serve shape {str(dt)[6:]} "
-                    f"repeated runs bit-identical")
+                log(f"[parity] flash_attention serve shape H={H} Hkv={Hkv} "
+                    f"{str(dt)[6:]} repeated runs bit-identical")
             del got, want
     return worst[torch.float32], worst[torch.bfloat16], worst_share
+
+
+def _plain_by_kv(torch, fa, q, k, v, causal: bool, window):
+    """flash_attention_plain one kv head (with its group of query heads) at
+    a time, concatenated: the same function, with one group's scores alive
+    at once (the long-context shape's would take 26 GB at once)."""
+    G = q.shape[2] // k.shape[2]
+    return torch.cat([fa.flash_attention_plain(
+        q[:, :, h * G:(h + 1) * G], k[:, :, h:h + 1], v[:, :, h:h + 1],
+        causal=causal, window=window) for h in range(k.shape[2])], dim=2)
+
+
+def _bf16_limit_2m9(torch, plain, v):
+    """``bf16_limit`` as first stated, charging p's rounding to bf16 at
+    2^-9 max|v|, where bf16's 8 significant bits give 2^-8 (printed beside
+    the restated limit)."""
+    vmax = v.float().abs().amax(dim=(1, 3))
+    vmax = torch.repeat_interleave(vmax, plain.shape[2] // v.shape[2], dim=1)
+    return (2.0 ** -7 * plain.float().abs()
+            + 2.0 ** -9 * vmax[:, None, :, None] + 1e-4)
+
+
+def _parity_flash_window(torch, dev, rng) -> dict:
+    """The windowed forward kernels against the plain version (computed one
+    kv head at a time) at ``FA_WINDOW_SHAPES``, f32 (CUDA-core kernel, 2e-5
+    x max(1, max|plain|)) and bf16 (tensor-core kernel, ``bf16_limit``; each
+    case's worst share printed under the restated limit and under the 2^-9
+    one); repeated runs bit-equal; a window of at least Sk bit-equal to no
+    window, also at the serve shape. Returns the worst errors and shares."""
+    from repro_torch.kernels import flash_attention as fa
+    out = {"f32": 0.0, "bf16": 0.0, "bf16_share": 0.0, "bf16_share_2m9": 0.0}
+    for B, Sq, Sk, H, Hkv, hd, causal, W in FA_WINDOW_SHAPES:
+        q = _rand(torch, rng, (B, Sq, H, hd), dev)
+        k = _rand(torch, rng, (B, Sk, Hkv, hd), dev)
+        v = _rand(torch, rng, (B, Sk, Hkv, hd), dev)
+        empty = fa.has_empty_rows(Sq, Sk, W)
+        for dt in (torch.float32, torch.bfloat16):
+            a, b, c = q.to(dt), k.to(dt), v.to(dt)
+            got = fa.flash_attention(a, b, c, causal=causal, window=W)
+            again = fa.flash_attention(a, b, c, causal=causal, window=W)
+            want = _plain_by_kv(torch, fa, a, b, c, causal, W)
+            torch.cuda.synchronize()
+            same = torch.equal(got, again)
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            what = (f"B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} hd={hd} "
+                    f"causal={causal} window={W} {str(dt)[6:]}"
+                    + (" (rows from Sk + window - 1 see no key)" if empty
+                       else ""))
+            if dt == torch.float32:
+                tol = 2e-5 * max(1.0, float(want.float().abs().max()))
+                share = err / tol
+                note = f"tol={tol:.3e} ({share:.3f} of it)"
+                out["f32"] = max(out["f32"], err)
+            else:
+                share = float((diff / fa.bf16_limit(want, c)).max())
+                old = float((diff / _bf16_limit_2m9(torch, want, c)).max())
+                note = (f"worst element at {share:.3f} of bf16_limit "
+                        f"({fa.BF16_LIMIT}), {old:.3f} of it with 2^-9 for "
+                        f"p's rounding")
+                out["bf16"] = max(out["bf16"], err)
+                out["bf16_share"] = max(out["bf16_share"], share)
+                out["bf16_share_2m9"] = max(out["bf16_share_2m9"], old)
+            log(f"[parity] flash_attention window {what}: max|err|={err:.3e} "
+                f"{note}; repeat bit-equal {same}")
+            if not (share <= 1.0 and same and got.dtype == dt
+                    and got.shape == want.shape):
+                raise AssertionError(f"flash_attention window {what}: "
+                                     f"max|err| {err}, {share} of its limit, "
+                                     f"repeat bit-equal {same}")
+            del got, again, want, diff
+    # a window of at least Sk masks nothing: the same bits as no window
+    for B, Sq, Sk, H, Hkv, hd, causal in (FA_SERVE, FA_EDGE_SHAPES[5],
+                                          FA_EDGE_SHAPES[4]):
+        q = _rand(torch, rng, (B, Sq, H, hd), dev)
+        k = _rand(torch, rng, (B, Sk, Hkv, hd), dev)
+        v = _rand(torch, rng, (B, Sk, Hkv, hd), dev)
+        for dt in (torch.float32, torch.bfloat16):
+            a, b, c = q.to(dt), k.to(dt), v.to(dt)
+            free = fa.flash_attention(a, b, c, causal=causal)
+            for W in (max(Sq, Sk), 10 ** 9):
+                if not torch.equal(free, fa.flash_attention(
+                        a, b, c, causal=causal, window=W)):
+                    raise AssertionError(
+                        f"flash_attention {(B, Sq, Sk, H, Hkv, hd, causal)} "
+                        f"{dt}: window {W} >= Sk differs from no window")
+        log(f"[parity] flash_attention B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} "
+            f"hd={hd} causal={causal}: window max(Sq, Sk) and 1e9 bit-equal "
+            f"to no window, f32 and bf16")
+    return out
 
 
 # cycles the card spins (torch.cuda._sleep) before a launch timed with
@@ -703,6 +854,7 @@ def phase_timing(torch, dev):
     out["grouped_matmul"]["cases"] = [
         dict(r) for k, r in out.items() if k.startswith("grouped_matmul_")]
     out["flash_attention"] = _time_flash(torch, dev, rng, flush)
+    out["flash_attention_window"] = _time_flash_window(torch, dev, rng, flush)
     rows = [(name, r) for name, r in out.items()] + \
         [("sens_sketch", c) for c in out["sens_sketch"]["cases"]]
     for name, r in rows:
@@ -852,6 +1004,85 @@ def _ptxas(lib: str, needle: str) -> str:
 def _causal_pairs(Sq: int, Sk: int) -> int:
     """Unmasked (query, key) pairs of top-left causal attention."""
     return sum(min(i + 1, Sk) for i in range(Sq))
+
+
+def _band_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """(query, key) pairs inside the band: j <= i under ``causal``, j > i -
+    window with a window (``_causal_pairs`` when causal with no window)."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def _sdpa_or_none(torch, fn, iters: int, flush):
+    """``_time_ms`` of a library yardstick, or (None, why) when PyTorch has
+    no kernel for it or runs out of memory (it is never on the port's
+    path)."""
+    try:
+        return _time_ms(torch, fn, iters, flush), None
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+        torch.cuda.empty_cache()
+        return None, str(e).splitlines()[0][:160]
+
+
+def _time_flash_window(torch, dev, rng, flush) -> dict:
+    """The windowed forward at the long-context shape ``FA_WINDOW`` in bf16
+    (the tensor-core kernel): kernel, the unwindowed causal kernel on the
+    same inputs, the plain version (one kv head at a time), and
+    F.scaled_dot_product_attention with the band as a boolean mask (k and v
+    repeated to the query heads, so that its memory-efficient kernel can
+    take the mask; a yardstick the port never calls). Bound: the band's
+    pairs x 4 hd FLOP at the bf16 tensor-core peak, or q, k, v, o moved
+    once; the unwindowed kernel's beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, H, Hkv, hd, causal, W = FA_WINDOW
+    dt = torch.bfloat16
+    q = _rand(torch, rng, (B, Sq, H, hd), dev).to(dt)
+    k = _rand(torch, rng, (B, Sk, Hkv, hd), dev).to(dt)
+    v = _rand(torch, rng, (B, Sk, Hkv, hd), dev).to(dt)
+    pairs = _band_pairs(Sq, Sk, causal, W)
+    full_pairs = _band_pairs(Sq, Sk, causal, None)
+    bytes_ = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    o_ms = B * H * pairs * 4 * hd / BF16_TC_FLOPS_PER_S * 1e3
+    full_o_ms = B * H * full_pairs * 4 * hd / BF16_TC_FLOPS_PER_S * 1e3
+    G = H // Hkv
+    qt = q.transpose(1, 2)
+    kt, vt = (torch.repeat_interleave(x, G, dim=2).transpose(1, 2)
+              for x in (k, v))
+    mask = fa.band_mask(Sq, Sk, causal, W, dev)
+    lib_ms, why = _sdpa_or_none(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), 10, flush)
+    r = dict(
+        shape=f"B={B} S={Sq} H={H} Hkv={Hkv} hd={hd} causal window={W} bf16",
+        ms=_time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                      window=W), 20, flush),
+        unwindowed_ms=_time_ms(torch, lambda: fa.flash_attention(
+            q, k, v, causal=causal), 20, flush),
+        plain_ms=_time_ms(torch, lambda: _plain_by_kv(torch, fa, q, k, v,
+                                                      causal, W), 3, flush),
+        library_ms=lib_ms,
+        library_note=(f"SDPA with the band's boolean mask: {why}" if why
+                      else "SDPA with the band's boolean mask"),
+        bound_ms=max(o_ms, b_ms),
+        bound_by="operations" if o_ms >= b_ms else "bytes",
+        unwindowed_bound_ms=max(full_o_ms, b_ms), pairs=B * H * pairs,
+        unwindowed_pairs=B * H * full_pairs, pair_ratio=pairs / full_pairs)
+    r["time_ratio"] = r["ms"] / r["unwindowed_ms"]
+    log(f"[timing] flash_attention window: {pairs / 1e6:.2f} M band pairs a "
+        f"(b, h) against {full_pairs / 1e6:.2f} M unwindowed (ratio "
+        f"{r['pair_ratio']:.4f}); windowed {r['ms'] * 1e3:.1f}us, unwindowed "
+        f"causal {r['unwindowed_ms'] * 1e3:.1f}us (time ratio "
+        f"{r['time_ratio']:.4f}); bounds {r['bound_ms'] * 1e3:.1f}us and "
+        f"{r['unwindowed_bound_ms'] * 1e3:.1f}us at the bf16 tensor-core "
+        f"peak ({100 * r['bound_ms'] / r['ms']:.2f}% and "
+        f"{100 * r['unwindowed_bound_ms'] / r['unwindowed_ms']:.2f}% of "
+        f"them); {r['library_note']}"
+        + ("" if lib_ms is None else f" {lib_ms * 1e3:.1f}us"))
+    del q, k, v, qt, kt, vt, mask
+    return r
 
 
 def _time_flash(torch, dev, rng, flush) -> dict:
@@ -2916,58 +3147,76 @@ def phase_profile(torch):
         _profile_run(torch, engine)
 
 
-def _serve_world(torch, dev):
-    """phi4-mini-3.8b at full width, random init on the card, and SERVE's
-    prompts plus one more token each (for the decode check)."""
+def _serve_config(spec: dict):
     from repro_torch.configs import get_config
+    cfg = get_config(spec["arch"])
+    return cfg.for_long_context() if spec.get("long_context") else cfg
+
+
+def _serve_world(torch, dev, spec: dict = SERVE):
+    """``spec``'s model at full width (phi4-mini-3.8b by default; its
+    sliding-window variant with ``long_context``), random init on the card,
+    and the spec's prompts plus one more token each (for the decode
+    check)."""
     from repro_torch.models import model as M
-    cfg = get_config(SERVE["arch"])
-    gen = torch.Generator(device=dev).manual_seed(SERVE["seed"])
+    cfg = _serve_config(spec)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
     params = M.init_params(gen, cfg, dev)
-    toks = torch.randint(0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt"] + 1),
-                         generator=torch.Generator().manual_seed(SERVE["seed"]))
+    toks = torch.randint(0, cfg.vocab_size, (spec["batch"], spec["prompt"] + 1),
+                         generator=torch.Generator().manual_seed(spec["seed"]))
     return cfg, params, toks.to(dev)
 
 
-def phase_serve_checks(torch, dev):
-    """On the serve world, outside the counted main path: flash_attention
-    launches per prefill (one per layer) and per decode step (none); decode's
-    logits at position S against the last logits of a prefill of S + 1
-    tokens."""
+def phase_serve_checks(torch, dev, spec: dict = SERVE):
+    """On the serve world of ``spec``, outside the counted main path:
+    flash_attention launches per prefill (one per layer) and per decode
+    step (none); decode's logits at position S against the last logits of a
+    prefill of S + 1 tokens (with a window, the cache is a ring of
+    ``window`` slots that the prefill of S tokens filled by rolling the
+    prompt's tail, and both sides attend over the window)."""
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
-    cfg, params, toks = _serve_world(torch, dev)
-    S, V = SERVE["prompt"], cfg.vocab_size
+    cfg, params, toks = _serve_world(torch, dev, spec)
+    S, V = spec["prompt"], cfg.vocab_size
     with torch.no_grad():
         ops.reset_launch_counts()
         cache, _ = M.prefill(params, {"tokens": toks[:, :S]}, cfg, max_len=S + 1)
         per_prefill = ops.launch_counts()
+        slots = cache["p0"]["k"].shape[2]
         ops.reset_launch_counts()
         _, dec = M.decode_step(params, cache, toks[:, S:], S, cfg)
         per_decode = ops.launch_counts()
         del cache
         _, pre = M.prefill(params, {"tokens": toks}, cfg)
     torch.cuda.synchronize()
+    del params
     want_pre = {k: (cfg.num_layers if k == "flash_attention" else 0)
                 for k in per_prefill}
-    if per_prefill != want_pre or any(per_decode.values()):
-        raise AssertionError(f"serve launches per prefill {per_prefill} (want "
-                             f"{want_pre}), per decode step {per_decode}")
+    want_slots = (S + 1 if cfg.sliding_window is None
+                  else min(cfg.sliding_window, S + 1))
+    if per_prefill != want_pre or any(per_decode.values()) \
+            or slots != want_slots:
+        raise AssertionError(f"{cfg.name} serve launches per prefill "
+                             f"{per_prefill} (want {want_pre}), per decode "
+                             f"step {per_decode}, cache slots {slots} (want "
+                             f"{want_slots})")
     dec, pre = dec[:, 0, :V].float(), pre[:, :V].float()
     if not (bool(torch.isfinite(dec).all()) and bool(torch.isfinite(pre).all())):
         raise AssertionError("serve logits are not finite")
     err, big = float((dec - pre).abs().max()), float(pre.abs().max())
     agree = float((dec.argmax(-1) == pre.argmax(-1)).float().mean())
-    log(f"[serve] launches per prefill {per_prefill}, per decode step "
-        f"{per_decode}")
-    log(f"[serve] decode logits at position {S} vs prefill of {S + 1} tokens: "
-        f"max|diff|={err:.4e} max|prefill|={big:.4e} tol={SERVE_TOL * big:.4e} "
-        f"greedy agreement {agree:.3f}")
+    what = (f"{cfg.name} B={spec['batch']} prompt={S}"
+            + (f" window={cfg.sliding_window}" if cfg.sliding_window else ""))
+    log(f"[serve] {what}: launches per prefill {per_prefill}, per decode "
+        f"step {per_decode}; cache {slots} slots")
+    log(f"[serve] {what}: decode logits at position {S} vs prefill of "
+        f"{S + 1} tokens: max|diff|={err:.4e} max|prefill|={big:.4e} "
+        f"tol={SERVE_TOL * big:.4e} greedy agreement {agree:.3f}")
     if not err <= SERVE_TOL * big:
-        raise AssertionError(f"serve decode vs prefill: {err} > "
+        raise AssertionError(f"{what} serve decode vs prefill: {err} > "
                              f"{SERVE_TOL} * {big}")
     return {"decode_vs_prefill_max_abs": err, "prefill_max_abs": big,
-            "greedy_agreement": agree}
+            "greedy_agreement": agree, "cache_slots": slots}
 
 
 def phase_profile_serve(torch, dev):
@@ -3018,49 +3267,97 @@ def phase_profile_serve(torch, dev):
         f"the profiler sessions, {1e3 * after:.2f} ms/step after them")
 
 
-def phase_serve(torch, dev, smi: str):
-    """The serve main path as a user runs it: ``python -m
-    repro_torch.launch.serve --arch phi4-mini-3.8b --batch 8 --prompt-len
-    2048 --gen 32`` (its ``main``), with the kernel counts set to 0 just
-    before and read just after. One prefill: flash_attention once per
-    layer; decode steps launch none."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
-    cfg = get_config(SERVE["arch"])
+def _free_card(torch) -> None:
     gc.collect()   # earlier phases' tensors in reference cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+
+
+def phase_serve(torch, dev, smi: str, spec: dict = SERVE) -> tuple:
+    """The serve main path as a user runs it: ``python -m
+    repro_torch.launch.serve --arch phi4-mini-3.8b --batch 8 --prompt-len
+    2048 --gen 32`` (its ``main``; ``spec`` names another arch or shape;
+    a ``long_context`` spec calls ``serve.generate`` on
+    ``cfg.for_long_context()`` with ``main``'s init and prompts), with the
+    kernel counts set to 0 just before and
+    read just after. One prefill: flash_attention once per layer; decode
+    steps launch none. Returns (counts, stats); the peak memory includes
+    the random init."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = _serve_config(spec)
+    _free_card(torch)
     live = torch.cuda.memory_allocated()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = serve.main(["--arch", SERVE["arch"], "--batch", str(SERVE["batch"]),
-                      "--prompt-len", str(SERVE["prompt"]),
-                      "--gen", str(SERVE["gen"]), "--seed", str(SERVE["seed"]),
-                      "--device", str(dev)])
+    if spec.get("long_context"):
+        # the CLI serves the registered configs; their long-context variant
+        # goes through the same ``generate`` with the CLI's init and prompts
+        from repro_torch.models import model as M
+        params = M.init_params(
+            torch.Generator(device=dev).manual_seed(spec["seed"]), cfg, dev)
+        prompts = torch.randint(
+            0, cfg.vocab_size, (spec["batch"], spec["prompt"]),
+            generator=torch.Generator().manual_seed(spec["seed"]))
+        res = serve.generate(params, cfg, prompts.to(dev), spec["gen"])
+        del params
+    else:
+        res = serve.main(["--arch", spec["arch"], "--batch",
+                          str(spec["batch"]), "--prompt-len",
+                          str(spec["prompt"]), "--gen", str(spec["gen"]),
+                          "--seed", str(spec["seed"]), "--device", str(dev)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     want = {k: (cfg.num_layers if k == "flash_attention" else 0) for k in counts}
-    if counts != want:
-        raise AssertionError(f"serve main path launches {counts} != {want}")
     tok = res["tokens"]
-    if tuple(tok.shape) != (SERVE["batch"], SERVE["gen"]) or \
-            int(tok.min()) < 0 or int(tok.max()) >= cfg.vocab_size:
-        raise AssertionError(f"serve tokens {tuple(tok.shape)} out of range")
     peak = torch.cuda.max_memory_allocated()
-    log(f"[serve] {cfg.name} B={SERVE['batch']} prompt={SERVE['prompt']} "
-        f"gen={SERVE['gen']}: prefill {res['prefill_s']:.4f}s "
-        f"({SERVE['batch'] * SERVE['prompt'] / res['prefill_s']:.0f} tok/s), "
+    what = (f"{cfg.name} B={spec['batch']} prompt={spec['prompt']} "
+            f"gen={spec['gen']}"
+            + (f" window={cfg.sliding_window}" if cfg.sliding_window else ""))
+    log(f"[serve] {what}: prefill {res['prefill_s']:.4f}s "
+        f"({spec['batch'] * spec['prompt'] / res['prefill_s']:.0f} tok/s), "
         f"{res['decode_steps']} decode steps {res['decode_s']:.4f}s "
         f"({res['decode_tok_s']:.1f} tok/s, "
         f"{1e3 * res['decode_s'] / res['decode_steps']:.2f} ms/step), "
         f"wall incl. init {wall:.2f}s, peak device memory "
-        f"{peak / 2**30:.2f} GiB ({live / 2**30:.2f} GiB live at the start), "
-        f"launches={counts} on {smi}")
+        f"{peak / 2**30:.2f} GiB "
+        f"({live / 2**30:.2f} GiB live at the start), launches={counts} on "
+        f"{smi}")
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts} != {want}")
+    if tuple(tok.shape) != (spec["batch"], spec["gen"]) or \
+            int(tok.min()) < 0 or int(tok.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{what}: tokens {tuple(tok.shape)} out of range")
     return counts, {"prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
-                    "decode_tok_s": res["decode_tok_s"], "peak_bytes": peak}
+                    "decode_ms_per_step": 1e3 * res["decode_s"]
+                    / res["decode_steps"], "decode_tok_s": res["decode_tok_s"],
+                    "peak_bytes": peak}
+
+
+def phase_serve_more(torch, dev, smi: str) -> tuple:
+    """The serve path's other runs (after phase 9): phi4-mini-3.8b's
+    long-context variant (``SERVE_LONG``: B = 1, a prompt of 16,384, twice
+    the window, 32 tokens through the ring) and ``codeqwen1.5-7b`` and
+    ``minitron-8b`` at the serve shape, each on random bf16 weights: the
+    checks of ``phase_serve_checks`` (launches per prefill and decode step,
+    cache slots, decode vs prefill logits), then the counted run
+    (``phase_serve``), each model freed before the next. Returns (counts by
+    path, stats by path)."""
+    t0 = time.perf_counter()
+    paths, stats = {}, {}
+    for spec in (SERVE_LONG,) + SERVE_MORE:
+        key = "serve-long-context" if spec.get("long_context") \
+            else f"serve-{spec['arch']}"
+        _free_card(torch)
+        check = phase_serve_checks(torch, dev, spec)
+        paths[key], st = phase_serve(torch, dev, smi, spec)
+        stats[key] = {**st, **check}
+    _free_card(torch)
+    log(f"[serve] long-context and new-config runs "
+        f"{time.perf_counter() - t0:.1f}s")
+    return paths, stats
 
 
 # ---------------------------------------------------------------------------
@@ -3096,6 +3393,26 @@ FEDLM_BWD_EDGES = ((2, 64, 64, 4, 2, 16, True), (2, 70, 70, 4, 4, 64, False),
 # one epoch: 2 steps
 FULL_LM = dict(arch="phi4-mini-3.8b", seqs=4, seq=2048, batch=2, lr=1e-3,
                seed=0)
+# the windowed fed-lm run: fed-lm-smoke with a window of 8 on the golden's
+# world (sequences of 16 tokens), against the reference's digests
+FEDLM_WINDOW = 8
+# the windowed backward (B, Sq, Sk, H, Hkv, hd, causal, window, dtype): the
+# tensor-core kernels at the long-context and full-width shapes and at
+# edges (a window below a tile, Sq < Sk, causal=False, hd 80, MHA); the
+# CUDA-core kernels in f32 (the windowed fed-lm run's wave shape, window
+# 8, among them) and in bf16 at hd 256
+FEDLM_BWD_WINDOW = (FA_WINDOW + ("bfloat16",),
+                    (2, 2048, 2048, 24, 8, 128, True, 512, "bfloat16"),
+                    (2, 300, 300, 8, 2, 64, True, 17, "bfloat16"),
+                    (1, 200, 320, 6, 2, 128, True, 100, "bfloat16"),
+                    (2, 333, 333, 6, 3, 128, False, 129, "bfloat16"),
+                    (1, 300, 300, 4, 4, 80, True, 200, "bfloat16"),
+                    (32, 16, 16, 2, 2, 8, True, FEDLM_WINDOW, "float32"),
+                    (2, 300, 300, 4, 2, 64, True, 77, "float32"),
+                    (2, 200, 320, 4, 2, 32, False, 60, "float32"),
+                    (1, 200, 200, 2, 1, 256, True, 50, "bfloat16"))
+FEDLM_WINDOW_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures",
+                                    "fed_lm_window8_digests.json")
 
 
 def _fedlm_attn_inputs(torch, rng, dev, shape, dt):
@@ -3117,36 +3434,52 @@ def _fedlm_bwd_bound(shape) -> tuple:
             bytes_ / HBM_BYTES_PER_S * 1e3, flops, bytes_)
 
 
-def _bwd_check(torch, fa, q, k, v, o, do, lse, causal: bool) -> dict:
-    """One backward on the card against its plain version: f32 within 2e-5
-    x max(1, max|plain|); bf16 elementwise against the float64 backward of
-    the same inputs, within the limit of its route (``bwd_bf16_tc_limit``
-    on the tensor cores, ``bwd_bf16_limit`` on the CUDA cores; the former's
-    share of the latter printed as well). A second run with a strided dO
-    must give the same bits."""
+def _bwd_plain_by_kv(torch, fa, q, k, v, o, do, lse, causal: bool, window,
+                     **kw):
+    """flash_attention_bwd_plain one kv head (with its group of query
+    heads, whose dK and dV sums it holds) at a time: (dq, dk, dv)
+    concatenated over the heads, with one group's scores alive at once."""
+    G = q.shape[2] // k.shape[2]
+    parts = []
+    for h in range(k.shape[2]):
+        g = slice(h * G, (h + 1) * G)
+        parts.append(fa.flash_attention_bwd_plain(
+            q[:, :, g], k[:, :, h:h + 1], v[:, :, h:h + 1], o[:, :, g],
+            do[:, :, g], lse[:, g], causal, window=window, **kw))
+    return tuple(torch.cat([p[i] for p in parts], dim=2) for i in range(3))
+
+
+def _bwd_check(torch, fa, q, k, v, o, do, lse, causal: bool,
+               window=None) -> dict:
+    """One backward on the card against its plain version (one kv head at a
+    time): f32 within 2e-5 x max(1, max|plain|); bf16 elementwise against
+    the float64 backward of the same inputs, within the limit of its route
+    (``bwd_bf16_tc_limit`` on the tensor cores, ``bwd_bf16_limit`` on the
+    CUDA cores; the former's share of the latter printed as well). A second
+    run with a strided dO must give the same bits."""
     B, Sq, H, hd = q.shape
     Sk, G = k.shape[1], H // k.shape[2]
-    got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal, window)
     dos = do.transpose(1, 2).contiguous().transpose(1, 2)
-    again = fa.flash_attention_bwd(q, k, v, o, dos, lse, causal)
+    again = fa.flash_attention_bwd(q, k, v, o, dos, lse, causal, window)
     torch.cuda.synchronize()
     r = {"same": all(torch.equal(a, b) for a, b in zip(got, again)),
          "route": fa.bwd_route(q.dtype, hd),
          "finite": all(bool(torch.isfinite(a).all()) for a in got)}
-    plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
+    del again
+    plain = _bwd_plain_by_kv(torch, fa, q, k, v, o, do, lse, causal, window)
     r["errs"] = [float((a.float() - b.float()).abs().max())
                  for a, b in zip(got, plain)]
-    del plain
     if q.dtype == torch.float32:
-        tols = [2e-5 * max(1.0, float(b.abs().max())) for b in
-                fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal)]
+        tols = [2e-5 * max(1.0, float(b.abs().max())) for b in plain]
         r["share"] = max(e / t for e, t in zip(r["errs"], tols))
         r["note"] = f"tol 2e-5 x max(1, max|plain|): {r['share']:.3f} of it"
         return r
-    ref = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal,
-                                       dtype=torch.float64)
-    absref = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal,
-                                          dtype=torch.float64, absolute=True)
+    del plain
+    ref = _bwd_plain_by_kv(torch, fa, q, k, v, o, do, lse, causal, window,
+                           dtype=torch.float64)
+    absref = _bwd_plain_by_kv(torch, fa, q, k, v, o, do, lse, causal, window,
+                              dtype=torch.float64, absolute=True)
     gate = (fa.bwd_bf16_tc_limit if r["route"] == "tc"
             else fa.bwd_bf16_limit)
     shares, old, errs64 = [], [], []
@@ -3221,6 +3554,7 @@ def phase_fedlm_kernels(torch, dev) -> dict:
             raise AssertionError(f"flash_attention_bwd {what}: {r}")
         worst = max(worst, r["share"])
     out["edges_worst_share"] = worst
+    out["window"] = _fedlm_window_kernels(torch, dev, rng)
     # read from the runtime after the launches above set the attributes
     attrs = {hd: fa.bwd_tc_attributes(hd) for hd in (64, 128)}
     for hd, at in attrs.items():
@@ -3272,9 +3606,114 @@ def phase_fedlm_kernels(torch, dev) -> dict:
     if not r["ms"] < b32:
         raise AssertionError(f"tensor-core backward {r['ms']} ms is not below"
                              f" the fp32 CUDA-core bound {b32} ms")
-    del q, k, v, do, o, lse, qt, kt, vt, ot, dot, flush
+    del q, k, v, do, o, lse, qt, kt, vt, ot, dot
     out["timing"] = r
+    out["window_timing"] = _time_bwd_window(torch, dev, rng, flush)
     return out
+
+
+def _fedlm_window_kernels(torch, dev, rng) -> dict:
+    """The windowed backward at ``FEDLM_BWD_WINDOW`` through ``_bwd_check``
+    (each route's limit; repeats bit-equal), and the windowed forward's lse
+    against the plain forward's (2e-5 x max(1, max|lse|)). Returns the worst
+    share of each dtype's limit."""
+    from repro_torch.kernels import flash_attention as fa
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for B, Sq, Sk, H, Hkv, hd, causal, W, dts in FEDLM_BWD_WINDOW:
+        dt = getattr(torch, dts)
+        q, do = (_rand(torch, rng, (B, Sq, H, hd), dev).to(dt)
+                 for _ in range(2))
+        k, v = (_rand(torch, rng, (B, Sk, Hkv, hd), dev).to(dt)
+                for _ in range(2))
+        o, lse = fa._forward(q, k, v, causal, True, W)
+        G = H // Hkv
+        lse_p = torch.cat([fa._plain_forward(
+            q[:, :, h * G:(h + 1) * G], k[:, :, h:h + 1], v[:, :, h:h + 1],
+            causal, W)[1] for h in range(Hkv)], dim=1)
+        lse_err = float((lse - lse_p).abs().max())
+        lse_tol = 2e-5 * max(1.0, float(lse_p.abs().max()))
+        del lse_p
+        r = _bwd_check(torch, fa, q, k, v, o, do, lse, causal, W)
+        what = (f"B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} hd={hd} "
+                f"{'causal' if causal else 'full'} window={W} {dts}")
+        log(f"[fed-lm] flash_attention_bwd window {what} ({r['route']}): "
+            f"vs plain max|err| dq/dk/dv {r['errs'][0]:.3e}/"
+            f"{r['errs'][1]:.3e}/{r['errs'][2]:.3e}; {r['note']}; repeat "
+            f"(strided dO) bit-equal {r['same']}; forward lse max|err| "
+            f"{lse_err:.3e} (tol {lse_tol:.3e})")
+        if not (r["share"] <= 1.0 and r["same"] and r["finite"]
+                and lse_err <= lse_tol):
+            raise AssertionError(f"flash_attention_bwd window {what}: {r}, "
+                                 f"lse {lse_err}")
+        worst[dts] = max(worst[dts], r["share"])
+        del q, k, v, do, o, lse
+    return worst
+
+
+def _time_bwd_window(torch, dev, rng, flush) -> dict:
+    """The windowed backward at ``FA_WINDOW`` in bf16 (the tensor-core
+    kernels) beside the unwindowed causal backward on the same inputs, the
+    plain backward (one kv head at a time) and the autograd backward of
+    SDPA with the band as a boolean mask (k and v repeated to the query
+    heads); bound: five products of 2 hd FLOP per band pair at the bf16
+    tensor-core peak, or the bytes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, H, Hkv, hd, causal, W = FA_WINDOW
+    dt = torch.bfloat16
+    q, do = (_rand(torch, rng, (B, Sq, H, hd), dev).to(dt) for _ in range(2))
+    k, v = (_rand(torch, rng, (B, Sk, Hkv, hd), dev).to(dt) for _ in range(2))
+    o, lse = fa._forward(q, k, v, causal, True, W)
+    of, lsef = fa._forward(q, k, v, causal, True)
+    pairs = B * H * _band_pairs(Sq, Sk, causal, W)
+    full_pairs = B * H * _band_pairs(Sq, Sk, causal, None)
+    bytes_ = 2 * (4 * B * Sq * H * hd + 4 * B * Sk * Hkv * hd) + 4 * B * H * Sq
+    b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    o_ms, full_o_ms = (10 * hd * n / BF16_TC_FLOPS_PER_S * 1e3
+                       for n in (pairs, full_pairs))
+    G = H // Hkv
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt, vt = (torch.repeat_interleave(x, G, dim=2).transpose(1, 2).detach()
+              .requires_grad_(True) for x in (k, v))
+    mask = fa.band_mask(Sq, Sk, causal, W, dev)
+    try:
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        lib_ms, why = _sdpa_or_none(torch, lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 5,
+            flush)
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+        lib_ms, why = None, str(e).splitlines()[0][:160]
+    ot = None
+    torch.cuda.empty_cache()
+    r = dict(
+        shape=f"B={B} S={Sq} H={H} Hkv={Hkv} hd={hd} causal window={W} bf16",
+        ms=_time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, o, do, lse, causal, W), 10, flush),
+        unwindowed_ms=_time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, of, do, lsef, causal), 10, flush),
+        plain_ms=_time_ms(torch, lambda: _bwd_plain_by_kv(
+            torch, fa, q, k, v, o, do, lse, causal, W), 2, flush),
+        library_ms=lib_ms,
+        library_note=(f"SDPA backward with the band's boolean mask: {why}"
+                      if why else "SDPA backward with the band's boolean "
+                      "mask"),
+        bound_ms=max(o_ms, b_ms),
+        bound_by="operations" if o_ms >= b_ms else "bytes",
+        unwindowed_bound_ms=max(full_o_ms, b_ms), pairs=pairs,
+        unwindowed_pairs=full_pairs, pair_ratio=pairs / full_pairs)
+    r["time_ratio"] = r["ms"] / r["unwindowed_ms"]
+    log(f"[timing] flash_attention_bwd window {r['shape']}: windowed "
+        f"{r['ms'] * 1e3:.1f}us, unwindowed causal "
+        f"{r['unwindowed_ms'] * 1e3:.1f}us (time ratio {r['time_ratio']:.4f},"
+        f" pair ratio {r['pair_ratio']:.4f}), plain "
+        f"{r['plain_ms'] * 1e3:.1f}us; bounds {r['bound_ms'] * 1e3:.1f}us and "
+        f"{r['unwindowed_bound_ms'] * 1e3:.1f}us at the bf16 tensor-core peak "
+        f"({100 * r['bound_ms'] / r['ms']:.2f}% and "
+        f"{100 * r['unwindowed_bound_ms'] / r['unwindowed_ms']:.2f}% of "
+        f"them); {r['library_note']}"
+        + ("" if lib_ms is None else f" {lib_ms * 1e3:.1f}us"))
+    del q, k, v, do, o, lse, of, lsef, qt, kt, vt, mask
+    return r
 
 
 def _fedlm_world():
@@ -3403,6 +3842,58 @@ def phase_fedlm(torch, smi: str) -> dict:
         f"aulc={res.aulc:.4f} dispatches={res.dispatches} "
         f"local steps {res.local_steps}, {wall:.2f}s, launches={counts} on "
         f"{smi}")
+    return paths
+
+
+def phase_fedlm_window(torch, smi: str) -> dict:
+    """The fed-lm world with a sliding window of 8 (its sequences are 16
+    tokens, so the window bites): fedasync and fedpsa on the cohort engine
+    under ``member_kernel="grouped"`` against the reference's runs in
+    ``FEDLM_WINDOW_FIXTURE`` (RTOL/ATOL on the digests, accuracies within
+    2e-3, counters exact), with exact launch counts (``_fedlm_want``: every
+    attention launch is windowed). Returns launch counts by path."""
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated.simulator import SimConfig, run_algorithm
+    from repro_torch.kernels import ops
+    cfg, clients, test, calib, params = _fedlm_world()
+    cfg = dataclasses.replace(cfg, sliding_window=FEDLM_WINDOW)
+    with open(FEDLM_WINDOW_FIXTURE) as fh:
+        fixture = json.load(fh)
+    if fixture["sliding_window"] != FEDLM_WINDOW:
+        raise AssertionError(f"fixture window {fixture['sliding_window']}")
+    paths = {}
+    for name in FEDLM_POLICIES:
+        what = f"fed-lm window={FEDLM_WINDOW} {name} cohort/grouped"
+        kw = (dict(psa_cfg=PSAConfig(**GOLDEN_PSA), calib_batch=calib)
+              if name == "fedpsa" else {})
+        sim = SimConfig(engine="cohort", member_kernel="grouped",
+                        device="cuda", record_trajectory=True, **FEDLM_SIM)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_algorithm(name, cfg, params, clients, test, sim, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = fixture["policies"][name]
+        got, exp = np.asarray(res.digests), np.asarray(want["digests"])
+        if got.shape != exp.shape:
+            raise AssertionError(f"{what}: {got.shape} != {exp.shape}")
+        np.testing.assert_allclose(got, exp, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(res.accuracies, want["accuracies"],
+                                   atol=2e-3)
+        for key in ("versions", "dispatches", "dropped", "launched"):
+            if getattr(res, key) != want["final"][key]:
+                raise AssertionError(f"{what}: {key} {getattr(res, key)} != "
+                                     f"{want['final'][key]}")
+        want_counts = _fedlm_want(name, res, cfg, True)
+        if counts != want_counts:
+            raise AssertionError(f"{what}: launches {counts} != {want_counts}")
+        rel = float(np.max(np.abs(got - exp) / (np.abs(exp) + ATOL / RTOL)))
+        paths[f"fed-lm-window{FEDLM_WINDOW}-{name}-cohort-grouped"] = counts
+        log(f"[fed-lm] {what}: {len(got)} digests match the reference's "
+            f"(max rel {rel:.2e}), local steps {res.local_steps}, "
+            f"versions={res.versions} final={res.final_accuracy:.4f} "
+            f"{wall:.2f}s, launches={counts} on {smi}")
     return paths
 
 
@@ -3558,9 +4049,11 @@ def main() -> int:
     # state is live while they run
     serve_check = phase_serve_checks(torch, dev)
     serve_counts, serve_stats = phase_serve(torch, dev, smi)
+    serve_paths, serve_more = phase_serve_more(torch, dev, smi)
     t0 = time.perf_counter()
     fedlm_kern = phase_fedlm_kernels(torch, dev)
     fedlm_paths = phase_fedlm(torch, smi)
+    fedlm_paths.update(phase_fedlm_window(torch, smi))
     fedlm_full = phase_fedlm_full(torch, dev, smi)
     fedlm_paths["fed-lm-full-width"] = fedlm_full["launches"]
     by_path.update(fedlm_paths)
@@ -3597,16 +4090,23 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:74",
         "launches": serve_counts["flash_attention"],
         "launches_by_path": {"serve": serve_counts["flash_attention"]},
-        "max_abs_err": errs["flash_attention"],
-        "max_abs_err_bf16": errs["flash_attention_bf16"],
-        "bf16_worst_share_of_limit": errs["flash_attention_bf16_share"],
+        "max_abs_err": max(errs["flash_attention"],
+                           errs["flash_attention_window"]["f32"]),
+        "max_abs_err_bf16": max(errs["flash_attention_bf16"],
+                                errs["flash_attention_window"]["bf16"]),
+        "bf16_worst_share_of_limit": max(
+            errs["flash_attention_bf16_share"],
+            errs["flash_attention_window"]["bf16_share"]),
+        "window_parity": errs["flash_attention_window"],
         "tolerance": f"f32 2e-5 * max(1, max|plain|); bf16 elementwise "
                      f"{fa.BF16_LIMIT}",
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "shape": r["shape"], "design": r["design"]})
+        "shape": r["shape"], "design": r["design"],
+        "window": timing["flash_attention_window"]})
     kernels[-1]["launches_by_path"].update(
-        {p: c["flash_attention"] for p, c in fedlm_paths.items()})
+        {p: c["flash_attention"] for p, c in
+         {**serve_paths, **fedlm_paths}.items()})
     r = fedlm_kern["timing"]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
@@ -3622,6 +4122,7 @@ def main() -> int:
         "bf16_worst_share_of_limit": fedlm_kern["bf16"]["share"],
         "bf16_worst_share_of_cuda_core_limit": fedlm_kern["bf16"]["old_share"],
         "bf16_edges_worst_share": fedlm_kern["edges_worst_share"],
+        "window_worst_share": fedlm_kern["window"],
         "tensor_core_kernel_launches_full_width": fedlm_full["tc_kernels"],
         "tolerance": "f32 2e-5 * max(1, max|plain|); bf16 hd <= 128 (tensor "
                      "cores) elementwise vs float64 2^-8 |ref| + (2^-8 + (n + "
@@ -3631,8 +4132,9 @@ def main() -> int:
         "bound_by": r["bound_by"], "fp32_bound_ms": r["fp32_bound_ms"],
         "cuda_core_ms": r["cuda_core_ms"],
         "library_ms": r["library_ms"], "shape": r["shape"],
-        "design": r["design"]})
+        "design": r["design"], "window": fedlm_kern["window_timing"]})
     log(json.dumps({"serve": {**serve_stats, **serve_check}}))
+    log(json.dumps({"serve_more": serve_more}))
     log(json.dumps({"fed_lm_full_width": {
         k: fedlm_full[k] for k in ("s_per_step", "peak_bytes", "busy_share",
                                    "tc_kernel_us")}}))

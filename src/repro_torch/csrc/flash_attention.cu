@@ -1,5 +1,7 @@
 // Flash attention forward on Hopper: online-softmax GQA attention, causal
-// (top-left: key j is seen by query i iff j <= i) or bidirectional.
+// (top-left: key j is seen by query i iff j <= i) or bidirectional, with an
+// optional sliding window W (key j is seen by query i only if j > i - W;
+// W = 0 means no window).
 // q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd) with H % Hkv == 0 -> out
 // (B, Sq, H, hd) in q's dtype (f32 or bf16); softmax math in f32. Given a
 // buffer (training), each kernel also writes the row log-sum-exp of the
@@ -60,6 +62,22 @@
 //   producer warp (warp specialisation), overlap of one tile's softmax with
 //   the next tile's QK^T.
 //
+// The window (both kernels). A block starts at the first K tile holding a
+//   key > q_first - W (q_first its first query), so the tiles below the
+//   band are never loaded; the bf16 kernel's warpgroups also skip the
+//   loaded tiles wholly below their own rows' band, and a tile that
+//   straddles the lower edge is masked, as the diagonal tile is. A row
+//   whose first tiles are all masked carries m = -1e30 and p = 1 from them
+//   until its first key arrives; then corr = exp(-1e30 - m) = 0 clears
+//   l and the accumulator, so the result is the same as if those tiles
+//   were skipped. A row with no key in its band (i >= Sk + W - 1, only when
+//   Sq > Sk + W - 1) gets the softmax of Sk scores of -1e30, the mean of v
+//   over the Sk keys, as the reference computes it: a block (warpgroup)
+//   holding such a row walks every tile from the first, and the padding
+//   past Sk scores -inf (p = 0) so that only the Sk keys count. Padding
+//   scores -inf in every case; a row with a key in its band gets the same
+//   bits as with -1e30 there (p = 0 either way).
+//
 // f32 (the parity mode): flash_attention_kernel, IEEE fp32 on the CUDA
 //   cores, as the reference's kernel computes; capped at about 3.1 ms at
 //   the serve shape by the FP32 peak (67 TFLOP/s).
@@ -113,8 +131,8 @@ flash_attention_kernel(const float* __restrict__ q,
                        long long qss, long long qsh, long long qsd,
                        long long ksb, long long kss, long long ksh,
                        long long ksd, long long vsb, long long vss,
-                       long long vsh, long long vsd, int causal, float scale,
-                       float* __restrict__ lse) {
+                       long long vsh, long long vsd, int causal, int window,
+                       float scale, float* __restrict__ lse) {
   constexpr int kBK = Tile<HD>::kBK;
   constexpr int kC = Tile<HD>::kChunks;
   __shared__ __align__(16) float Ks[kBK * HD];
@@ -148,17 +166,20 @@ flash_attention_kernel(const float* __restrict__ q,
   float m = kNegInf, l = 0.0f;
 
   // K tiles this block needs: all of them, or (causal) those holding a key
-  // <= the block's last live query
+  // <= the block's last live query, and (window) from the first holding a
+  // key > its first query - W, unless one of its rows sees no key
   const int nk = (Sk + kBK - 1) / kBK;
+  const int q_last = min(qt * kBQ + kBQ - 1, Sq - 1);
   int nt = nk;
-  if (causal) {
-    const int q_last = min(qt * kBQ + kBQ - 1, Sq - 1);
-    nt = min(nk, q_last / kBK + 1);
-  }
+  if (causal) nt = min(nk, q_last / kBK + 1);
+  int t0 = 0;
+  if (window > 0 && q_last < Sk + window - 1)
+    t0 = max(0, qt * kBQ - window + 1) / kBK;
+  const int lo = window > 0 ? qi - window : -1;  // keys <= lo are masked
   const float* kb = k + (long long)b * ksb + (long long)hk * ksh;
   const float* vb = v + (long long)b * vsb + (long long)hk * vsh;
 
-  for (int t = 0; t < nt; ++t) {
+  for (int t = t0; t < nt; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's readers are done
     for (int e = tid; e < kBK * HD; e += kThreads) {
@@ -187,8 +208,8 @@ flash_attention_kernel(const float* __restrict__ q,
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       const int kj = k0 + j;
-      const bool ok = kj < Sk && (!causal || kj <= qi);
-      s[j] = ok ? part * scale : kNegInf;
+      const bool ok = (!causal || kj <= qi) && kj > lo;
+      s[j] = kj >= Sk ? -INFINITY : ok ? part * scale : kNegInf;
       mt = fmaxf(mt, s[j]);
     }
     const float m_new = fmaxf(m, mt);
@@ -234,25 +255,27 @@ flash_attention_kernel(const float* __restrict__ q,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int Hkv, int hd, const long long* s,
-           int causal, float scale, float* lse, cudaStream_t stream) {
+           int causal, int window, float scale, float* lse,
+           cudaStream_t stream) {
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<HD><<<grid, kThreads, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Sk,
       H, H / Hkv, hd, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
-      causal, scale, lse);
+      causal, window, scale, lse);
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* out, int B,
              int Sq, int Sk, int H, int Hkv, int hd, const long long* s,
-             int causal, float scale, float* lse, cudaStream_t stream) {
+             int causal, int window, float scale, float* lse,
+             cudaStream_t stream) {
   if (hd <= 32)
-    return launch<32>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
+    return launch<32>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, window, scale, lse, stream);
   if (hd <= 64)
-    return launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
+    return launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, window, scale, lse, stream);
   if (hd <= 128)
-    return launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
-  return launch<256>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
+    return launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, window, scale, lse, stream);
+  return launch<256>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, window, scale, lse, stream);
 }
 
 
@@ -275,7 +298,8 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    long long qss, long long qsh, long long qsd, long long ksb,
                    long long kss, long long ksh, long long ksd, long long vsb,
                    long long vss, long long vsh, long long vsd, int causal,
-                   float scale_log2, int vec, float* __restrict__ lse) {
+                   int window, float scale_log2, int vec,
+                   float* __restrict__ lse) {
   constexpr int kNB = HDB / 64;               // 64-wide hd blocks
   constexpr int kQBytes = kBQ * HDB * 2;
   constexpr int kTBytes = kBK * HDB * 2;      // one K or V tile
@@ -302,11 +326,22 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + (long long)b * ksb + (long long)hk * ksh;
   const bf16* vb = v + (long long)b * vsb + (long long)hk * vsh;
 
+  // the block's K tiles: as the f32 kernel's, from t0
+  const int q_last = min(q0 + kBQ - 1, Sq - 1);
   int nt = (Sk + kBK - 1) / kBK;
-  if (causal) nt = min(nt, min(q0 + kBQ - 1, Sq - 1) / kBK + 1);
+  if (causal) nt = min(nt, q_last / kBK + 1);
+  int t0 = 0;
+  if (window > 0 && q_last < Sk + window - 1)
+    t0 = max(0, q0 - window + 1) / kBK;
+  // this warpgroup: keys <= lo_* are masked; a row without keys walks all
+  const int lo_lo = window > 0 ? qi_lo - window : -1;
+  const int lo_hi = window > 0 ? qi_hi - window : -1;
+  const bool wg_all =
+      window > 0 && min(w0 + 63, Sq - 1) >= Sk + window - 1;
 
   load_tile<kBQ, HDB>(sQ, qb, Sq - q0, hd, qss, qsd, vec, tid);
-  load_kv<HDB>(sm + kQBytes, kb, vb, 0, Sk, hd, kss, ksd, vss, vsd, vec, tid);
+  load_kv<HDB>(sm + kQBytes + (t0 & 1) * 2 * kTBytes, kb, vb, t0 * kBK, Sk,
+               hd, kss, ksd, vss, vsd, vec, tid);
   cp_async_commit();
 
   float o[kNB][32];
@@ -317,7 +352,7 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.0f, l_hi = 0.0f;
   const bool rows_live = w0 < Sq;
 
-  for (int t = 0; t < nt; ++t) {
+  for (int t = t0; t < nt; ++t) {
     unsigned char* sK = sm + kQBytes + (t & 1) * 2 * kTBytes;
     unsigned char* sV = sK + kTBytes;
     if (t + 1 < nt)
@@ -329,7 +364,8 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
 
     const int k0 = t * kBK;
-    if (rows_live && (!causal || k0 <= w0 + 63)) {
+    if (rows_live && (!causal || k0 <= w0 + 63) &&
+        (window <= 0 || wg_all || k0 + kBK - 1 > w0 - window)) {
       // S = Q K^T for this warpgroup's 64 rows
       float s[32];
 #pragma unroll
@@ -347,7 +383,8 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       // online softmax, base 2: register 4 j + e (+2) holds row qi_lo
       // (qi_hi), key k0 + 8 j + 2 (lane % 4) + e
-      const bool masked = k0 + kBK > Sk || (causal && k0 + kBK - 1 > w0);
+      const bool masked = k0 + kBK > Sk || (causal && k0 + kBK - 1 > w0) ||
+                          (window > 0 && k0 <= w0 + 63 - window);
       float mx_lo = kNegInf, mx_hi = kNegInf;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -357,8 +394,9 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           float a = s[4 * j + e] * scale_log2;
           float c = s[4 * j + 2 + e] * scale_log2;
           if (masked) {
-            if (!(kj < Sk && (!causal || kj <= qi_lo))) a = kNegInf;
-            if (!(kj < Sk && (!causal || kj <= qi_hi))) c = kNegInf;
+            if ((causal && kj > qi_lo) || kj <= lo_lo) a = kNegInf;
+            if ((causal && kj > qi_hi) || kj <= lo_hi) c = kNegInf;
+            if (kj >= Sk) a = c = -INFINITY;
           }
           s[4 * j + e] = a;
           s[4 * j + 2 + e] = c;
@@ -469,7 +507,8 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HDB>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int Hkv, int hd, const long long* s,
-           int causal, float scale, float* lse, cudaStream_t stream) {
+           int causal, int window, float scale, float* lse,
+           cudaStream_t stream) {
   constexpr int smem = smem_bytes<HDB>();
   static bool ready = false;  // the attribute is set once per instantiation
   if (!ready) {
@@ -491,7 +530,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   flash_attention_tc<HDB><<<grid, kThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, Sq, Sk, H,
       H / Hkv, hd, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9],
-      s[10], s[11], causal, scale * log2e, (int)vec, lse);
+      s[10], s[11], causal, window, scale * log2e, (int)vec, lse);
   return (int)cudaGetLastError();
 }
 
@@ -500,14 +539,15 @@ int bucket(int hd) { return hd <= 64 ? 64 : hd <= 128 ? 128 : 256; }
 
 int dispatch(const void* q, const void* k, const void* v, void* out, int B,
              int Sq, int Sk, int H, int Hkv, int hd, const long long* s,
-             int causal, float scale, float* lse, cudaStream_t stream) {
+             int causal, int window, float scale, float* lse,
+             cudaStream_t stream) {
   switch (bucket(hd)) {
     case 64:
-      return launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
+      return launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, window, scale, lse, stream);
     case 128:
-      return launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
+      return launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, window, scale, lse, stream);
     default:
-      return launch<256>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse, stream);
+      return launch<256>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, window, scale, lse, stream);
   }
 }
 
@@ -536,7 +576,8 @@ int attributes(int hd, int* out) {
 // q, k, v are device pointers read through their element strides
 // (b, s, h, d) for q, then k, then v (12 values); out is a contiguous
 // (B, Sq, H, hd) buffer of the inputs' dtype (0 = f32, 1 = bf16); lse, if
-// not null, a contiguous f32 (B, H, Sq) buffer for the row log-sum-exp.
+// not null, a contiguous f32 (B, H, Sq) buffer for the row log-sum-exp;
+// window >= 1 masks key j for query i unless j > i - window, 0 is none.
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int Sq, int Sk, int H,
@@ -544,19 +585,20 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                long long qsh, long long qsd, long long ksb,
                                long long kss, long long ksh, long long ksd,
                                long long vsb, long long vss, long long vsh,
-                               long long vsd, int causal, float scale,
-                               int bf16, float* lse, void* stream) {
+                               long long vsd, int causal, int window,
+                               float scale, int bf16, float* lse,
+                               void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv != 0 || hd < 1 ||
-      hd > 256 || H > 65535 || B > 65535)
+      hd > 256 || H > 65535 || B > 65535 || window < 0)
     return (int)cudaErrorInvalidValue;
   const long long s[12] = {qsb, qss, qsh, qsd, ksb, kss,
                            ksh, ksd, vsb, vss, vsh, vsd};
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
-    return tc::dispatch(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale,
-                        lse, st);
-  return dispatch(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, scale, lse,
-                  st);
+    return tc::dispatch(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, window,
+                        scale, lse, st);
+  return dispatch(q, k, v, out, B, Sq, Sk, H, Hkv, hd, s, causal, window,
+                  scale, lse, st);
 }
 
 // The tensor-core kernel's runtime attributes for head dim hd, into out[4]:

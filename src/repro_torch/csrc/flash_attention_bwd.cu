@@ -1,6 +1,8 @@
 // Flash attention backward on Hopper: dQ, dK, dV of online-softmax GQA
 // attention, causal (top-left: key j is seen by query i iff j <= i) or
-// bidirectional, from the forward's saved row log-sum-exp.
+// bidirectional, with an optional sliding window W (key j is seen by query
+// i only if j > i - W; W = 0 means none), from the forward's saved row
+// log-sum-exp.
 // q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd), o and dout (B, Sq, H, hd), all
 // f32 or all bf16, read through their element strides; lse f32 (B, H, Sq).
 // Out: dq (B, Sq, H, hd), dk and dv (B, Sk, Hkv, hd), contiguous, in the
@@ -100,6 +102,15 @@
 //   for the score tile a thread holds a (tile / 16) x (tile / 16) register
 //   micro-tile (4 x 4 at 64), rows ty + 16 a and columns tx + 16 b; for the
 //   outputs (tile / 16) rows x (HD / 16) columns.
+//
+// The window (all four kernels). Masked pairs have P = 0, so a tile pair
+// outside the band adds nothing and is skipped: the dQ kernels start at the
+// first key tile holding a key > q0 - W (q0 the block's first query), and
+// the dK/dV kernels stop at the query tile holding query k_last + W - 1
+// (k_last the block's last key); the tensor-core kernels' warpgroups also
+// skip the loaded tiles wholly outside their rows' band. A tile pair that
+// straddles the band's lower edge is masked, as the diagonal is. The GQA
+// sum keeps its order: head, then query tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,7 +154,7 @@ struct Args {
   const float* lse;
   float* D;
   T *dq, *dk, *dv;
-  int Sq, Sk, H, Hkv, hd, causal;
+  int Sq, Sk, H, Hkv, hd, causal, window;
   float scale;
   Strides sq, sk, sv, so, sdo;
 };
@@ -172,7 +183,7 @@ __device__ __forceinline__ void scores(const float* sQ, const float* sdO,
                                        const float* sK, const float* sV,
                                        const float* sL, const float* sD,
                                        float* sP, float* sdS, int q0, int k0,
-                                       int Sq, int Sk, int causal,
+                                       int Sq, int Sk, int causal, int window,
                                        float scale) {
   using C = Cfg<HD>;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -205,7 +216,8 @@ __device__ __forceinline__ void scores(const float* sQ, const float* sdO,
 #pragma unroll
     for (int c = 0; c < C::TS; ++c) {
       const int j = tx + 16 * c, kj = k0 + j;
-      const bool ok = qi < Sq && kj < Sk && (!causal || kj <= qi);
+      const bool ok = qi < Sq && kj < Sk && (!causal || kj <= qi) &&
+                      (window <= 0 || kj > qi - window);
       const float p = ok ? expf(s[a][c] * scale - sL[i]) : 0.0f;
       if (sP != nullptr) sP[i * C::LP + j] = p;
       sdS[i * C::LP + j] = p * (dp[a][c] - sD[i]);
@@ -255,14 +267,15 @@ dq_kernel(Args<T> A) {
 
   int nt = (A.Sk + C::BT - 1) / C::BT;
   if (A.causal) nt = min(nt, min(q0 + C::BT - 1, A.Sq - 1) / C::BT + 1);
-  for (int t = 0; t < nt; ++t) {
+  const int t0 = A.window > 0 ? max(0, q0 - A.window + 1) / C::BT : 0;
+  for (int t = t0; t < nt; ++t) {
     const int k0 = t * C::BT;
     __syncthreads();  // the previous tile's readers (and D's) are done
     load_tile<HD>(sK, A.k, A.sk, b, hk, k0, A.Sk, A.hd);
     load_tile<HD>(sV, A.v, A.sv, b, hk, k0, A.Sk, A.hd);
     __syncthreads();
     scores<HD>(sQ, sdO, sK, sV, sL, sD, nullptr, sdS, q0, k0, A.Sq, A.Sk,
-               A.causal, A.scale);
+               A.causal, A.window, A.scale);
     __syncthreads();
     for (int j = 0; j < C::BT; ++j) {
       float ds[C::TS], kc[C::TC];
@@ -318,8 +331,12 @@ dkdv_kernel(Args<T> A) {
 #pragma unroll
     for (int c = 0; c < C::TC; ++c) dk[a][c] = dv[a][c] = 0.0f;
 
-  const int nq = (A.Sq + C::BT - 1) / C::BT;
-  const int first = A.causal ? k0 / C::BT : 0;  // the tile holding query k0
+  // query tiles: (causal) from the tile holding query k0, (window) to the
+  // one holding query k_last + W - 1
+  int nq = (A.Sq + C::BT - 1) / C::BT;
+  if (A.window > 0)
+    nq = min(nq, (min(k0 + C::BT - 1, A.Sk - 1) + A.window - 1) / C::BT + 1);
+  const int first = A.causal ? k0 / C::BT : 0;
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const long long row_h = ((long long)b * A.H + h) * A.Sq;
@@ -335,7 +352,7 @@ dkdv_kernel(Args<T> A) {
       }
       __syncthreads();
       scores<HD>(sQ, sdO, sK, sV, sL, sD, sP, sdS, q0, k0, A.Sq, A.Sk,
-                 A.causal, A.scale);
+                 A.causal, A.window, A.scale);
       __syncthreads();
       for (int i = 0; i < C::BT; ++i) {
         float p[C::TS], ds[C::TS], oc[C::TC], qc[C::TC];
@@ -404,7 +421,8 @@ template <typename T>
 int run(const void* q, const void* k, const void* v, const void* o,
         const void* dout, const float* lse, float* D, void* dq, void* dk,
         void* dv, int B, int Sq, int Sk, int H, int Hkv, int hd,
-        const long long* s, int causal, float scale, cudaStream_t stream) {
+        const long long* s, int causal, int window, float scale,
+        cudaStream_t stream) {
   Args<T> a;
   a.q = (const T*)q;
   a.k = (const T*)k;
@@ -422,6 +440,7 @@ int run(const void* q, const void* k, const void* v, const void* o,
   a.Hkv = Hkv;
   a.hd = hd;
   a.causal = causal;
+  a.window = window;
   a.scale = scale;
   Strides* st_[5] = {&a.sq, &a.sk, &a.sv, &a.so, &a.sdo};
   for (int i = 0; i < 5; ++i)
@@ -537,11 +556,16 @@ bwd_dq_tc(Args<bf16> A, float scale_log2, int flags) {
 
   int nt = (A.Sk + kBK - 1) / kBK;
   if (A.causal) nt = min(nt, min(q0 + kBQ - 1, A.Sq - 1) / kBK + 1);
+  // window: from the first key tile holding a key > q0 - W
+  const int t0 = A.window > 0 ? max(0, q0 - A.window + 1) / kBK : 0;
+  const int lo_lo = A.window > 0 ? qi_lo - A.window : -1;  // keys <= lo
+  const int lo_hi = A.window > 0 ? qi_hi - A.window : -1;  // are masked
 
   load_tile<kBQ, HDB>(sQ, qb, A.Sq - q0, A.hd, A.sq.s, A.sq.d, vec, tid);
   load_tile<kBQ, HDB>(sdO, dob, A.Sq - q0, A.hd, A.sdo.s, A.sdo.d, vec, tid);
-  load_kv<HDB>(ring, kb, vb, 0, A.Sk, A.hd, A.sk.s, A.sk.d, A.sv.s, A.sv.d,
-               vec, tid);
+  if (t0 < nt)
+    load_kv<HDB>(ring + (t0 & 1) * 2 * kTBytes, kb, vb, t0 * kBK, A.Sk, A.hd,
+                 A.sk.s, A.sk.d, A.sv.s, A.sv.d, vec, tid);
   cp_async_commit();
 
   // prologue, while the copies fly: D_i = sum_d dO_id O_id in f32 from
@@ -589,7 +613,7 @@ bwd_dq_tc(Args<bf16> A, float scale_log2, int flags) {
     for (int i = 0; i < 32; ++i) dq[n][i] = 0.0f;
   const bool rows_live = w0 < A.Sq;
 
-  for (int t = 0; t < nt; ++t) {
+  for (int t = t0; t < nt; ++t) {
     unsigned char* sK = ring + (t & 1) * 2 * kTBytes;
     unsigned char* sV = sK + kTBytes;
     if (t + 1 < nt)
@@ -601,7 +625,8 @@ bwd_dq_tc(Args<bf16> A, float scale_log2, int flags) {
     __syncthreads();
 
     const int k0 = t * kBK;
-    if (rows_live && (!A.causal || k0 <= w0 + 63)) {
+    if (rows_live && (!A.causal || k0 <= w0 + 63) &&
+        (A.window <= 0 || k0 + kBK - 1 > w0 - A.window)) {
       // S = Q K^T and dP = dO V^T for this warpgroup's 64 rows
       float s[32], dp[32];
 #pragma unroll
@@ -626,7 +651,9 @@ bwd_dq_tc(Args<bf16> A, float scale_log2, int flags) {
       // P = 2^(s scale log2 e - lse log2 e) and dS = P (dP - D) in f32:
       // register 4 j + e (+2) holds row qi_lo (qi_hi), key
       // k0 + 8 j + 2 (lane % 4) + e; dS overwrites s
-      const bool masked = k0 + kBK > A.Sk || (A.causal && k0 + kBK - 1 > w0);
+      const bool masked = k0 + kBK > A.Sk ||
+                          (A.causal && k0 + kBK - 1 > w0) ||
+                          (A.window > 0 && k0 <= w0 + 63 - A.window);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -635,8 +662,10 @@ bwd_dq_tc(Args<bf16> A, float scale_log2, int flags) {
           float p_lo = ex2(fmaf(s[4 * j + e], scale_log2, -l_lo));
           float p_hi = ex2(fmaf(s[4 * j + 2 + e], scale_log2, -l_hi));
           if (masked) {
-            if (!(kj < A.Sk && (!A.causal || kj <= qi_lo))) p_lo = 0.0f;
-            if (!(kj < A.Sk && (!A.causal || kj <= qi_hi))) p_hi = 0.0f;
+            if (!(kj < A.Sk && (!A.causal || kj <= qi_lo) && kj > lo_lo))
+              p_lo = 0.0f;
+            if (!(kj < A.Sk && (!A.causal || kj <= qi_hi) && kj > lo_hi))
+              p_hi = 0.0f;
           }
           s[4 * j + e] = p_lo * (dp[4 * j + e] - D_lo);
           s[4 * j + 2 + e] = p_hi * (dp[4 * j + 2 + e] - D_hi);
@@ -668,6 +697,7 @@ bwd_dq_tc(Args<bf16> A, float scale_log2, int flags) {
     }
     __syncthreads();  // every reader of stage t & 1 is done before reuse
   }
+  cp_async_wait<0>();  // no copy outlives the block (t0 = nt: Q and dO)
 
   if (!rows_live) return;
 #pragma unroll
@@ -716,8 +746,11 @@ bwd_dkdv_tc(Args<bf16> A, float scale_log2, int flags) {
   load_tile<kBQ, HDB>(sV, vb, A.Sk - k0, A.hd, A.sv.s, A.sv.d, vec, tid);
 
   // iterations it = g per + (qt - first): head g of the group, query tile
-  // qt; causal: from the tile holding query k0
-  const int nq = (A.Sq + kBK - 1) / kBK;
+  // qt; causal: from the tile holding query k0; window: to the tile holding
+  // query k_last + W - 1
+  int nq = (A.Sq + kBK - 1) / kBK;
+  if (A.window > 0)
+    nq = min(nq, (min(k0 + kBQ - 1, A.Sk - 1) + A.window - 1) / kBK + 1);
   const int first = A.causal ? min(k0 / kBK, nq) : 0;
   const int per = nq - first;
   const int n_it = G * per;
@@ -754,7 +787,8 @@ bwd_dkdv_tc(Args<bf16> A, float scale_log2, int flags) {
     __syncthreads();
 
     const int q0 = (first + it % per) * kBK;
-    if (w0 < A.Sk && (!A.causal || w0 <= q0 + kBK - 1)) {
+    if (w0 < A.Sk && (!A.causal || w0 <= q0 + kBK - 1) &&
+        (A.window <= 0 || q0 <= w0 + 63 + A.window - 1)) {
       // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys
       float s[32], dp[32];
 #pragma unroll
@@ -783,7 +817,8 @@ bwd_dkdv_tc(Args<bf16> A, float scale_log2, int flags) {
       // key kj_lo (kj_hi), query q0 + 8 j + 2 (lane % 4) + e, whose lse and
       // D index the column; P^T stays in s, dS^T overwrites dp
       const bool masked = q0 + kBK > A.Sq || w0 + 64 > A.Sk ||
-                          (A.causal && w0 + 63 > q0);
+                          (A.causal && w0 + 63 > q0) ||
+                          (A.window > 0 && q0 + kBK - 1 >= w0 + A.window);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = 8 * j + 2 * (lane % 4);
@@ -798,9 +833,12 @@ bwd_dkdv_tc(Args<bf16> A, float scale_log2, int flags) {
           float p_hi = ex2(fmaf(s[4 * j + 2 + e], scale_log2, -l));
           if (masked) {
             const bool q_in = qi < A.Sq;
-            if (!(q_in && kj_lo < A.Sk && (!A.causal || kj_lo <= qi)))
+            const int lo = A.window > 0 ? qi - A.window : -1;  // keys <= lo
+            if (!(q_in && kj_lo < A.Sk && (!A.causal || kj_lo <= qi) &&
+                  kj_lo > lo))
               p_lo = 0.0f;
-            if (!(q_in && kj_hi < A.Sk && (!A.causal || kj_hi <= qi)))
+            if (!(q_in && kj_hi < A.Sk && (!A.causal || kj_hi <= qi) &&
+                  kj_hi > lo))
               p_hi = 0.0f;
           }
           s[4 * j + e] = p_lo;
@@ -889,7 +927,8 @@ int bucket(int hd) { return hd <= 64 ? 64 : 128; }
 int run(const void* q, const void* k, const void* v, const void* o,
         const void* dout, const float* lse, float* D, void* dq, void* dk,
         void* dv, int B, int Sq, int Sk, int H, int Hkv, int hd,
-        const long long* s, int causal, float scale, cudaStream_t stream) {
+        const long long* s, int causal, int window, float scale,
+        cudaStream_t stream) {
   Args<bf16> a;
   a.q = (const bf16*)q;
   a.k = (const bf16*)k;
@@ -907,6 +946,7 @@ int run(const void* q, const void* k, const void* v, const void* o,
   a.Hkv = Hkv;
   a.hd = hd;
   a.causal = causal;
+  a.window = window;
   a.scale = scale;
   Strides* st_[5] = {&a.sq, &a.sk, &a.sv, &a.so, &a.sdo};
   for (int i = 0; i < 5; ++i)
@@ -955,7 +995,8 @@ int attributes(int hd, int* out) {
 // (b, s, h, d) for each in that order (20 values in `strides`); lse: f32
 // (B, H, Sq) contiguous; D: f32 (B, H, Sq) scratch the first kernel writes
 // and the second reads; dq (B, Sq, H, hd), dk and dv (B, Sk, Hkv, hd):
-// contiguous outputs in the inputs' dtype (0 = f32, 1 = bf16). Launches two
+// contiguous outputs in the inputs' dtype (0 = f32, 1 = bf16); window >= 1
+// masks key j for query i unless j > i - window, 0 is none. Launches two
 // kernels on `stream`; returns the first non-zero cudaGetLastError().
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
@@ -963,17 +1004,17 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    float* D, void* dq, void* dk, void* dv,
                                    int B, int Sq, int Sk, int H, int Hkv,
                                    int hd, const long long* strides,
-                                   int causal, float scale, int bf16,
-                                   void* stream) {
+                                   int causal, int window, float scale,
+                                   int bf16, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv != 0 || hd < 1 ||
-      hd > 256 || H > 65535 || Hkv > 65535 || B > 65535)
+      hd > 256 || H > 65535 || Hkv > 65535 || B > 65535 || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
     return run<__nv_bfloat16>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Sk,
-                              H, Hkv, hd, strides, causal, scale, st);
+                              H, Hkv, hd, strides, causal, window, scale, st);
   return run<float>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Sk, H, Hkv,
-                    hd, strides, causal, scale, st);
+                    hd, strides, causal, window, scale, st);
 }
 
 // The bf16 tensor-core kernels, hd <= 128: arguments as flash_attention_bwd
@@ -985,13 +1026,14 @@ extern "C" int flash_attention_bwd_tc(const void* q, const void* k,
                                       float* D, void* dq, void* dk, void* dv,
                                       int B, int Sq, int Sk, int H, int Hkv,
                                       int hd, const long long* strides,
-                                      int causal, float scale, void* stream) {
+                                      int causal, int window, float scale,
+                                      void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv != 0 || hd < 1 ||
       hd > 128 || B > 65535 || (Sq + 127) / 128 > 65535 ||
-      (Sk + 127) / 128 > 65535)
+      (Sk + 127) / 128 > 65535 || window < 0)
     return (int)cudaErrorInvalidValue;
   return tc::run(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Sk, H, Hkv, hd,
-                 strides, causal, scale, (cudaStream_t)stream);
+                 strides, causal, window, scale, (cudaStream_t)stream);
 }
 
 // The tensor-core kernels' runtime attributes for head dim hd, into

@@ -1,5 +1,5 @@
-"""Flash attention: online-softmax GQA attention, causal or not, with its
-gradient.
+"""Flash attention: online-softmax GQA attention, causal or not, with an
+optional sliding window, and its gradient.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``, body ``_flash_kernel``). The port's
@@ -10,14 +10,20 @@ tensor the wrapper launches the hand-written kernels
 (backward); on a CPU tensor it runs the plain versions below. It never
 falls back from one to the other.
 
-Contract (the reference's, oracle ``repro/kernels/ref.py``
-``flash_attention_ref``; with a gradient, JAX's autodiff of
-``repro/models/layers.py`` ``chunked_attention`` at no window and query
-offset 0): q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd) with H % Hkv == 0,
-query head h reading kv head h // (H / Hkv); causal masking is top-left
-(key j is seen by query i iff j <= i) or absent; scores scaled by
-1 / sqrt(hd), masked to -1e30, softmax and PV in f32; output
-(B, Sq, H, hd) in q's dtype, float32 or bfloat16.
+Contract (the reference's ``repro/models/layers.py`` ``chunked_attention``
+at query offset 0, and with a gradient JAX's autodiff of it; with no window
+also the oracle ``repro/kernels/ref.py`` ``flash_attention_ref``): q (B, Sq,
+H, hd), k and v (B, Sk, Hkv, hd) with H % Hkv == 0, query head h reading kv
+head h // (H / Hkv); causal masking is top-left (key j is seen by query i
+iff j <= i) or absent; a ``window`` W >= 1 also masks key j for query i
+unless j > i - W (with ``causal=False`` the band has this lower edge
+only); scores scaled by 1 / sqrt(hd), masked to -1e30, softmax and PV in
+f32; output (B, Sq, H, hd) in q's dtype, float32 or bfloat16. A row whose
+band holds no key (i >= Sk + W - 1, which needs Sq > Sk + W - 1) is a
+softmax over Sk scores that are all -1e30: the mean of v over the Sk keys,
+as in the reference when Sk is a multiple of its ``kv_chunk`` (its chunks'
+zero padding would otherwise join the mean). Such a row has no gradient
+here: ``flash_attention`` raises when autograd would need one.
 
 ``flash_attention`` runs the forward kernel alone when no input needs a
 gradient (the serve path: one launch, nothing saved). When autograd needs
@@ -36,7 +42,7 @@ fallback; neither ever catches the other's failure):
   before PV (as the reference's TPU kernel did at the MXU's default
   precision, and as ``chunked_attention`` does), while l sums the f32 p.
   Against the plain version, which keeps p in f32, each output element is
-  within ``2^-7 |plain| + 2^-9 max|v| + 1e-4`` (``bf16_limit``).
+  within ``2^-7 |plain| + 2^-8 max|v| + 1e-4`` (``bf16_limit``).
 * float32 (the parity mode): the IEEE fp32 CUDA-core kernel, within
   ``2e-5 max(1, max|plain|)`` of the plain version.
 
@@ -65,11 +71,15 @@ other's failure):
   products, each of them a few f32 roundings deep (the score's hd-term
   dot, exp, the lse subtraction).
 
-All kernels read their inputs through their strides with no copy.
+All kernels read their inputs through their strides with no copy. With a
+window, every kernel walks only the tiles that hold a pair of the band and
+masks the tiles that straddle its lower edge, as it masks the diagonal.
 
 Bounds on the H100: the forward at the serve shape is bf16 operations at
 the tensor-core peak (0.2086 ms; the f32 kernel's CUDA-core pipe caps it at
-about 3.1 ms); the backward's five products at the full-width training
+about 3.1 ms), and at the long-context shape (1, 16384, 24/8, 128) with
+window 8192 the band's 100.7 M pairs a head (134.2 M for full causal) take
+1.25 ms there; the backward's five products at the full-width training
 shape (2, 2048, 24/8, 128) take 0.13 ms at the bf16 tensor-core peak (the
 tensor-core kernels) and 1.9 ms at the fp32 CUDA-core peak (the CUDA-core
 kernels). See the sources for the designs.
@@ -78,6 +88,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -87,18 +98,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIG = {"flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            *([_L] * 12), _I, ctypes.c_float, _I, _P, _P],
+                            *([_L] * 12), _I, _I, ctypes.c_float, _I, _P,
+                            _P],
         "flash_attention_tc_attributes": [_I, ctypes.POINTER(_I)]}
 _BWD_SIG = {"flash_attention_bwd": [_P] * 10 + [_I] * 6
-            + [ctypes.POINTER(_L), _I, ctypes.c_float, _I, _P],
+            + [ctypes.POINTER(_L), _I, _I, ctypes.c_float, _I, _P],
             "flash_attention_bwd_tc": [_P] * 10 + [_I] * 6
-            + [ctypes.POINTER(_L), _I, ctypes.c_float, _P],
+            + [ctypes.POINTER(_L), _I, _I, ctypes.c_float, _P],
             "flash_attention_bwd_tc_attributes": [_I, ctypes.POINTER(_I)]}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 TC_BWD_MAX_HEAD_DIM = 128   # bf16 backward on the tensor cores up to here
 NEG_INF = -1e30
-BF16_LIMIT = "2^-7 |plain| + 2^-9 max|v| + 1e-4"   # bf16_limit, elementwise
+BF16_LIMIT = "2^-7 |plain| + 2^-8 max|v| + 1e-4"   # bf16_limit, elementwise
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -122,23 +134,53 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: q, k, v must be on one device")
 
 
-def _scores(q, k, causal: bool, dtype=torch.float32):
-    """Scaled scores (B, H, Sq, Sk) in ``dtype``, masked to -1e30, and k's
-    heads repeated for the query heads' groups."""
+def _window(window) -> Optional[int]:
+    """The window as an int >= 1, or None; raise for anything else."""
+    if window is None:
+        return None
+    if isinstance(window, bool) or int(window) != window or window < 1:
+        raise ValueError(f"flash_attention: window must be an integer >= 1 "
+                         f"or None, got {window!r}")
+    return int(window)
+
+
+def band_mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
+              device=None) -> Optional[torch.Tensor]:
+    """(Sq, Sk) bool: the pairs (query i, key j) that attend (j <= i under
+    ``causal``, j > i - ``window`` with a window), or None when all do."""
+    if not causal and window is None:
+        return None
+    i = torch.arange(Sq, device=device)[:, None]
+    j = torch.arange(Sk, device=device)[None, :]
+    mask = j <= i if causal else torch.ones((Sq, Sk), dtype=torch.bool,
+                                             device=device)
+    if window is not None:
+        mask = mask & (j > i - window)
+    return mask
+
+
+def has_empty_rows(Sq: int, Sk: int, window: Optional[int]) -> bool:
+    """Whether some query's band holds no key: i >= Sk + window - 1."""
+    return window is not None and Sq >= Sk + window
+
+
+def _scores(q, k, causal: bool, dtype=torch.float32, window=None):
+    """Scaled scores (B, H, Sq, Sk) in ``dtype``, masked to -1e30 outside
+    the band (``band_mask``), and k's heads repeated for the query heads'
+    groups."""
     hd, group = q.shape[3], q.shape[2] // k.shape[2]
     kf = torch.repeat_interleave(k.to(dtype), group, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(dtype), kf) / math.sqrt(hd)
-    if causal:
-        mask = torch.ones(s.shape[-2:], dtype=torch.bool,
-                          device=q.device).tril()
+    mask = band_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    if mask is not None:
         s = torch.where(mask, s, torch.full((), NEG_INF, dtype=dtype,
                                             device=q.device))
     return s
 
 
-def _plain_forward(q, k, v, causal: bool):
+def _plain_forward(q, k, v, causal: bool, window=None):
     """(out in q's dtype, lse f32 (B, H, Sq)) in eager torch."""
-    s = _scores(q, k, causal)
+    s = _scores(q, k, causal, window=window)
     vf = torch.repeat_interleave(v.float(), q.shape[2] // k.shape[2], dim=2)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
@@ -146,26 +188,30 @@ def _plain_forward(q, k, v, causal: bool):
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True) -> torch.Tensor:
+                          causal: bool = True,
+                          window: Optional[int] = None) -> torch.Tensor:
     """The function in eager torch, as ``flash_attention_ref``: materialised
     f32 scores, -1e30 masking, f32 softmax, output in q's dtype."""
-    return _plain_forward(q, k, v, causal)[0]
+    return _plain_forward(q, k, v, causal, _window(window))[0]
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse, causal: bool = True,
-                              dtype=torch.float32, absolute: bool = False):
+                              dtype=torch.float32, absolute: bool = False,
+                              window: Optional[int] = None):
     """The backward in eager torch: (dq, dk, dv) of the attention at q, k, v
     with output o, output gradient do and the forward's row log-sum-exp
     lse (B, H, Sq), computed in ``dtype`` (float32; float64 for the
     kernel's bf16 check) and returned in the inputs' dtype (in ``dtype``
     when ``dtype`` is float64). With ``absolute`` every product takes
-    absolute values: the sums of |terms| that ``bwd_bf16_limit`` reads."""
+    absolute values: the sums of |terms| that ``bwd_bf16_limit`` reads.
+    Pairs outside the band get p = 0 (the rows are never empty: see
+    ``has_empty_rows``)."""
     B, Sq, H, hd = q.shape
     Hkv = k.shape[2]
     group = H // Hkv
     scale = 1.0 / math.sqrt(hd)
     f = (lambda t: t.to(dtype).abs()) if absolute else (lambda t: t.to(dtype))
-    s = _scores(q, k, causal, dtype)
+    s = _scores(q, k, causal, dtype, _window(window))
     p = torch.exp(s - lse.to(dtype)[..., None])      # masked pairs: 0
     rep = lambda t: torch.repeat_interleave(f(t), group, dim=2)  # noqa: E731
     dof, qf = f(do), f(q)
@@ -213,8 +259,8 @@ def bwd_bf16_tc_limit(ref, absref, n_terms: int, hd: int) -> torch.Tensor:
       f32 sum of the n terms, at most n u absref.
 
     In all: ``2^-8 |ref| + (2^-8 + (n + 2 hd + 16) u) absref``. The 2^-8 a
-    rounding is bf16's unit roundoff; ``bf16_limit`` charges p's rounding
-    in the forward at 2^-9 (ROADMAP Queue 3)."""
+    rounding is bf16's unit roundoff, as ``bf16_limit`` charges p's
+    rounding in the forward."""
     u = 2.0 ** -24
     return 2.0 ** -8 * ref.abs() + (2.0 ** -8 + (n_terms + 2 * hd + 16) * u) \
         * absref
@@ -222,16 +268,18 @@ def bwd_bf16_tc_limit(ref, absref, n_terms: int, hd: int) -> torch.Tensor:
 
 def bf16_limit(plain: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Elementwise limit on |kernel - plain| for bf16 inputs, from the
-    plain output (B, Sq, H, hd) and v (B, Sk, Hkv, hd): rounding p_j to
-    bf16 moves it by at most 2^-9 p_j, so the f32 output by at most 2^-9
-    max|v| (max over the (b, kv-head) slice the query head reads); both
-    sides then round to bf16 once (at most one ulp, 2^-7 |plain|); 1e-4
-    covers f32 summation order near zero."""
+    plain output (B, Sq, H, hd) and v (B, Sk, Hkv, hd): bf16 keeps 8
+    significant bits, so rounding p_j to bf16 moves it by at most 2^-8 p_j,
+    and the f32 output sum_j p_j v_j / l (l the f32 sum of the unrounded
+    p, sum_j p_j / l = 1) by at most 2^-8 max|v| (max over the (b, kv-head)
+    slice the query head reads); both sides then round to bf16 once (at
+    most one ulp, 2^-7 |plain|); 1e-4 covers f32 summation order near
+    zero."""
     B, _, H, _ = plain.shape
     vmax = v.float().abs().amax(dim=(1, 3))                # (B, Hkv)
     vmax = torch.repeat_interleave(vmax, H // v.shape[2], dim=1)
     return (2.0 ** -7 * plain.float().abs()
-            + 2.0 ** -9 * vmax[:, None, :, None] + 1e-4)
+            + 2.0 ** -8 * vmax[:, None, :, None] + 1e-4)
 
 
 def tc_attributes(hd: int) -> dict:
@@ -274,11 +322,18 @@ def _device(q: torch.Tensor, what: str) -> str:
     return dev.type
 
 
-def _forward(q, k, v, causal: bool, with_lse: bool):
+def _c_window(window: Optional[int], Sq: int, Sk: int) -> int:
+    """The kernels' window argument: 0 for none; a window past Sq + Sk
+    (where it masks nothing) is passed as Sq + Sk, inside int32."""
+    return 0 if window is None else min(window, Sq + Sk)
+
+
+def _forward(q, k, v, causal: bool, with_lse: bool, window=None):
     """(out, lse or None): the plain version on the CPU, one forward launch
-    on the card (writing the lse only if asked)."""
+    on the card (writing the lse only if asked). ``window`` is an int >= 1
+    or None, checked by the public entry."""
     if _device(q, "flash_attention") == "cpu":
-        out, lse = _plain_forward(q, k, v, causal)
+        out, lse = _plain_forward(q, k, v, causal, window)
         return out, (lse if with_lse else None)
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -290,7 +345,8 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Sk, H, Hkv, hd, *q.stride(), *k.stride(), *v.stride(),
-        int(causal), 1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+        int(causal), _c_window(window, Sq, Sk), 1.0 / math.sqrt(hd),
+        int(q.dtype == torch.bfloat16),
         None if lse is None else lse.data_ptr(), stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -309,7 +365,8 @@ def bwd_route(dtype: torch.dtype, hd: int) -> str:
 BWD_ENTRY = {"tc": "flash_attention_bwd_tc", "cuda_core": "flash_attention_bwd"}
 
 
-def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True):
+def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
+                        window: Optional[int] = None):
     """(dq, dk, dv), fresh contiguous tensors in q's dtype, of the attention
     at q, k, v (whose output was o and row log-sum-exp lse) for the output
     gradient do: ``flash_attention_bwd_plain`` on the CPU, on the card the
@@ -319,14 +376,15 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True):
                         f"and lse float32; got {o.dtype}, {do.dtype}, "
                         f"{lse.dtype}")
     if _device(q, "flash_attention_bwd") == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal,
+                                         window=window)
     return _bwd_cuda(q, k, v, o, do, lse, causal,
-                     bwd_route(q.dtype, q.shape[3]))
+                     bwd_route(q.dtype, q.shape[3]), _window(window))
 
 
-def _bwd_cuda(q, k, v, o, do, lse, causal: bool, route: str):
+def _bwd_cuda(q, k, v, o, do, lse, causal: bool, route: str, window=None):
     """One launch of the route's backward kernels (two kernels, one
-    count)."""
+    count); ``window`` as ``_forward``'s."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     lse = lse.contiguous()
@@ -341,7 +399,7 @@ def _bwd_cuda(q, k, v, o, do, lse, causal: bool, route: str):
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, Hkv, hd, strides,
-            int(causal), 1.0 / math.sqrt(hd)]
+            int(causal), _c_window(window, Sq, Sk), 1.0 / math.sqrt(hd)]
     if route == "cuda_core":
         args.append(int(q.dtype == torch.bfloat16))
     err = getattr(lib, BWD_ENTRY[route])(*args, stream)
@@ -358,29 +416,39 @@ class FlashAttention(torch.autograd.Function):
     backward kernel (the plain versions on the CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
-        out, lse = _forward(q, k, v, causal, with_lse=True)
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        out, lse = _forward(q, k, v, causal, True, window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, ctx.causal,
+                                         ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
     """Attention of q (B, Sq, H, hd) over k, v (B, Sk, Hkv, hd) -> fresh
-    contiguous (B, Sq, H, hd) in q's dtype; differentiable through
-    ``FlashAttention`` when autograd needs a gradient of an input."""
+    contiguous (B, Sq, H, hd) in q's dtype, within a sliding ``window``
+    when one is given; differentiable through ``FlashAttention`` when
+    autograd needs a gradient of an input."""
     _check(q, k, v)
+    window = _window(window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal)
-    return _forward(q, k, v, causal, with_lse=False)[0]
+        if has_empty_rows(q.shape[1], k.shape[1], window):
+            raise ValueError(
+                f"flash_attention: with window {window}, queries from "
+                f"{k.shape[1] + window - 1} on (Sq={q.shape[1]}, "
+                f"Sk={k.shape[1]}) see no key, and such rows have no "
+                f"gradient here")
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, False, window)[0]
 
 
 flash_attention.launches = 0

@@ -5,6 +5,12 @@ KV cache (the reference's ``repro/launch/serve.py``).
         --batch 8 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # the smoke
 
+The ported archs are the dense LMs (``phi4-mini-3.8b``, ``codeqwen1.5-7b``,
+``minitron-8b``, ``llama3-405b``, ``fed-lm-smoke``) and their ``-smoke``
+variants. ``generate`` also serves a config's ``for_long_context()``
+variant: sliding-window attention (8,192 for every dense config) with a
+ring KV cache of ``min(window, prompt + gen)`` slots.
+
 Runs on the CUDA card by default and raises without one (``--device cpu``
 runs the kernels' plain versions). Weights are a random init from a
 ``torch.Generator`` seeded with ``--seed`` (on the run's device), and so

@@ -7,7 +7,9 @@ model is described, as in the reference, by a *superblock pattern*:
 ``block_pattern`` gives the sequence mixer per layer inside one superblock
 and ``ffn_pattern`` the feed-forward kind; the pattern tiles to
 ``num_layers``. The MoE, SSM and frontend fields of the reference come with
-the slices that read them (ROADMAP.md Queue 1 item 10c). ``q_chunk`` and
+the slices that read them (ROADMAP.md Queue 1 item 10c). ``scan_groups``
+is the reference's two-level remat: ``G > 1`` groups of superblocks, each
+checkpointed, around a checkpoint per superblock. ``q_chunk`` and
 ``kv_chunk`` are the reference's attention chunking: the port's attention
 kernel computes the same function without chunks, so they have no
 numerical effect and are kept so that the configs compare field for field.
@@ -46,6 +48,7 @@ class ModelConfig:
     ffn_act: str = "swiglu"                      # swiglu | gelu | relu | relu2
     tie_embeddings: bool = False
     remat: str = "full"                          # none | full | dots
+    scan_groups: int = 0                         # 0 = one level of remat
     grad_accum: int = 1
     num_prefix_tokens: int = 256                 # vlm patch tokens
     q_chunk: int = 512

@@ -8,17 +8,19 @@ reference's layouts: ``wq (D, H, hd)``, ``wk``/``wv (D, Hkv, hd)``,
 ``wo (H, hd, D)``, ``(in, out)`` FFN weights, vocab tables padded to
 ``cfg.vocab_padded``. Full-sequence attention (training, evaluation,
 prefill) goes through the ``flash_attention`` kernel, which computes the
-reference's ``chunked_attention`` with no window and no query offset, and
-its backward kernel when autograd needs the gradient; given a cache,
-``attention_forward`` also fills it, where the reference has a separate
-``attention_fill_cache``. With ``members=True`` (the cohort engine's wave)
-the parameters carry a leading member axis B and so does x, ``(B, n, S,
-D)``: the products go through ``member_dot(..., x_members=True,
-w_members=True)`` and attention, which has no parameters, takes the
-members' rows folded into its batch axis. Decode attention
-is plain torch in f32, as the reference computes it in jnp outside any
-kernel. The reference's sharding ``rules`` have no counterpart on one
-device and are dropped.
+reference's ``chunked_attention`` at query offset 0 within
+``cfg.sliding_window``, and its backward kernel when autograd needs the
+gradient; given a cache, ``attention_forward`` also fills it, where the
+reference has a separate ``attention_fill_cache``. With a window the cache
+is a ring of ``min(window, max_len)`` slots: prefill leaves the prompt's
+trailing window there, and decode writes token ``pos`` to slot ``pos %
+C``. With ``members=True`` (the cohort engine's wave) the parameters carry
+a leading member axis B and so does x, ``(B, n, S, D)``: the products go
+through ``member_dot(..., x_members=True, w_members=True)`` and attention,
+which has no parameters, takes the members' rows folded into its batch
+axis. Decode attention is plain torch in f32, as the reference computes it
+in jnp outside any kernel. The reference's sharding ``rules`` have no
+counterpart on one device and are dropped.
 
 Initial weights come from a ``torch.Generator``: the reference's law
 (truncated normal at +-2 std, fan-in scale), not its threefry draws
@@ -123,17 +125,15 @@ def _dot(members: bool):
 
 def attention_forward(params, x, cfg: ModelConfig, positions=None,
                       cache=None, members: bool = False):
-    """Full-sequence attention over x (B, S, D) through the flash kernel;
-    with ``members``, over x (B, n, S, D) with (B, ...) parameters. With
-    ``cache`` (prefill), token ``i``'s roped k and v also go to slot ``i``
-    of ``cache``, written in place; its tail slots stay zero until
-    decode."""
+    """Full-sequence attention over x (B, S, D) through the flash kernel,
+    within ``cfg.sliding_window``; with ``members``, over x (B, n, S, D)
+    with (B, ...) parameters. With ``cache`` (prefill) of C slots, the
+    roped k and v are also written into it in place, as the reference's
+    ``attention_fill_cache`` lays them out: when C >= S token ``i`` goes to
+    slot ``i`` and the tail slots stay zero until decode; when C < S (a
+    sliding-window ring) the last C tokens go to ring slots
+    ``(S - C + i) % C``, where decode expects them."""
     S = x.shape[-2]
-    if cache is not None and cache["k"].shape[1] < S:
-        raise NotImplementedError(
-            f"a KV cache shorter than the prompt ({cache['k'].shape[1]} < {S}:"
-            f" a sliding-window ring) is not ported (ROADMAP.md Queue 1 "
-            f"item 10a)")
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     dot = _dot(members)
@@ -143,15 +143,23 @@ def attention_forward(params, x, cfg: ModelConfig, positions=None,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cache is not None:
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+        C = cache["k"].shape[1]
+        if C >= S:
+            cache["k"][:, :S] = k
+            cache["v"][:, :S] = v
+        else:       # the trailing window, token S - C + i at its ring slot
+            shift = (S - C) % C
+            cache["k"][:] = torch.roll(k[:, S - C:], shift, dims=1)
+            cache["v"][:] = torch.roll(v[:, S - C:], shift, dims=1)
+    window = cfg.sliding_window
     if members:     # the members' rows side by side on the kernel's batch
         lead = q.shape[:2]
         out = flash_attention(q.flatten(0, 1), k.flatten(0, 1),
-                              v.flatten(0, 1), causal=cfg.causal)
+                              v.flatten(0, 1), causal=cfg.causal,
+                              window=window)
         out = out.unflatten(0, lead)
     else:
-        out = flash_attention(q, k, v, causal=cfg.causal)
+        out = flash_attention(q, k, v, causal=cfg.causal, window=window)
     return dot(out, params["wo"].to(x.dtype), ncon=2)
 
 
@@ -190,7 +198,9 @@ def attention_decode(params, cache, x, pos: int, cfg: ModelConfig):
     """One-token decode. x: (B, 1, D); ``pos`` the token's position (a host
     int, the same for the batch). Writes k and v into ring slot
     ``pos % C`` of ``cache`` in place (the reference returns an updated
-    copy) and returns (cache, y)."""
+    copy) and attends over the ``min(pos + 1, C)`` slots written so far:
+    with a window of C, the tokens ``pos - C + 1 .. pos``. Returns (cache,
+    y)."""
     C = cache["k"].shape[1]
     posb = torch.full((x.shape[0], 1), pos, device=x.device)
     q = member_dot(x, params["wq"].to(x.dtype))

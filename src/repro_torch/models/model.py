@@ -23,7 +23,10 @@ leading ``num_superblocks`` axis, and a Python loop over superblocks
 indexes them as views (no per-layer copies), where the reference scans;
 ``cfg.remat == "full"`` checkpoints each superblock
 (``torch.utils.checkpoint``, recomputed in the backward) where the
-reference wraps its scan body in ``jax.checkpoint``. Two layer loops share
+reference wraps its scan body in ``jax.checkpoint``, and with
+``cfg.scan_groups = G > 1`` (``num_superblocks % G == 0``) also each group
+of ``num_superblocks / G`` superblocks around those: the reference's
+two-level sqrt-remat, which saves G carries. Two layer loops share
 the parameters: the full-sequence one (``backbone_forward``: ``loss_fn``,
 the next-token cross-entropy in sequence chunks of 1,024;
 ``forward_logits``, every position's logits; ``prefill``, which also fills
@@ -31,9 +34,11 @@ the KV cache and returns the last position's) and ``decode_step`` (one
 token against the cache). The cache is stacked like the blocks, ``(nsb, B,
 C, Hkv, hd)``, and written in place. With ``members=True`` (the cohort
 engine) every LM leaf carries the member axis before the superblock axis,
-``(B, nsb, ...)``, and the tokens ``(B, n, S)``. Configurations the port
-does not cover (other families, a sliding window, a frontend, ``remat ==
-"dots"``) raise ``NotImplementedError``.
+``(B, nsb, ...)``, and the tokens ``(B, n, S)``. A ``sliding_window``
+reaches every attention layer: the flash kernels' band, and a ring KV cache
+of ``min(window, max_len)`` slots. Configurations the port does not cover
+(other families, a frontend, ``remat == "dots"``) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -284,8 +289,6 @@ def check_lm(cfg: ModelConfig) -> None:
                      f"{cfg.ffn_pattern}"), "10c"
     elif cfg.frontend is not None:
         why, item = f"frontend {cfg.frontend!r}", "10c"
-    elif cfg.sliding_window is not None:
-        why, item = f"sliding_window={cfg.sliding_window}", "10a"
     elif cfg.remat not in ("none", "full"):
         why, item = f"remat={cfg.remat!r}", "10d"
     if why is not None:
@@ -338,13 +341,30 @@ def superblock_forward(params, x, cfg: ModelConfig, positions, cache=None,
     return x
 
 
+def _checkpointed(sb, x, cfg: ModelConfig, positions, members: bool):
+    """One superblock under ``torch.utils.checkpoint``."""
+    return torch.utils.checkpoint.checkpoint(
+        superblock_forward, sb, x, cfg, positions, None, members,
+        use_reentrant=False)
+
+
+def _group_forward(sbs, x, cfg: ModelConfig, positions, members: bool):
+    """The superblocks of one scan group, each checkpointed: the inner
+    level of the two-level remat."""
+    for sb in sbs:
+        x = _checkpointed(sb, x, cfg, positions, members)
+    return x
+
+
 def backbone_forward(params, x, cfg: ModelConfig, cache=None,
                      members: bool = False):
     """All superblocks and the final norm over x (B, S, D) ((B, n, S, D)
     with ``members``) at positions 0..S-1; with ``cache`` (from
     ``init_cache``) fills it. Under ``cfg.remat == "full"``, when autograd
     records, each superblock is checkpointed: its activations are
-    recomputed in the backward."""
+    recomputed in the backward; with ``cfg.scan_groups = G > 1`` dividing
+    the superblocks, each group of them is checkpointed too (the
+    reference's two-level remat; the same values)."""
     check_lm(cfg)
     positions = torch.arange(x.shape[-2], device=x.device)[None, :]
     remat = (cfg.remat == "full" and cache is None
@@ -354,16 +374,22 @@ def backbone_forward(params, x, cfg: ModelConfig, cache=None,
     # leaf; unbind's stacks the superblocks' gradients once
     blocks = tree_map(lambda a: a.unbind(1 if members else 0),
                       params["blocks"])
-    for s in range(cfg.num_superblocks):
-        sb = tree_map(lambda views: views[s], blocks)
-        if remat:
+    nsb, G = cfg.num_superblocks, cfg.scan_groups
+    sbs = [tree_map(lambda views: views[s], blocks) for s in range(nsb)]
+    if remat and G > 1 and nsb % G == 0:
+        n = nsb // G
+        for g in range(G):
             x = torch.utils.checkpoint.checkpoint(
-                superblock_forward, sb, x, cfg, positions, None, members,
-                use_reentrant=False)
-        else:
-            x = superblock_forward(
-                sb, x, cfg, positions,
-                None if cache is None else _superblock(cache, s), members)
+                _group_forward, sbs[g * n:(g + 1) * n], x, cfg, positions,
+                members, use_reentrant=False)
+    else:
+        for s, sb in enumerate(sbs):
+            if remat:
+                x = _checkpointed(sb, x, cfg, positions, members)
+            else:
+                x = superblock_forward(
+                    sb, x, cfg, positions,
+                    None if cache is None else _superblock(cache, s), members)
     return _norm(params["final_norm"], x, cfg, members)
 
 

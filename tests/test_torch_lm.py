@@ -211,7 +211,9 @@ def test_attention_forward_gqa_matches_reference_chunked_path():
 def test_attention_forward_fills_cache_like_reference():
     """Given a cache, attention_forward writes the reference's
     attention_fill_cache cache (token i at slot i, zero tail) in place and
-    returns the same output."""
+    returns the same output; with a sliding window of 8 the cache is the
+    reference's ring of 8 slots (the prompt's last 8 tokens at slots
+    (S - 8 + i) % 8)."""
     rcfg, tcfg = _pair(gqa=True)
     rp = jax.tree_util.tree_map(np.asarray,
                                 RL.init_attention(jax.random.PRNGKey(6), rcfg))
@@ -225,9 +227,18 @@ def test_attention_forward_fills_cache_like_reference():
         assert tuple(cache[kv].shape) == rcache[kv].shape
         np.testing.assert_allclose(_tn(cache[kv]), _np(rcache[kv]),
                                    rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.attention_forward(params_from_numpy(rp), torch.from_numpy(x), tcfg,
-                             cache=TL.init_attention_cache(tcfg, 2, 8, "cpu"))
+    rcfg, tcfg = (dataclasses.replace(c, sliding_window=8)
+                  for c in (rcfg, tcfg))
+    rcache, want = RL.attention_fill_cache(rp, jnp.asarray(x), rcfg, R,
+                                           max_len=20)
+    cache = TL.init_attention_cache(tcfg, 2, 20, "cpu")
+    assert cache["k"].shape[1] == 8 < x.shape[1]
+    got = TL.attention_forward(params_from_numpy(rp), torch.from_numpy(x),
+                               tcfg, cache=cache)
+    np.testing.assert_allclose(_tn(got), _np(want), rtol=1e-5, atol=1e-5)
+    for kv in ("k", "v"):
+        np.testing.assert_allclose(_tn(cache[kv]), _np(rcache[kv]),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_decode_attention_matches_reference():
@@ -314,16 +325,35 @@ def test_unported_lm_configs_raise(case):
                            dataclasses.replace(cfg, tie_embeddings=True))
         assert set(p["embed"]) == {"tok"}
         return
+    if case == "sliding_window":
+        # ported since the sliding-window slice: a windowed model runs, and
+        # its prefill fills a ring of `window` slots
+        # (tests/test_torch_window.py holds it to the reference)
+        wcfg = dataclasses.replace(cfg, sliding_window=8)
+        p = TM.init_params(torch.Generator().manual_seed(0), wcfg)
+        toks = torch.randint(0, wcfg.vocab_size, (1, 12),
+                             generator=torch.Generator().manual_seed(1))
+        cache, logits = TM.prefill(p, {"tokens": toks}, wcfg)
+        assert cache["p0"]["k"].shape[2] == 8
+        assert bool(torch.isfinite(logits).all())
+        return
+    if case == "long_context":
+        # the full-width long-context config initialises (meta) and sizes
+        # its decode cache to the 8,192-slot ring
+        lcfg = tget(ARCH).for_long_context()
+        assert lcfg.sliding_window == 8192
+        p = TM.init_params(None, lcfg, "meta")
+        assert p["blocks"]["p0"]["mixer"]["wq"].device.type == "meta"
+        cache = TM.init_cache(lcfg, 1, 16384 + 32, "meta")
+        assert cache["p0"]["k"].shape == (32, 1, 8192, 8, 128)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if case == "arch":
             tget("xlstm-350m-smoke")
         elif case == "image_smoke":             # image models have no smoke
             tget("paper-cifar10-cnn-smoke")
-        elif case == "long_context":
-            TM.init_params(None, tget(ARCH).for_long_context(), "meta")
         else:
-            over = {"sliding_window": {"sliding_window": 8},
-                    "family": {"family": "ssm"},
+            over = {"family": {"family": "ssm"},
                     "frontend": {"frontend": "vision"}}[case]
             cfg = dataclasses.replace(cfg, **over)
             TM.init_params(torch.Generator().manual_seed(0), cfg)
