@@ -116,7 +116,13 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    a collective on CUDA tensors; (d) full-width waves of 8 and 16 members
    through the cohort engine on 2 gloo ranks with the mesh and without
    it: every rank splits each wave, to the single-device bits, with
-   the same launches; then 2 NCCL ranks on the one card, which must fail;
+   the same launches; (e) the fed-lm world (fedasync, fedpsa, and fedpsa
+   with a window of 8; cohort/grouped) on 1 NCCL rank bit-equal to
+   ``[fed-lm]``'s single-device runs and on 2 gloo ranks within the golden
+   tolerance of the golden and the window fixture, each rank with one
+   device's launches, and the 2-rank fedpsa run traced on rank 0 (every
+   port kernel on one stream); then 2 NCCL ranks on the one card, which
+   must fail;
 8. profile: the first 2,000 virtual units of both main paths, and one
    serve prefill plus decode, under ``torch.profiler``: the device's busy
    share of the wall time and the CUDA kernels by total time (printed; a
@@ -134,8 +140,10 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    ``serve.generate`` on ``cfg.for_long_context()``) and for
    ``codeqwen1.5-7b`` and ``minitron-8b`` at B = 8, prompt 2,048, gen 32,
    each through ``serve.main``;
-9b. ``[fed-lm]``, federated LM fine-tuning on the dense family (after the
-   serve runs, before the profiles): the attention backward kernel
+9b. ``[fed-lm]``, federated LM fine-tuning on the dense family (the
+   small world's parts before ``[mesh]``, which holds its mesh runs to
+   them; the full-width ones after the serve runs, before the profiles;
+   each sub-phase prints its seconds): the attention backward kernel
    (``flash_attention_bwd``) against its plain version in f32 at the golden
    world's wave shape (32, 16, 2/2, 8) (the CUDA-core kernels) and in bf16
    at the full-width training shape (2, 2048, 24/8, 128) and at edge shapes
@@ -165,7 +173,22 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    ``fed-lm-smoke`` with a window of 8, fedasync and fedpsa on
    cohort/grouped, against the reference's digests in
    ``tests/torch_fixtures/fed_lm_window8_digests.json`` with exact launch
-   counts.
+   counts. Sweeps: 3-lane ``run_sweep``s of fedasync and fedpsa on both
+   member kernels and of windowed fedpsa under ``"grouped"``, lane 0 held
+   to the golden (or the window fixture), every lane to the reference's
+   lanes (``tests/torch_fixtures/fed_lm_sweep_digests.json``), launches
+   exact (``buffer_agg`` S x versions, ``sens_sketch`` waves + S x
+   (versions + 1) for fedpsa, ``grouped_matmul`` and the local steps as
+   the standalone run's). The other five policies (fedbuff, ca2fl, fedfa,
+   fedpac, asyncfeded l2/cosine/sketch) on cohort/grouped against the
+   reference's runs in ``tests/torch_fixtures/fed_lm_policies_digests.json``,
+   launches exact. Remat "dots" (selective checkpoints under JAX's
+   ``dots_with_no_batch_dims_saveable`` rule): at the nested depth of
+   ``llama3-405b-smoke`` in 3 scan groups bit-equal to "none" and "full",
+   and the full-width step twice under "dots" beside "full", bit-equal to
+   it, with its seconds a step and peak memory (at 1 x 2,048 tokens a
+   step if it does not fit at 2 x 2,048, after printing the bytes asked
+   for).
 
 Then it prints one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a card it exits non-zero
@@ -2598,13 +2621,18 @@ MESH_FULL = (("fedpsa", "l2"), ("asyncfeded", "l2"))
 # mesh and without it: on 2 ranks they split into shares of 4 and 8 members
 # (the runs' waves rarely reach 8 members after padding)
 MESH_SPLIT_B = (8, 16)
-# (ranks, backend, golden cases, full-width cases, split waves, a traced
-# golden fedpsa run on rank 0, collective costs) of each job, in the order
-# they run
+# the fed-lm world on the mesh, cohort/grouped: (policy, sliding window);
+# 8 is FEDLM_WINDOW, the window of tests/torch_fixtures/
+# fed_lm_window8_digests.json
+MESH_FEDLM = (("fedasync", 0), ("fedpsa", 0), ("fedpsa", 8))
+# (ranks, backend, golden cases, full-width cases, split waves, the worlds
+# whose fedpsa run is traced once more on rank 0, collective costs, fed-lm
+# cases) of each job, in the order they run
 MESH_JOBS = (
-    (1, "nccl", MESH_GOLDEN, MESH_FULL, (), False, False),
-    (2, "gloo", MESH_GOLDEN, MESH_FULL, MESH_SPLIT_B, True, True),
-    (4, "gloo", [("fedpsa", "l2")], (), (), False, False),
+    (1, "nccl", MESH_GOLDEN, MESH_FULL, (), (), False, MESH_FEDLM),
+    (2, "gloo", MESH_GOLDEN, MESH_FULL, MESH_SPLIT_B, ("golden", "fedlm"),
+     True, MESH_FEDLM),
+    (4, "gloo", [("fedpsa", "l2")], (), (), (), False, ()),
 )
 
 
@@ -2741,31 +2769,36 @@ def _mesh_rank_main(rank: int, n: int, jobdir: str) -> int:
             return engines[-1]
 
         simulator._make_cohort_engine = capture_engine
-        golden = _golden_world()
-        full = (_main_world(torch) if job["full"] or job["split"]
-                else None)
-        out["split"] = [_mesh_split_case(torch, full, mesh, B)
+        worlds = {"golden": _golden_world(),
+                  "full": (_main_world(torch) if job["full"] or job["split"]
+                           else None),
+                  "fedlm": _fedlm_world() if job["fedlm"] else None}
+        out["split"] = [_mesh_split_case(torch, worlds["full"], mesh, B)
                         for B in job["split"]]
-        # the traced run comes last: a profiler session slows the runs
-        # after it
+        # the traced runs come last: a profiler session slows the runs
+        # after it. A fed-lm case's "metric" is its sliding window.
         for kind, name, metric, trace in (
                 [("golden", n_, m, False) for n_, m in job["golden"]]
                 + [("full", n_, m, False) for n_, m in job["full"]]
-                + ([("golden", "fedpsa", "l2", True)] if job["trace"]
-                   else [])):
-            cfg, clients, test, calib, params = (golden if kind == "golden"
-                                                 else full)
-            base = (GOLDEN_SIM if kind == "golden"
-                    else {**MAIN_SIM, "horizon": POLICY_HORIZON})
+                + [("fedlm", n_, w, False) for n_, w in job["fedlm"]]
+                + ([("golden", "fedpsa", "l2", True)]
+                   if "golden" in job["trace"] else [])
+                + ([("fedlm", "fedpsa", 0, True)]
+                   if "fedlm" in job["trace"] else [])):
+            cfg, clients, test, calib, params = worlds[kind]
+            if kind == "fedlm" and metric:
+                cfg = dataclasses.replace(cfg, sliding_window=metric)
+            base = {"golden": GOLDEN_SIM, "fedlm": FEDLM_SIM}.get(
+                kind, {**MAIN_SIM, "horizon": POLICY_HORIZON})
             sim = simulator.SimConfig(
                 engine="cohort", member_kernel="grouped",
                 record_trajectory=True, mesh=mesh,
                 **{**base, "device": "cuda"})
             kw = {}
             if name == "fedpsa":
-                kw = dict(psa_cfg=PSAConfig(**(GOLDEN_PSA if kind == "golden"
+                kw = dict(psa_cfg=PSAConfig(**(GOLDEN_PSA if kind != "full"
                                                else {})), calib_batch=calib)
-            if metric != "l2":
+            if kind != "fedlm" and metric != "l2":
                 kw["server_kwargs"] = {"metric": metric}
             engines.clear()
             for k in ("all_reduce", "all_gather", "bytes"):
@@ -2958,7 +2991,8 @@ def _mesh_width_probe(torch) -> None:
                                      f"{bad}")
 
 
-def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict) -> dict:
+def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict,
+               fedlm_ref: dict) -> dict:
     """``[mesh]``: the port's mesh path, each job's ranks spawned from this
     script on the one card (``MESH_JOBS``): (a) the golden world, cohort
     engine with ``"grouped"``: 1 rank on NCCL bit-equal to phase 5's
@@ -2973,11 +3007,19 @@ def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict) -> dict:
     device-only profile: every port kernel on one stream; (d) full-width
     waves of 8 and 16 members on the 2 gloo ranks, with the mesh and
     without it: split on every rank, bit-equal, the same launches
-    (``_mesh_check_split``). Every rank's launch counts are exact (``buffer_agg`` an apply on its shard,
+    (``_mesh_check_split``); (e) the fed-lm world (``MESH_FEDLM``:
+    fedasync, fedpsa, and fedpsa with a window of 8, cohort/grouped): 1
+    NCCL rank bit-equal to ``[fed-lm]``'s single-device runs
+    (``fedlm_ref``), 2 gloo ranks at the golden tolerance against the
+    golden and the window fixture, and the 2-rank fedpsa run once more
+    with rank 0 under a device-only profile, every port kernel on one
+    stream. Every rank's launch counts are exact (``buffer_agg`` an apply on its shard,
     ``sens_sketch`` as on one device, ``grouped_matmul`` the single-device
-    run's), every rank returns the same run. Then 2 NCCL ranks on the one
-    card must fail. Returns the launch counts of the 2-rank full-width
-    FedPSA run, rank 0."""
+    run's; a fed-lm run's attention launches the single-device run's, its
+    waves training whole on every rank), every rank returns the same run.
+    Then 2 NCCL ranks on the one card must fail. Returns the launch counts
+    of the 2-rank full-width FedPSA run, rank 0, and of the fed-lm runs by
+    path."""
     from repro_torch.federated import simulator
     t_phase = time.perf_counter()
     cfg, clients, test, calib, params = _main_world(torch)
@@ -2991,10 +3033,10 @@ def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     _mesh_width_probe(torch)
-    out = {}
-    for n, backend, gold, full, split, trace, costs in MESH_JOBS:
+    out, fedlm_paths = {}, {}
+    for n, backend, gold, full, split, trace, costs, fedlm in MESH_JOBS:
         job = {"golden": gold, "full": full, "split": split, "trace": trace,
-               "costs": costs}
+               "costs": costs, "fedlm": fedlm}
         results, codes, tails, secs = _mesh_spawn(n, backend, job, 600)
         if any(c != 0 for c in codes) or any(r is None for r in results):
             for r, t in enumerate(tails):
@@ -3004,19 +3046,26 @@ def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict) -> dict:
         log(f"[mesh] n={n} {backend}: {len(results[0]['runs'])} runs on "
             f"{n} rank(s) in {secs:.1f}s (processes included) on {smi}")
         for i, run in enumerate(results[0]["runs"]):
-            key = (run["name"], run["metric"])
-            what = (f"mesh n={n} {backend} {run['kind']} "
+            kind, key = run["kind"], (run["name"], run["metric"])
+            what = (f"mesh n={n} {backend} fed-lm {run['name']} window="
+                    f"{run['metric']}" if kind == "fedlm" else
+                    f"mesh n={n} {backend} {kind} "
                     f"{run['name']}/{run['metric']}")
-            ref = (golden_ref if run["kind"] == "golden" else full_ref)[key]
-            if run["kind"] == "golden" and n > 1:
+            ref = {"golden": golden_ref, "full": full_ref,
+                   "fedlm": fedlm_ref}[kind][key]
+            if kind in ("golden", "fedlm") and n > 1:
                 ref = {**ref, "digests": ref["file_digests"], "tol": "golden",
                        **ref["file_final"]}
-            elif run["kind"] == "full":
+            elif kind == "full":
                 ref = {**ref, "tol": "lane"}
-            res_like = types.SimpleNamespace(**{k: run[k] for k in (
-                "dispatches", "versions", "cohorts", "engine")})
-            want = {**_want_launches(run["name"], run["metric"], res_like),
-                    "grouped_matmul": ref["counts"]["grouped_matmul"]}
+            if kind == "fedlm":
+                want = dict(ref["counts"])
+            else:
+                res_like = types.SimpleNamespace(**{k: run[k] for k in (
+                    "dispatches", "versions", "cohorts", "engine")})
+                want = {**_want_launches(run["name"], run["metric"],
+                                         res_like),
+                        "grouped_matmul": ref["counts"]["grouped_matmul"]}
             for r, rank in enumerate(results):
                 other = rank["runs"][i]
                 for k in ("digests", "accuracies", "versions", "cohorts"):
@@ -3045,6 +3094,9 @@ def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict) -> dict:
                 f"on {smi}")
             if run["kind"] == "full" and run["name"] == "fedpsa" and n == 2:
                 out = run["counts"]
+            if kind == "fedlm" and not run["traced"]:
+                fedlm_paths[f"mesh-n{n}-{backend}-fed-lm-{run['name']}-w"
+                            f"{run['metric']}"] = run["counts"]
             if run["streams"] is not None:
                 port = [s for s, by in run["streams"].items() if by["port"]]
                 log(f"[mesh] {what} rank 0 trace by stream: "
@@ -3061,7 +3113,7 @@ def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict) -> dict:
     # own error, not hang and not run on another backend
     results, codes, tails, secs = _mesh_spawn(
         2, "nccl", {"golden": [("fedbuff", "l2")], "full": [], "split": [],
-                    "trace": False, "costs": False}, 180)
+                    "trace": [], "costs": False, "fedlm": []}, 180)
     if all(c == 0 for c in codes) or any(c == -9 for c in codes) or \
             not any("Duplicate GPU" in t for t in tails):
         raise AssertionError(f"[mesh] 2 NCCL ranks on one card: exit codes "
@@ -3071,7 +3123,7 @@ def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict) -> dict:
     log(f"[mesh] 2 NCCL ranks on one card failed as expected in "
         f"{secs:.1f}s: exit codes {codes}; {last}")
     log(f"[mesh] the whole phase took {time.perf_counter() - t_phase:.1f}s")
-    return out
+    return out, fedlm_paths
 
 
 def _profile_run(torch, engine: str) -> None:
@@ -3413,6 +3465,17 @@ FEDLM_BWD_WINDOW = (FA_WINDOW + ("bfloat16",),
                     (1, 200, 200, 2, 1, 256, True, 50, "bfloat16"))
 FEDLM_WINDOW_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures",
                                     "fed_lm_window8_digests.json")
+# the reference's run_sweep lanes of the fed-lm world (tests/
+# test_torch_sweep_fedlm.py), without and with the window
+FEDLM_SWEEP_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures",
+                                   "fed_lm_sweep_digests.json")
+# the other five policies' reference runs on the fed-lm world at horizon
+# 3,000 (tests/test_torch_fedlm_policies.py)
+FEDLM_POLICY_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures",
+                                    "fed_lm_policies_digests.json")
+FEDLM_POLICY_RUNS = (("fedbuff", "l2"), ("ca2fl", "l2"), ("fedfa", "l2"),
+                     ("fedpac", "l2"), ("asyncfeded", "l2"),
+                     ("asyncfeded", "cosine"), ("asyncfeded", "sketch"))
 
 
 def _fedlm_attn_inputs(torch, rng, dev, shape, dt):
@@ -3728,41 +3791,53 @@ def _fedlm_world():
     return cfg, clients, test, calib, params
 
 
-def _fedlm_want(name: str, res, cfg, grouped: bool) -> dict:
-    """Exact launch counts of a fed-lm run: per layer, flash_attention's
-    forward once a local step (a cohort wave's step counts once: its
-    members share the launch), once an eval batch and once a sketch pass,
-    and its backward once a step and a sketch pass; ``sens_sketch`` once a
-    sketched tree or wave, an aggregation and the initial global model;
-    ``buffer_agg`` once an apply; ``grouped_matmul`` (cohort under
-    "grouped") forward, dx and dW of each layer's seven products and the
-    cross-entropy's unembedding, each local step (the sketch's products run
-    unrouted)."""
+def _fedlm_want(name: str, res, cfg, grouped: bool, metric: str = "l2"
+                ) -> dict:
+    """Exact launch counts of a fed-lm run or sweep (``res`` a
+    ``SimResult`` or a ``SweepResult``, whose lanes share its waves):
+    per layer, flash_attention's forward once a local step (a cohort wave's
+    step counts once: its members, of every lane, share the launch), once
+    an eval batch of each lane and once a FedPSA sketch pass, and its
+    backward once a step and a sketch pass; ``buffer_agg`` and
+    ``sens_sketch`` as ``_want_launches`` (one lane) or
+    ``_want_sweep_launches`` (S lanes) count them, each FedPSA sketch
+    ``SKETCH_PASSES`` LM passes, asyncfeded's ``sketch`` none;
+    ``grouped_matmul`` (cohort under "grouped") forward, dx and dW of each
+    layer's seven products and the cross-entropy's unembedding, each local
+    step (the sketch's products run unrouted)."""
     from repro_torch.federated.simulator import SimConfig
     L = cfg.num_layers
-    evals = len(res.times) * SimConfig().eval_batches
-    sketch = 0
-    if name == "fedpsa":
-        sketch = (res.cohorts if res.engine == "cohort" else res.dispatches) \
-            + res.versions + 1
+    lanes = getattr(res, "num_lanes", 1)
+    base = (_want_sweep_launches(name, metric, res)
+            if hasattr(res, "num_lanes") else
+            _want_launches(name, metric, res))
+    evals = len(res.times) * SimConfig().eval_batches * lanes
+    passes = SKETCH_PASSES * base["sens_sketch"] if name == "fedpsa" else 0
     gm_per_step = 3 * (7 * L + 1)
-    return {"flash_attention": L * (res.local_steps + evals
-                                    + SKETCH_PASSES * sketch),
-            "flash_attention_bwd": L * (res.local_steps
-                                        + SKETCH_PASSES * sketch),
-            "sens_sketch": sketch,
-            "buffer_agg": res.versions if name == "fedpsa" else 0,
+    return {**base,
+            "flash_attention": L * (res.local_steps + evals + passes),
+            "flash_attention_bwd": L * (res.local_steps + passes),
             "grouped_matmul": gm_per_step * res.local_steps if grouped else 0}
 
 
-def phase_fedlm(torch, smi: str) -> dict:
+def _fedlm_ref(res, counts: dict, wall: float, golden: dict) -> dict:
+    """A single-device fed-lm run as ``[mesh]`` holds a mesh run to it, with
+    the digests and counters of the file that the run holds (``golden``)."""
+    return {**_run_ref(res, counts, wall), "local_steps": res.local_steps,
+            "file_digests": golden["digests"],
+            "file_final": {k: golden["final"][k] for k in (
+                "versions", "dispatches", "dropped", "launched")}}
+
+
+def phase_fedlm(torch, smi: str) -> tuple:
     """The fed-lm world on the card: fedasync and fedpsa on the sequential
     engine and on the cohort engine with both member kernels against
     ``tests/golden/fed-lm-smoke.json`` (RTOL/ATOL; counters and launch
     counts exact), fedpsa cohort/grouped again (bit-equal digests), and the
     train CLI (``python -m repro_torch.launch.train --arch fed-lm-smoke
     --seq 16``'s ``main``) as a user runs it. Returns launch counts by
-    path."""
+    path, and the cohort/grouped runs by (policy, window 0): the
+    references of the sweeps and of ``[mesh]``."""
     from repro_torch.core.psa import PSAConfig
     from repro_torch.federated.simulator import SimConfig, run_algorithm
     from repro_torch.kernels import ops
@@ -3770,7 +3845,7 @@ def phase_fedlm(torch, smi: str) -> dict:
     cfg, clients, test, calib, params = _fedlm_world()
     with open(os.path.join(ROOT, "tests", "golden", "fed-lm-smoke.json")) as fh:
         golden = json.load(fh)["policies"]
-    paths, digests = {}, {}
+    paths, digests, refs = {}, {}, {}
     runs = [(n, e, mk) for n in FEDLM_POLICIES for e, mk in ENGINE_SETTINGS]
     for name, engine, mk in runs + [("fedpsa", "cohort", "grouped")]:
         what = f"fed-lm {name} {engine}/{mk}"
@@ -3812,6 +3887,8 @@ def phase_fedlm(torch, smi: str) -> dict:
                 raise AssertionError(f"{what}: a repeated run differs")
             continue
         digests[key] = (got, res.accuracies)
+        if (engine, mk) == ("cohort", "grouped"):
+            refs[name, 0] = _fedlm_ref(res, counts, wall, g)
         paths[f"fed-lm-{name}-{engine}-{mk}"] = counts
         log(f"[fed-lm] {name} {engine}/{mk}: {len(got)} digests match (max rel "
             f"{rel:.2e}), local steps {res.local_steps}, cohorts={res.cohorts} "
@@ -3842,16 +3919,17 @@ def phase_fedlm(torch, smi: str) -> dict:
         f"aulc={res.aulc:.4f} dispatches={res.dispatches} "
         f"local steps {res.local_steps}, {wall:.2f}s, launches={counts} on "
         f"{smi}")
-    return paths
+    return paths, refs
 
 
-def phase_fedlm_window(torch, smi: str) -> dict:
+def phase_fedlm_window(torch, smi: str) -> tuple:
     """The fed-lm world with a sliding window of 8 (its sequences are 16
     tokens, so the window bites): fedasync and fedpsa on the cohort engine
     under ``member_kernel="grouped"`` against the reference's runs in
     ``FEDLM_WINDOW_FIXTURE`` (RTOL/ATOL on the digests, accuracies within
     2e-3, counters exact), with exact launch counts (``_fedlm_want``: every
-    attention launch is windowed). Returns launch counts by path."""
+    attention launch is windowed). Returns launch counts by path and the
+    runs by (policy, window), as ``phase_fedlm``."""
     from repro_torch.core.psa import PSAConfig
     from repro_torch.federated.simulator import SimConfig, run_algorithm
     from repro_torch.kernels import ops
@@ -3861,7 +3939,7 @@ def phase_fedlm_window(torch, smi: str) -> dict:
         fixture = json.load(fh)
     if fixture["sliding_window"] != FEDLM_WINDOW:
         raise AssertionError(f"fixture window {fixture['sliding_window']}")
-    paths = {}
+    paths, refs = {}, {}
     for name in FEDLM_POLICIES:
         what = f"fed-lm window={FEDLM_WINDOW} {name} cohort/grouped"
         kw = (dict(psa_cfg=PSAConfig(**GOLDEN_PSA), calib_batch=calib)
@@ -3890,10 +3968,145 @@ def phase_fedlm_window(torch, smi: str) -> dict:
             raise AssertionError(f"{what}: launches {counts} != {want_counts}")
         rel = float(np.max(np.abs(got - exp) / (np.abs(exp) + ATOL / RTOL)))
         paths[f"fed-lm-window{FEDLM_WINDOW}-{name}-cohort-grouped"] = counts
+        refs[name, FEDLM_WINDOW] = _fedlm_ref(res, counts, wall, want)
         log(f"[fed-lm] {what}: {len(got)} digests match the reference's "
             f"(max rel {rel:.2e}), local steps {res.local_steps}, "
             f"versions={res.versions} final={res.final_accuracy:.4f} "
             f"{wall:.2f}s, launches={counts} on {smi}")
+    return paths, refs
+
+
+def phase_fedlm_sweeps(torch, smi: str, refs: dict) -> dict:
+    """3-lane ``run_sweep``s of the fed-lm world (data seeds [0, 0, 1234],
+    ``SWEEP_HYPER`` on lane 1): fedasync and fedpsa on both member kernels,
+    and fedpsa under ``"grouped"`` once more with a window of 8. Lane 0
+    holds the golden (the window fixture with the window), every lane the
+    reference's ``run_sweep`` lane (``FEDLM_SWEEP_FIXTURE``), at
+    RTOL/ATOL with times and counters exact; launch counts exact
+    (``_fedlm_want`` over S lanes: ``buffer_agg`` S x versions,
+    ``sens_sketch`` waves + S x (versions + 1) for fedpsa), with the local
+    steps and ``grouped_matmul`` of the standalone cohort/grouped run in
+    ``refs`` (the same waves). Returns launch counts by path."""
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated import SimConfig, SweepConfig, run_sweep
+    from repro_torch.kernels import ops
+    cfg0, clients, test, calib, params = _fedlm_world()
+    with open(FEDLM_SWEEP_FIXTURE) as fh:
+        fixture = json.load(fh)
+    if fixture["sim"] != FEDLM_SIM or fixture["data_seeds"] != SWEEP_SEEDS:
+        raise AssertionError(f"sweep fixture for {fixture['sim']}, "
+                             f"{fixture['data_seeds']}")
+    with open(os.path.join(ROOT, "tests", "golden", "fed-lm-smoke.json")) as fh:
+        golden = json.load(fh)["policies"]
+    with open(FEDLM_WINDOW_FIXTURE) as fh:
+        windowed = json.load(fh)["policies"]
+    paths = {}
+    cases = [(n, mk, 0) for n in FEDLM_POLICIES for mk in ("vmap", "grouped")]
+    for name, mk, window in cases + [("fedpsa", "grouped", FEDLM_WINDOW)]:
+        what = f"fed-lm sweep {name} cohort/{mk} window={window}"
+        cfg = dataclasses.replace(cfg0, sliding_window=window) if window \
+            else cfg0
+        kw = (dict(psa_cfg=PSAConfig(**GOLDEN_PSA), calib_batch=calib)
+              if name == "fedpsa" else {})
+        sweep = SweepConfig(data_seeds=SWEEP_SEEDS,
+                            policy_params=[None, SWEEP_HYPER[name], None])
+        sim = SimConfig(engine="cohort", member_kernel=mk, device="cuda",
+                        record_trajectory=True, **FEDLM_SIM)
+        res, wall, mem, counts = _timed_run(torch, lambda: run_sweep(
+            name, cfg, params, clients, test, sim, sweep, **kw))
+        one = (windowed if window else golden)[name]
+        np.testing.assert_allclose(np.asarray(res.digests[0]),
+                                   np.asarray(one["digests"]), rtol=RTOL,
+                                   atol=ATOL)
+        lanes = fixture["sweeps"][f"{name}/w{window}"]
+        if res.times != lanes["times"]:
+            raise AssertionError(f"{what}: times {res.times} != "
+                                 f"{lanes['times']}")
+        for key in ("versions", "dispatches", "dropped", "launched",
+                    "cohorts"):
+            if getattr(res, key) != lanes["final"][key] or (
+                    key in one["final"]
+                    and getattr(res, key) != one["final"][key]):
+                raise AssertionError(f"{what}: {key} {getattr(res, key)}")
+        rel = []
+        for s in range(res.num_lanes):
+            got, want = (np.asarray(res.digests[s]),
+                         np.asarray(lanes["digests"][s]))
+            if got.shape != want.shape:
+                raise AssertionError(f"{what}: lane {s} {got.shape} != "
+                                     f"{want.shape}")
+            np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+            np.testing.assert_allclose(res.lane_accuracies[s],
+                                       lanes["lane_accuracies"][s], atol=2e-3)
+            rel.append(float(np.max(np.abs(got - want)
+                                    / (np.abs(want) + ATOL / RTOL))))
+        solo = refs[name, window]
+        if res.local_steps != solo["local_steps"]:
+            raise AssertionError(f"{what}: local steps {res.local_steps} != "
+                                 f"the standalone run's {solo['local_steps']}")
+        want_counts = _fedlm_want(name, res, cfg, mk == "grouped")
+        if mk == "grouped" and \
+                want_counts["grouped_matmul"] != solo["counts"]["grouped_matmul"]:
+            raise AssertionError(f"{what}: grouped_matmul "
+                                 f"{want_counts['grouped_matmul']} != the "
+                                 f"standalone run's "
+                                 f"{solo['counts']['grouped_matmul']}")
+        if counts != want_counts:
+            raise AssertionError(f"{what}: launches {counts} != "
+                                 f"{want_counts}")
+        paths[f"fed-lm-sweep-{name}-{mk}-w{window}"] = counts
+        log(f"[fed-lm] {what} 3 lanes: lane 0 holds the "
+            f"{'window fixture' if window else 'golden'}, lanes vs the "
+            f"reference's max rel {[f'{r:.2e}' for r in rel]}; "
+            f"cohorts={res.cohorts} versions={res.versions} local steps "
+            f"{res.local_steps} {wall:.2f}s ({wall / res.dispatches:.4f} "
+            f"s/receive; one lane {solo['s_per_receive']:.4f}) {mem} "
+            f"launches={counts} on {smi}")
+    return paths
+
+
+def phase_fedlm_policies(torch, smi: str) -> dict:
+    """The other five policies on the fed-lm world (``FEDLM_POLICY_RUNS``:
+    fedbuff, ca2fl, fedfa, fedpac and asyncfeded with its l2, cosine and
+    sketch metrics) on cohort/grouped at the fixture's horizon (3,000)
+    against the reference's runs in ``FEDLM_POLICY_FIXTURE`` (RTOL/ATOL,
+    accuracies within 2e-3, counters exact), with exact launch counts
+    (``_fedlm_want``). Returns launch counts by path."""
+    from repro_torch.federated import SimConfig, run_algorithm
+    cfg, clients, test, calib, params = _fedlm_world()
+    with open(FEDLM_POLICY_FIXTURE) as fh:
+        fixture = json.load(fh)
+    paths = {}
+    for name, metric in FEDLM_POLICY_RUNS:
+        what = f"fed-lm {name}/{metric} cohort/grouped"
+        want = fixture["runs"][f"{name}/{metric}"]
+        kw = ({"server_kwargs": {"metric": metric}} if name == "asyncfeded"
+              else {})
+        sim = SimConfig(engine="cohort", member_kernel="grouped",
+                        device="cuda", record_trajectory=True,
+                        **fixture["sim"])
+        res, wall, mem, counts = _timed_run(torch, lambda: run_algorithm(
+            name, cfg, params, clients, test, sim, **kw))
+        got, exp = np.asarray(res.digests), np.asarray(want["digests"])
+        if got.shape != exp.shape:
+            raise AssertionError(f"{what}: {got.shape} != {exp.shape}")
+        np.testing.assert_allclose(got, exp, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(res.accuracies, want["accuracies"],
+                                   atol=2e-3)
+        for key, val in want["final"].items():
+            if key != "final_accuracy" and getattr(res, key) != val:
+                raise AssertionError(f"{what}: {key} {getattr(res, key)} != "
+                                     f"{val}")
+        want_counts = _fedlm_want(name, res, cfg, True, metric)
+        if counts != want_counts:
+            raise AssertionError(f"{what}: launches {counts} != "
+                                 f"{want_counts}")
+        rel = float(np.max(np.abs(got - exp) / (np.abs(exp) + ATOL / RTOL)))
+        paths[f"fed-lm-{name}-{metric}-cohort-grouped"] = counts
+        log(f"[fed-lm] {what}: {len(got)} digests match the reference's "
+            f"(max rel {rel:.2e}), versions={res.versions} local steps "
+            f"{res.local_steps} {wall:.2f}s ({wall / res.dispatches:.4f} "
+            f"s/receive) {mem} launches={counts} on {smi}")
     return paths
 
 
@@ -3913,6 +4126,103 @@ def _leaf_checksums(torch, tree) -> list:
     return out
 
 
+# remat "dots" nested two levels deep: llama3-405b-smoke cut to 6 layers in
+# 3 scan groups, a selective checkpoint inside a selective checkpoint
+REMAT_NESTED = dict(arch="llama3-405b-smoke", num_layers=6, scan_groups=3)
+
+
+def phase_fedlm_remat(torch, smi: str) -> None:
+    """Remat "dots" on the card at the nested depth ``REMAT_NESTED``: the
+    loss and every gradient under "none", "full" and "dots" bit-equal, for
+    one model and for a wave of 3 members through ``grouped_matmul``, with
+    the attention kernels' launches of each setting."""
+    from repro_torch.common.tree import (FlatSpec, tree_leaves,
+                                         tree_unflatten_like)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import member_math, registry
+    from repro_torch.models import model as M
+    base = dataclasses.replace(get_config(REMAT_NESTED["arch"]),
+                               num_layers=REMAT_NESTED["num_layers"],
+                               scan_groups=REMAT_NESTED["scan_groups"])
+    fam = registry.get_family(base)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    init = M.init_params(gen, base, "cuda")
+    spec = FlatSpec(init)
+    wave = torch.stack([spec.flatten(init) * (1 + 0.01 * i)
+                        for i in range(3)])
+    toks = torch.randint(0, base.vocab_size, (3, 2, 64), device="cuda",
+                         generator=gen)
+    for members in (False, True):
+        got = {}
+        for remat in ("none", "full", "dots"):
+            cfg = dataclasses.replace(base, remat=remat)
+            ops.reset_launch_counts()
+            if members:
+                w = wave.clone().requires_grad_(True)
+                vm = torch.ones((3, 2), device="cuda")
+                batch = fam.masked_batch(toks, toks.clone(), vm, vm.sum(1))
+                with member_math.routing("grouped"):
+                    loss = fam.client_loss(spec.unflatten(w), batch, cfg,
+                                           members=True).sum()
+                    grads = torch.autograd.grad(loss, [w])
+            else:
+                leaves = [x.detach().requires_grad_(True)
+                          for x in tree_leaves(init)]
+                p = tree_unflatten_like(init, leaves)
+                loss = M.loss_fn(p, {"tokens": toks[0], "labels": toks[0]},
+                                 cfg)
+                grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            got[remat] = (loss.detach(), [g.detach() for g in grads],
+                          ops.launch_counts())
+        same = all(torch.equal(got[r][0], got["none"][0])
+                   and all(torch.equal(a, b) for a, b in
+                           zip(got[r][1], got["none"][1]))
+                   for r in ("full", "dots"))
+        log(f"[fed-lm] remat {REMAT_NESTED} members={members}: none, full "
+            f"and dots bit-equal {same}; launches "
+            f"{ {r: {k: v for k, v in c.items() if v} for r, (_, _, c) in got.items()} } "
+            f"on {smi}")
+        if not same:
+            raise AssertionError(f"remat dots at {REMAT_NESTED}, members="
+                                 f"{members}: not bit-equal to remat none")
+        if got["dots"][2] != got["full"][2]:
+            raise AssertionError(f"remat dots launches {got['dots'][2]} != "
+                                 f"full's {got['full'][2]}")
+
+
+def _full_width_update(torch, params, cfg, ds, kw: dict, profiled: bool):
+    """One ``local_update`` on the card: (delta's leaf checksums, finite,
+    dtypes, wall s, peak bytes, launch counts, the profile or None)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.federated.client import local_update
+    from repro_torch.kernels import ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    prof = profile(activities=[ProfilerActivity.CUDA]) if profiled else None
+    if prof is not None:
+        prof.__enter__()
+    t0 = time.perf_counter()
+    delta, w = local_update(params, cfg, ds, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del w
+    finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(delta))
+    dtypes = sorted({str(x.dtype) for x in tree_leaves(delta)})
+    sums = _leaf_checksums(torch, delta)
+    del delta
+    return sums, finite, dtypes, wall, peak, counts, prof
+
+
 def phase_fedlm_full(torch, dev, smi: str) -> dict:
     """The client's local SGD at full width: ``federated.client.
     local_update`` on ``phi4-mini-3.8b`` (32 layers, bf16, remat "full",
@@ -3923,95 +4233,99 @@ def phase_fedlm_full(torch, dev, smi: str) -> dict:
     kernel; the delta finite; a second run bit-equal (leaf checksums); in
     the second run's device-only profile, the backward's tensor-core
     kernels ``bwd_dq_tc`` and ``bwd_dkdv_tc`` once each a backward call.
-    Prints seconds a step, peak device memory and the device's busy
-    share."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.common.tree import tree_leaves
+    Then the same update twice under remat "dots" (JAX's
+    ``dots_with_no_batch_dims_saveable``: the shared-weight products'
+    outputs kept, the attention recomputed, so the same launches), the
+    second profiled: bit-equal to "full". Prints seconds a step, peak
+    device memory and the device's busy share of each setting."""
     from repro_torch.configs import get_config
     from repro_torch.data import (ClientDataset, SyntheticClassification,
                                   make_lm_corpus)
-    from repro_torch.federated.client import local_update
-    from repro_torch.kernels import ops
     from repro_torch.models import model as M
-    F = FULL_LM
-    cfg = get_config(F["arch"])
+    cfg = get_config(FULL_LM["arch"])
     gc.collect()   # earlier phases' tensors in reference cycles
     torch.cuda.empty_cache()
+    params = M.init_params(torch.Generator(device=dev).manual_seed(
+        FULL_LM["seed"]), cfg, dev)
+
+    F = FULL_LM
     toks = make_lm_corpus(F["seqs"] * F["seq"], vocab=cfg.vocab_size,
                           seed=F["seed"]).reshape(F["seqs"], F["seq"])
     ds = ClientDataset(SyntheticClassification(x=toks, y=toks,
                                                num_classes=cfg.vocab_size))
-    params = M.init_params(torch.Generator(device=dev).manual_seed(F["seed"]),
-                           cfg, dev)
     steps = F["seqs"] // F["batch"]
     kw = dict(epochs=1, batch_size=F["batch"], lr=F["lr"], seed=F["seed"])
-    sums, stats = [], {}
-    for run in range(2):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        prof = profile(activities=[ProfilerActivity.CUDA]) if run else None
-        if prof is not None:
-            prof.__enter__()
-        t0 = time.perf_counter()
-        delta, w = local_update(params, cfg, ds, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if prof is not None:
-            prof.__exit__(None, None, None)
-        counts = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        want = {k: 0 for k in counts}
-        want["flash_attention"] = steps * 2 * cfg.num_layers
-        want["flash_attention_bwd"] = steps * cfg.num_layers
-        del w
-        finite = all(bool(torch.isfinite(x).all())
-                     for x in tree_leaves(delta))
-        dtypes = sorted({str(x.dtype) for x in tree_leaves(delta)})
-        sums.append(_leaf_checksums(torch, delta))
-        del delta
-        log(f"[fed-lm] full width {cfg.name} local_update run {run}: {steps} "
-            f"steps of {F['batch']} x {F['seq']} tokens, {wall:.3f}s "
+    want = {k: 0 for k in PORT_KERNELS}
+    want["flash_attention"] = steps * 2 * cfg.num_layers
+    want["flash_attention_bwd"] = steps * cfg.num_layers
+    stats, sums = {}, {}
+    for remat, profiled in (("full", False), ("full", True), ("dots", False),
+                            ("dots", True)):
+        got, finite, dtypes, wall, peak, counts, prof = _full_width_update(
+            torch, params, dataclasses.replace(cfg, remat=remat), ds, kw,
+            profiled)
+        log(f"[fed-lm] full width {cfg.name} remat={remat} local_update: "
+            f"{steps} steps of {F['batch']} x {F['seq']} tokens, {wall:.3f}s "
             f"({wall / steps:.3f} s/step), peak device memory "
             f"{peak / 2**30:.2f} GiB, delta finite {finite} {dtypes}, "
-            f"launches={counts} on {smi}")
+            f"launches={counts}{' profiled' if profiled else ''} on {smi}")
         if counts != want or not finite:
-            raise AssertionError(f"full-width local_update: launches {counts}"
-                                 f" != {want}, finite {finite}")
-        if prof is not None:
-            stats["busy_share"] = _device_busy(
-                torch, prof, f"fed-lm full width local_update, {steps} steps",
-                wall)
-            # the bf16 hd-128 backward went to the tensor-core kernels:
-            # each of the two launched once a backward call
-            from torch.autograd import DeviceType
-            tc, tc_us = {}, {}
-            for n in ("bwd_dq_tc", "bwd_dkdv_tc"):
-                evs = [e for e in prof.events() if n in e.name
-                       and e.device_type == DeviceType.CUDA]
-                tc[n] = len(evs)
-                tc_us[n] = sum(e.time_range.elapsed_us() for e in evs) \
-                    / max(1, len(evs))
-            log(f"[fed-lm] full width: tensor-core backward kernels in the "
-                f"trace {tc}, us a launch "
-                f"{ {n: round(u, 1) for n, u in tc_us.items()} }")
-            if set(tc.values()) != {want["flash_attention_bwd"]}:
-                raise AssertionError(f"full-width local_update: tensor-core "
-                                     f"kernels {tc}, want "
-                                     f"{want['flash_attention_bwd']} each")
-            stats["tc_kernels"] = tc
-            stats["tc_kernel_us"] = tc_us
-        stats.setdefault("s_per_step", []).append(wall / steps)
-        stats.setdefault("peak_bytes", []).append(peak)
+            raise AssertionError(f"full-width local_update remat={remat}: "
+                                 f"launches {counts} != {want}, finite "
+                                 f"{finite}")
+        if sums.setdefault(remat, got) != got:
+            raise AssertionError(f"full-width local_update remat={remat}: "
+                                 f"a repeat differs")
+        tag = "" if remat == "full" else f"{remat}_"
+        stats.setdefault(f"{tag}s_per_step", []).append(wall / steps)
+        stats.setdefault(f"{tag}peak_bytes", []).append(peak)
         stats["launches"] = counts
-    if sums[0] != sums[1]:
-        raise AssertionError("full-width local_update: the second run differs")
-    log(f"[fed-lm] full width: the two runs' deltas bit-equal (leaf "
-        f"checksums)")
+        if prof is not None:
+            _full_width_profile(torch, prof, wall, steps, want, stats, remat)
+    if sums["dots"] != sums["full"]:
+        raise AssertionError("full-width local_update: remat=dots differs "
+                             "from remat=full")
+    log(f"[fed-lm] full width: each setting's two runs and remat=dots and "
+        f"remat=full bit-equal (leaf checksums); s/step full "
+        f"{stats['s_per_step']} dots {stats['dots_s_per_step']}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return stats
+
+
+def _full_width_profile(torch, prof, wall: float, steps: int, want: dict,
+                        stats: dict, remat: str) -> None:
+    """A profiled full-width run: the device's busy share, and the bf16
+    hd-128 backward on the tensor-core kernels, each launched once a
+    backward call."""
+    from torch.autograd import DeviceType
+    stats["busy_share" if remat == "full" else f"{remat}_busy_share"] = \
+        _device_busy(torch, prof, f"fed-lm full width local_update remat="
+                     f"{remat}, {steps} steps", wall)
+    tc, tc_us = {}, {}
+    for n in ("bwd_dq_tc", "bwd_dkdv_tc"):
+        evs = [e for e in prof.events() if n in e.name
+               and e.device_type == DeviceType.CUDA]
+        tc[n] = len(evs)
+        tc_us[n] = sum(e.time_range.elapsed_us() for e in evs) \
+            / max(1, len(evs))
+    log(f"[fed-lm] full width: tensor-core backward kernels in the trace "
+        f"{tc}, us a launch { {n: round(u, 1) for n, u in tc_us.items()} }")
+    if set(tc.values()) != {want["flash_attention_bwd"]}:
+        raise AssertionError(f"full-width local_update: tensor-core kernels "
+                             f"{tc}, want {want['flash_attention_bwd']} each")
+    if remat == "full":
+        stats["tc_kernels"] = tc
+        stats["tc_kernel_us"] = tc_us
+
+
+def _seconds(what: str, fn, *args):
+    """``fn(*args)``, printing its seconds as a ``[fed-lm]`` sub-phase."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[fed-lm] {what}: {time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def main() -> int:
@@ -4044,20 +4358,33 @@ def main() -> int:
     pop_cases, pop_paths = phase_population(torch, dev, smi, mono)
     del mono
     by_path.update(full_width, **pop_paths)
-    by_path["mesh-n2-cifar"] = phase_mesh(torch, smi, golden_ref, full_ref)
+    # [fed-lm]'s small world first: its single-device runs are what [mesh]
+    # holds the fed-lm mesh runs to
+    t0 = time.perf_counter()
+    fedlm_kern = _seconds("kernels", phase_fedlm_kernels, torch, dev)
+    fedlm_paths, fedlm_ref = _seconds("goldens", phase_fedlm, torch, smi)
+    paths, refs = _seconds("window", phase_fedlm_window, torch, smi)
+    fedlm_paths.update(paths)
+    fedlm_ref.update(refs)
+    fedlm_paths.update(_seconds("sweeps", phase_fedlm_sweeps, torch, smi,
+                                fedlm_ref))
+    fedlm_paths.update(_seconds("policies", phase_fedlm_policies, torch,
+                                smi))
+    log(f"[fed-lm] small-world phases {time.perf_counter() - t0:.1f}s")
+    by_path["mesh-n2-cifar"], paths = phase_mesh(torch, smi, golden_ref,
+                                                 full_ref, fedlm_ref)
+    fedlm_paths.update(paths)
     # the timed serve runs come before any profiler session, so no profiler
     # state is live while they run
     serve_check = phase_serve_checks(torch, dev)
     serve_counts, serve_stats = phase_serve(torch, dev, smi)
     serve_paths, serve_more = phase_serve_more(torch, dev, smi)
     t0 = time.perf_counter()
-    fedlm_kern = phase_fedlm_kernels(torch, dev)
-    fedlm_paths = phase_fedlm(torch, smi)
-    fedlm_paths.update(phase_fedlm_window(torch, smi))
-    fedlm_full = phase_fedlm_full(torch, dev, smi)
+    _seconds("remat", phase_fedlm_remat, torch, smi)
+    fedlm_full = _seconds("full width", phase_fedlm_full, torch, dev, smi)
     fedlm_paths["fed-lm-full-width"] = fedlm_full["launches"]
     by_path.update(fedlm_paths)
-    log(f"[fed-lm] phase {time.perf_counter() - t0:.1f}s")
+    log(f"[fed-lm] full-width phases {time.perf_counter() - t0:.1f}s")
     phase_profile(torch)
     phase_profile_serve(torch, dev)
     sources = {"buffer_agg": ("src/repro_torch/csrc/buffer_agg.cu",
@@ -4136,8 +4463,9 @@ def main() -> int:
     log(json.dumps({"serve": {**serve_stats, **serve_check}}))
     log(json.dumps({"serve_more": serve_more}))
     log(json.dumps({"fed_lm_full_width": {
-        k: fedlm_full[k] for k in ("s_per_step", "peak_bytes", "busy_share",
-                                   "tc_kernel_us")}}))
+        k: fedlm_full[k] for k in (
+            "s_per_step", "peak_bytes", "busy_share", "tc_kernel_us",
+            "dots_s_per_step", "dots_peak_bytes", "dots_busy_share")}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

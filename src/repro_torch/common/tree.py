@@ -47,13 +47,91 @@ def grad(loss_fn: Callable, params, *args):
     return tree_unflatten_like(p, torch.autograd.grad(loss_fn(p, *args), leaves))
 
 
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
 def tree_sub(a, b):
     return tree_map(torch.sub, a, b)
+
+
+def tree_scale(a, s):
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_axpy(alpha, x, y):
+    """alpha * x + y."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_dot(a, b) -> torch.Tensor:
+    """Sum of elementwise products across the whole tree (float32
+    accumulation, leaf by leaf in sorted-key order)."""
+    return sum(torch.sum(x.float() * y.float())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
 def tree_sq_norm(a) -> torch.Tensor:
     """Squared l2 norm of the flattened tree (float32 accumulation)."""
     return sum(torch.sum(torch.square(x.float())) for x in tree_leaves(a))
+
+
+def tree_norm(a) -> torch.Tensor:
+    return torch.sqrt(tree_sq_norm(a))
+
+
+def tree_size(a) -> int:
+    """Total number of scalar parameters (a host int)."""
+    return int(sum(x.numel() for x in tree_leaves(a)))
+
+
+def tree_weighted_sum(trees, weights):
+    """sum_i weights[i] * trees[i] for a list of trees, in float32, each
+    leaf cast back to the first tree's dtype."""
+    def leaf_sum(*leaves):
+        stacked = torch.stack([l.float() for l in leaves])
+        w = torch.as_tensor(weights, device=stacked.device).float().reshape(
+            (-1,) + (1,) * (stacked.dim() - 1))
+        return torch.sum(stacked * w, dim=0).to(leaves[0].dtype)
+
+    return tree_map(leaf_sum, *trees)
+
+
+def tree_cast(a, dtype):
+    """Floating-point leaves cast to ``dtype``; other leaves as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, a)
+
+
+def tree_all_finite(a) -> torch.Tensor:
+    return torch.stack([torch.all(torch.isfinite(x))
+                        for x in tree_leaves(a)]).all()
+
+
+def flatten_to_vector(a):
+    """All leaves as one f32 vector, in sorted-key order. Returns ``(vec,
+    unflatten)``; ``unflatten`` restores the shapes and dtypes."""
+    leaves = tree_leaves(a)
+    vec = torch.cat([l.float().reshape(-1) for l in leaves])
+
+    def unflatten(v):
+        return unflatten_from_vector(v, a)
+
+    return vec, unflatten
+
+
+def unflatten_from_vector(vec, like):
+    """Reshape a flat vector into the structure, shapes and dtypes of
+    ``like``."""
+    out, off = [], 0
+    for l in tree_leaves(like):
+        n = l.numel()
+        out.append(vec[off:off + n].reshape(l.shape).to(l.dtype))
+        off += n
+    return tree_unflatten_like(like, out)
 
 
 def ring_update(data: torch.Tensor, row: torch.Tensor, count: int) -> int:

@@ -5,6 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.common import tree
 from repro_torch.kernels.buffer_agg import buffer_agg
 
 
@@ -15,6 +16,15 @@ def psa_weights(kappas: torch.Tensor, temp: torch.Tensor) -> torch.Tensor:
 
 def uniform_weights(n: int, device="cpu") -> torch.Tensor:
     return torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
+
+
+def aggregate_buffer(global_params, updates, weights: torch.Tensor,
+                     server_lr: float = 1.0):
+    """Eq. 20 over parameter trees: w_g <- w_g + sum_i Weight_i * dw_i (in
+    float32). The server's flat path is ``aggregate_flat``."""
+    delta = tree.tree_weighted_sum(list(updates),
+                                   weights.float() * server_lr)
+    return tree.tree_add(global_params, delta)
 
 
 def aggregate_flat(global_vec: torch.Tensor, updates: torch.Tensor,

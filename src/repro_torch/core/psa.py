@@ -59,6 +59,14 @@ class PSAConfig:
     use_thermometer: bool = True  # False => fixed Temp = delta+gamma (w/o T ablation)
 
 
+def structural(cfg: PSAConfig) -> tuple:
+    """The shape- and program-determining subset of a PSAConfig, which
+    sweep lanes share; gamma, delta, server_lr and use_thermometer may vary
+    per lane."""
+    return (cfg.buffer_size, cfg.queue_len, cfg.sketch_k, cfg.sketch_seed,
+            cfg.fisher_microbatches, cfg.use_sensitivity)
+
+
 def client_sketch(loss_fn: Callable, params, calib_batch, cfg: PSAConfig
                   ) -> torch.Tensor:
     """What a client uploads beside its update: the k-dim sensitivity

@@ -76,6 +76,13 @@ def sensitivity_from_parts(params, grads, fisher):
                     params, grads, fisher)
 
 
+def first_order_sensitivity(params, grads):
+    """|g * theta| elementwise over the tree (f32): the SNIP-style
+    first-order variant (ablation)."""
+    return tree_map(lambda p, g: torch.abs(g.float() * p.float()), params,
+                    grads)
+
+
 def sensitivity(loss_fn: Callable, params, calib_batch: dict,
                 num_micro: int = 4):
     """Eq. 8 sensitivity tree."""

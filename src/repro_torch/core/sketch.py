@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.common.tree import tree_leaves
@@ -69,6 +70,18 @@ def sketch_tree(tree, seed: int = 0, k: int = DEFAULT_K) -> torch.Tensor:
     for i, leaf in enumerate(leaves):
         total = total + sketch_leaf(leaf, leaf_seed_host(seed, i), k)
     return total
+
+
+def dense_projection(seed: int, leaf_shapes, k: int = DEFAULT_K) -> np.ndarray:
+    """The (k, d) projection R materialised, for SMALL models: a test
+    oracle of ``sketch_tree``, whose leaf order its columns follow."""
+    cols = []
+    for i, shape in enumerate(leaf_shapes):
+        lin = torch.arange(math.prod(shape), dtype=torch.int64)
+        seed_i = leaf_seed_host(seed, i)
+        cols.append(torch.stack([rademacher_row(seed_i, lin, r, k)
+                                 for r in range(k)]).numpy())
+    return np.concatenate(cols, axis=1) / np.sqrt(k)
 
 
 def cosine(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

@@ -7,5 +7,6 @@ from repro_torch.data.partition import (dirichlet_partition,
                                         skewed_client_sizes)
 from repro_torch.data.calibration import make_calibration_batch
 from repro_torch.data.loader import (ClientDataset, ClientSlabStore,
-                                     StackedClients, data_kind_of,
+                                     StackedClients, batch_iterator,
+                                     data_kind_of,
                                      epoch_batch_indices)

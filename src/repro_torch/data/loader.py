@@ -51,6 +51,21 @@ def epoch_batch_indices(n: int, num_epochs: int, batch_size: int,
     return out
 
 
+def batch_iterator(ds, batch_size: int, seed: int = 0) -> Iterator[dict]:
+    """Endless shuffled batches of ``ds`` (host numpy, the reference's
+    stream): every batch has exactly ``batch_size`` rows, so each epoch's
+    last ``n % batch_size`` rows of its permutation are dropped, and
+    ``batch_size > n`` yields nothing."""
+    rng = np.random.RandomState(seed)
+    n = len(ds)
+    while True:
+        order = rng.permutation(n)
+        for start in range(0, n - batch_size + 1, batch_size):
+            idx = order[start:start + batch_size]
+            yield {"x": ds.x[idx].astype(np.float32),
+                   "y": ds.y[idx].astype(np.int32)}
+
+
 @dataclass
 class ClientDataset:
     data: SyntheticClassification

@@ -48,11 +48,10 @@ reference, and raise ``ValueError`` with a mesh. No path falls back to
 another.
 
 Token families (the dense LM, ``data_kind == "tokens"``: federated LM
-fine-tuning, ``configs.fed_lm``) run ``run_async`` on both engines, over the
-monolithic slab or streamed client shards, with ``flash_attention`` and its
-backward kernel in every local step, evaluation and FedPSA sketch. A sweep
-or a mesh over a token family raises ``NotImplementedError`` (ROADMAP.md
-Queue 1 item 10d).
+fine-tuning, ``configs.fed_lm``) run on every runner the image models run
+on: ``run_async`` on both engines, over the monolithic slab or streamed
+client shards, ``run_sweep``'s lanes and the mesh, with ``flash_attention``
+and its backward kernel in every local step, evaluation and FedPSA sketch.
 """
 from __future__ import annotations
 
@@ -185,21 +184,12 @@ class SimResult:
         return float(_trapezoid(a, t) / span)
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see ROADMAP.md {item}")
-
-
 def _resolve_engine(sim: SimConfig, cfg: ModelConfig) -> str:
     """Validate ``sim.engine`` for ``cfg``. A family the registry does not
-    hold raises, and so does a mesh over a token family; the port never
-    falls back to another engine."""
+    hold raises; the port never falls back to another engine."""
     if sim.engine not in ENGINES:
         raise ValueError(f"unknown engine {sim.engine!r}; known: {ENGINES}")
-    fam = registry.get_family(cfg)
-    if sim.mesh is not None and fam.data_kind == "tokens":
-        raise _unported(f"SimConfig.mesh for the token family "
-                        f"{cfg.family!r}", "Queue 1 item 10d")
+    registry.get_family(cfg)
     return sim.engine
 
 
@@ -289,6 +279,22 @@ def make_sketch_fn_flat(cfg: ModelConfig, calib_batch: dict,
     def fn(w_stack):
         return psa_lib.client_sketch_members(member_loss, spec, w_stack, calib,
                                              psa_cfg)
+
+    return fn
+
+
+def make_sketch_fn_lanes(cfg: ModelConfig, calib_batch: dict,
+                         psa_cfg: psa_lib.PSAConfig, spec: FlatSpec,
+                         device="cpu") -> Callable:
+    """(S, B, d) lane stacks of flat client models -> (S, B, k) sketches:
+    ``make_sketch_fn_flat`` over the S*B rows, one ``sens_sketch`` launch a
+    wave for every lane (the reference's nested ``vmap`` of
+    ``client_sketch``)."""
+    flat = make_sketch_fn_flat(cfg, calib_batch, psa_cfg, spec, device)
+
+    def fn(w_lanes):
+        S, B = int(w_lanes.shape[0]), int(w_lanes.shape[1])
+        return flat(w_lanes.reshape(S * B, -1)).view(S, B, -1)
 
     return fn
 
@@ -733,8 +739,10 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
     and flushes — the timeline is lane-invariant — with a lane axis on
     every tensor: the (S, B, d) snapshot stack trains as one wave
     (``CohortEngine.sweep_update``), each lane's seeds from its data seed,
-    and ``evaluate`` takes the (S, d) lane stack. A single run's
-    ``evaluate`` takes the params tree.
+    ``evaluate`` takes the (S, d) lane stack and ``sketch_rows`` the (S,
+    B, d) client models (``make_sketch_fn_lanes``). A single run's
+    ``evaluate`` takes the params tree, its ``sketch_rows`` (B, d) rows
+    (``make_sketch_fn_flat``).
     """
     spec = server.policy.spec
     engine = _make_cohort_engine(cfg, client_datasets, spec, sim, device,
@@ -775,9 +783,7 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
                     gather([ev.snapshot for ev in ok_events]),
                     [ev.cid for ev in ok_events], lrs, seeds)
                 if sketch_rows is not None:
-                    sketches = engine.map_members(
-                        sketch_rows, w_stack.reshape(-1, spec.size)).view(
-                            *w_stack.shape[:-1], -1)
+                    sketches = engine.map_members(sketch_rows, w_stack)
                 result.cohorts += 1
 
             # Receives are deferred into ``pending`` and flushed as one
@@ -857,8 +863,7 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
             if t_over is not None:
                 t = t_over
                 break
-        if not lanes:
-            result.local_steps += engine.steps_run
+        result.local_steps += engine.steps_run
         return t
     finally:
         if store is not None:
@@ -934,6 +939,8 @@ class SweepResult:
     launched: int = 0
     dropped: int = 0
     cohorts: int = 0
+    local_steps: int = 0              # local SGD steps of the lanes' waves
+    #                                   (a wave's step counts once)
     engine: str = "cohort"
     receive_log: List[dict] = field(default_factory=list)
     digests: List[List[List[float]]] = field(default_factory=list)
@@ -943,7 +950,8 @@ class SweepResult:
             times=list(self.times), accuracies=list(self.lane_accuracies[s]),
             final_accuracy=self.final_accuracy[s], versions=self.versions,
             dispatches=self.dispatches, launched=self.launched,
-            dropped=self.dropped, cohorts=self.cohorts, engine=self.engine,
+            dropped=self.dropped, cohorts=self.cohorts,
+            local_steps=self.local_steps, engine=self.engine,
             receive_log=list(self.receive_log),
             digests=[list(d) for d in self.digests[s]])
 
@@ -982,9 +990,6 @@ def run_sweep(server_name: str, cfg: ModelConfig, init_params,
                          "synchronous fedavg per seed instead")
     if sim.mesh is not None:
         raise ValueError("run_sweep is single-device; drop SimConfig.mesh")
-    if registry.get_family(cfg).data_kind == "tokens":
-        raise _unported(f"run_sweep for the token family {cfg.family!r}",
-                        "Queue 1 item 10d")
     if sim.checkpoint_dir:
         raise ValueError("checkpointing supports single runs, not sweeps")
     if _resolve_engine(sim, cfg) != "cohort":
@@ -1016,12 +1021,12 @@ def run_sweep(server_name: str, cfg: ModelConfig, init_params,
     timeline, data_sizes, dispatcher = _dispatcher(
         sim, streams, scheduler, server, result, client_datasets, True)
     dispatcher.dispatch_many(np.zeros(_concurrency(sim)))
-    sketch_rows = (make_sketch_fn_flat(cfg, calib_batch, psa_cfg, spec,
-                                       device)
-                   if server.needs_sketch else None)
+    sketch_lanes = (make_sketch_fn_lanes(cfg, calib_batch, psa_cfg, spec,
+                                         device)
+                    if server.needs_sketch else None)
     t = _drain_cohort(server, cfg, client_datasets, sim,
                       dispatcher.dispatch_many, timeline, evaluate, result,
-                      data_sizes, sketch_rows, digest_fn, device,
+                      data_sizes, sketch_lanes, digest_fn, device,
                       data_seeds=data_seeds)
     result.final_accuracy = [float(a) for a in evaluate(server.flat_params)]
     result.times.append(min(t, sim.horizon))

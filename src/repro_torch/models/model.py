@@ -26,8 +26,11 @@ indexes them as views (no per-layer copies), where the reference scans;
 reference wraps its scan body in ``jax.checkpoint``, and with
 ``cfg.scan_groups = G > 1`` (``num_superblocks % G == 0``) also each group
 of ``num_superblocks / G`` superblocks around those: the reference's
-two-level sqrt-remat, which saves G carries. Two layer loops share
-the parameters: the full-sequence one (``backbone_forward``: ``loss_fn``,
+two-level sqrt-remat, which saves G carries. ``cfg.remat == "dots"``
+checkpoints the same regions selectively, under JAX's
+``dots_with_no_batch_dims_saveable`` rule (``_dots_policy``): the outputs
+of products without a batch axis are kept and the rest is recomputed.
+Two layer loops share the parameters: the full-sequence one (``backbone_forward``: ``loss_fn``,
 the next-token cross-entropy in sequence chunks of 1,024;
 ``forward_logits``, every position's logits; ``prefill``, which also fills
 the KV cache and returns the last position's) and ``decode_step`` (one
@@ -37,11 +40,11 @@ engine) every LM leaf carries the member axis before the superblock axis,
 ``(B, nsb, ...)``, and the tokens ``(B, n, S)``. A ``sliding_window``
 reaches every attention layer: the flash kernels' band, and a ring KV cache
 of ``min(window, max_len)`` slots. Configurations the port does not cover
-(other families, a frontend, ``remat == "dots"``) raise
-``NotImplementedError``.
+(other families, a frontend) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -50,7 +53,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.common.tree import tree_leaves, tree_map
-from repro_torch.models import layers
+from repro_torch.models import layers, member_math
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.member_math import member_conv2d, member_dot
 
@@ -278,9 +281,13 @@ def accuracy(params, batch, cfg: ModelConfig) -> torch.Tensor:
 # The dense decoder LM: init, full-sequence forward, prefill, decode
 # ---------------------------------------------------------------------------
 
+REMATS = ("none", "full", "dots")
+
+
 def check_lm(cfg: ModelConfig) -> None:
     """Raise for an LM configuration the port does not cover, naming the
-    ROADMAP.md Queue 1 item that ports it."""
+    ROADMAP.md Queue 1 item that ports it, and for a ``remat`` that is
+    none of ``REMATS``."""
     why = None
     if cfg.family != "dense":
         why, item = f"family {cfg.family!r}", "10c"
@@ -289,8 +296,9 @@ def check_lm(cfg: ModelConfig) -> None:
                      f"{cfg.ffn_pattern}"), "10c"
     elif cfg.frontend is not None:
         why, item = f"frontend {cfg.frontend!r}", "10c"
-    elif cfg.remat not in ("none", "full"):
-        why, item = f"remat={cfg.remat!r}", "10d"
+    elif cfg.remat not in REMATS:
+        raise ValueError(f"{cfg.name}: remat must be one of {REMATS}, got "
+                         f"{cfg.remat!r}")
     if why is not None:
         raise NotImplementedError(
             f"{cfg.name}: {why} is not ported (ROADMAP.md Queue 1 item "
@@ -341,11 +349,51 @@ def superblock_forward(params, x, cfg: ModelConfig, positions, cache=None,
     return x
 
 
+# JAX's ``dots_with_no_batch_dims_saveable``: a product whose operands
+# share no batch axis. ``member_dot``'s shared-weight product and the
+# projections dispatch to these two; a member-batched product (``bmm``, the
+# ``grouped_matmul`` launches) has the member axis as a batch axis, as
+# ``vmap`` gives the reference's ``dot_general`` one, and is recomputed.
+# (On the CPU the grouped kernel's plain version is one ``mm`` a group, and
+# those are kept: what is stored differs there, not the values.)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the output of a product without a batch axis; recompute the
+    rest (the attention kernels' launches, which the dispatcher does not
+    see, run again in the recompute)."""
+    CP = torch.utils.checkpoint.CheckpointPolicy
+    return CP.MUST_SAVE if op in _SAVED_DOTS else CP.PREFER_RECOMPUTE
+
+
+def _checkpoint(fn, *args, cfg: ModelConfig):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: everything
+    recomputed under ``remat == "full"``, the products of ``_dots_policy``
+    kept under ``"dots"``. The recompute runs in the forward's member-math
+    mode: it runs inside the backward, which autograd runs on its own
+    thread for a CUDA device, where the caller's ``routing`` context is not
+    set (the products would go to ``torch.matmul`` instead of
+    ``grouped_matmul``)."""
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
+    mode = member_math.current_mode()
+
+    def run(*a):
+        with member_math.routing(mode):
+            return fn(*a)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                             **kw)
+
+
 def _checkpointed(sb, x, cfg: ModelConfig, positions, members: bool):
-    """One superblock under ``torch.utils.checkpoint``."""
-    return torch.utils.checkpoint.checkpoint(
-        superblock_forward, sb, x, cfg, positions, None, members,
-        use_reentrant=False)
+    """One superblock under ``_checkpoint``."""
+    return _checkpoint(superblock_forward, sb, x, cfg, positions, None,
+                       members, cfg=cfg)
 
 
 def _group_forward(sbs, x, cfg: ModelConfig, positions, members: bool):
@@ -360,14 +408,15 @@ def backbone_forward(params, x, cfg: ModelConfig, cache=None,
                      members: bool = False):
     """All superblocks and the final norm over x (B, S, D) ((B, n, S, D)
     with ``members``) at positions 0..S-1; with ``cache`` (from
-    ``init_cache``) fills it. Under ``cfg.remat == "full"``, when autograd
-    records, each superblock is checkpointed: its activations are
-    recomputed in the backward; with ``cfg.scan_groups = G > 1`` dividing
-    the superblocks, each group of them is checkpointed too (the
-    reference's two-level remat; the same values)."""
+    ``init_cache``) fills it. Under ``cfg.remat == "full"`` or ``"dots"``,
+    when autograd records, each superblock is checkpointed: its activations
+    are recomputed in the backward, apart from ``"dots"``'s saved products;
+    with ``cfg.scan_groups = G > 1`` dividing the superblocks, each group
+    of them is checkpointed too (the reference's two-level remat). Every
+    setting gives the same values."""
     check_lm(cfg)
     positions = torch.arange(x.shape[-2], device=x.device)[None, :]
-    remat = (cfg.remat == "full" and cache is None
+    remat = (cfg.remat != "none" and cache is None
              and torch.is_grad_enabled())
     # one unbind a leaf, not a select a superblock: the backward of nsb
     # selects would write and add nsb zero-filled copies of every stacked
@@ -379,9 +428,8 @@ def backbone_forward(params, x, cfg: ModelConfig, cache=None,
     if remat and G > 1 and nsb % G == 0:
         n = nsb // G
         for g in range(G):
-            x = torch.utils.checkpoint.checkpoint(
-                _group_forward, sbs[g * n:(g + 1) * n], x, cfg, positions,
-                members, use_reentrant=False)
+            x = _checkpoint(_group_forward, sbs[g * n:(g + 1) * n], x, cfg,
+                            positions, members, cfg=cfg)
     else:
         for s, sb in enumerate(sbs):
             if remat:

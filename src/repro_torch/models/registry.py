@@ -91,8 +91,25 @@ _REGISTRY = {
 _UNPORTED = ("moe", "ssm", "hybrid")
 
 
+def register_family(entry: ModelFamily, *, override: bool = False) -> None:
+    """Register ``entry`` under ``entry.name``; the cohort engine and the
+    simulator pick it up at once. A name already registered raises unless
+    ``override``."""
+    if entry.name in _REGISTRY and not override:
+        raise ValueError(f"family {entry.name!r} already registered "
+                         f"(pass override=True to replace)")
+    if entry.data_kind not in ("image", "tokens"):
+        raise ValueError(f"family {entry.name!r}: data_kind must be 'image' "
+                         f"or 'tokens', got {entry.data_kind!r}")
+    _REGISTRY[entry.name] = entry
+
+
 def is_registered(family: str) -> bool:
     return family in _REGISTRY
+
+
+def registered_families() -> tuple:
+    return tuple(sorted(_REGISTRY))
 
 
 def get_family(family) -> ModelFamily:
@@ -104,5 +121,5 @@ def get_family(family) -> ModelFamily:
         item = "10c" if family in _UNPORTED else "10"
         raise NotImplementedError(
             f"model family {family!r} is not ported to repro_torch (ported: "
-            f"{sorted(_REGISTRY)}); see ROADMAP.md Queue 1 item {item}")
+            f"{registered_families()}); see ROADMAP.md Queue 1 item {item}")
     return entry

@@ -9,8 +9,9 @@ legacy-threefry init against the JAX init; then ``run_algorithm`` with
 engine with both member kernels, and ``fedasync`` over streamed client
 shards, reproducing ``tests/golden/fed-lm-smoke.json`` at the golden
 suite's ``RTOL=1e-4, ATOL=1e-3`` with versions, dispatches, dropped and
-launched exact; and the train CLI on the CPU. numpy copies are held
-exactly. (The reference's own fed-lm golden tests fail on the JAX here:
+launched exact; the three paths that raised until the port covered
+them (a sweep, the mesh and ``remat="dots"`` on a token family) run to
+their end; and the train CLI on the CPU. numpy copies are held exactly. (The reference's own fed-lm golden tests fail on the JAX here:
 their init is drawn with the partitionable threefry; the port's run from
 the committed init holds the golden.)
 """
@@ -110,19 +111,37 @@ def test_fed_lm_streamed_shards_match_golden(world):
 
 
 @pytest.mark.parametrize("case", ["sweep", "mesh"])
-def test_token_sweeps_and_mesh_raise(world, case):
-    """Sweep lanes and the mesh over a token family are not ported: they
-    raise, naming the ROADMAP item, and never fall back."""
-    from repro_torch.federated.simulator import SweepConfig, run_sweep
+def test_token_sweeps_and_mesh_raise(world, case, tmp_path):
+    """Sweep lanes and the mesh over a token family, which raised until the
+    port covered them, run to their end: a 2-lane fedbuff sweep whose lane
+    0 is the standalone run bit for bit, and a fedbuff run on a one-rank
+    gloo mesh that is the single-device run bit for bit. A sweep on a mesh
+    still raises, as for the image models."""
+    from repro_torch.federated import SweepConfig, run_sweep
+    from torch_dist import Ranks
     cfg, clients, test, calib = world
-    sim = SimConfig(device="cpu", **SIM)
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        if case == "sweep":
-            run_sweep("fedbuff", cfg, load_npz_params(FIXTURE), clients, test,
-                      sim, SweepConfig(num_lanes=2))
-        else:
-            run_algorithm("fedbuff", cfg, load_npz_params(FIXTURE), clients,
-                          test, dataclasses.replace(sim, mesh=object()))
+    sim = SimConfig(device="cpu", record_trajectory=True, **SIM)
+    solo = run_algorithm("fedbuff", cfg, load_npz_params(FIXTURE), clients,
+                         test, sim)
+    assert solo.versions > 0
+    if case == "sweep":
+        res = run_sweep("fedbuff", cfg, load_npz_params(FIXTURE), clients,
+                        test, sim, SweepConfig(data_seeds=[0, 7]))
+        assert res.versions == solo.versions
+        assert res.digests[0] == solo.digests
+        assert res.digests[1] != solo.digests
+        with pytest.raises(ValueError, match="single-device"):
+            run_sweep("fedbuff", cfg, load_npz_params(FIXTURE), clients,
+                      test, dataclasses.replace(sim, mesh=object()),
+                      SweepConfig(num_lanes=2))
+    else:
+        case = ("golden", "fedbuff", "cohort", "vmap", 0)
+        (rank0,) = Ranks(1, "fedlm_program", {"cases": [case]},
+                         tmp_path).results()
+        res = rank0[case]
+        assert res["digests"] == solo.digests
+        assert res["versions"] == solo.versions
+        assert res["final_accuracy"] == solo.final_accuracy
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +171,9 @@ def test_fed_lm_config_matches_reference():
 @pytest.mark.parametrize("case", ["fed-lm-ssm-smoke", "fed-lm-moe-smoke",
                                   "moe_family", "remat_dots"])
 def test_unported_token_configs_raise(case):
+    """The other LM families raise, naming the ROADMAP item; ``remat="dots"``,
+    which raised until the port covered it, runs to the "none" loss
+    (``tests/test_torch_remat_dots.py`` holds its gradients)."""
     if case.startswith("fed-lm"):
         with pytest.raises(NotImplementedError, match="item 10c"):
             tget(case)
@@ -159,12 +181,13 @@ def test_unported_token_configs_raise(case):
         with pytest.raises(NotImplementedError, match="item 10c"):
             treg.get_family("moe")
     else:
-        cfg = dataclasses.replace(tget(FED), remat="dots")
         p = load_npz_params(FIXTURE)
-        batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-                 "labels": torch.zeros((1, 4), dtype=torch.int64)}
-        with pytest.raises(NotImplementedError, match="item 10d"):
-            TM.loss_fn(p, batch, cfg)
+        batch = {"tokens": torch.arange(8).view(2, 4) % 7,
+                 "labels": torch.arange(8).view(2, 4) % 5}
+        losses = [TM.loss_fn(p, batch, dataclasses.replace(tget(FED),
+                                                           remat=remat))
+                  for remat in ("none", "dots")]
+        assert torch.isfinite(losses[0]) and torch.equal(*losses)
 
 
 @pytest.mark.parametrize("vocab,seed,n", [(32, 0, 3000), (512, 3, 2000)])

@@ -182,7 +182,8 @@ def _port_value_and_grad(tcfg, rp, batch, members=False):
 @pytest.mark.parametrize("arch,over", [
     (FED, {}), (PHI, {}), (FED, {"num_kv_heads": 1}),
     (FED, {"tie_embeddings": True}), (PHI, {"sliding_window": 8}),
-    (FED, {"sliding_window": 8})])
+    (FED, {"sliding_window": 8}), (FED, {"remat": "dots"}),
+    (PHI, {"remat": "dots", "sliding_window": 8})])
 def test_loss_and_grad_match_reference(arch, over):
     rcfg, tcfg = _pair(arch, **over)
     rp = _ref_init(arch, 1, **over)

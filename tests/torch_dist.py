@@ -450,5 +450,56 @@ def sim_program(mesh, cases: list, ckdir: str = "") -> dict:
     return out
 
 
+# tests/test_golden.py's fed-lm world (the constants fed-lm-smoke.json was
+# made with), from the committed legacy-threefry init
+FEDLM_WORLD = dict(samples=240, clients=6, alpha=0.3, seed=0, seq=16)
+FEDLM_SIM = dict(num_clients=6, horizon=6_000.0, eval_every=3_000.0, seed=0,
+                 local_epochs=2, batch_size=8)
+FEDLM_PSA = dict(queue_len=10)
+FEDLM_INIT = os.path.join(HERE, "torch_fixtures",
+                          "fed_lm_smoke_init_seed0.npz")
+
+
+def _fedlm_world(window: int = 0):
+    """``(cfg, clients, test, calib, init)`` of the fed-lm world; a
+    ``window`` > 0 sets ``cfg.sliding_window``."""
+    import dataclasses
+    from repro_torch.convert import load_npz_params
+    from repro_torch.launch.train import build_task
+    W = FEDLM_WORLD
+    cfg, clients, test, calib = build_task(
+        "fed-lm-smoke", W["samples"], W["alpha"], W["clients"], W["seed"],
+        seq_len=W["seq"])
+    if window:
+        cfg = dataclasses.replace(cfg, sliding_window=window)
+    return cfg, clients, test, calib, load_npz_params(FEDLM_INIT)
+
+
+def fedlm_program(mesh, cases: list) -> dict:
+    """Runs on the fed-lm world with ``SimConfig(mesh=mesh)``, one per case:
+    ``("golden", policy, engine, member_kernel, window)`` or ``("split",
+    B)`` (``_split_case`` over the fed-lm clients)."""
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated import simulator as tsim
+    out = {}
+    for case in cases:
+        if case[0] == "golden":
+            _, name, engine, mk, window = case
+            cfg, clients, test, calib, params = _fedlm_world(window)
+            kw = (dict(psa_cfg=PSAConfig(**FEDLM_PSA), calib_batch=calib)
+                  if name == "fedpsa" else {})
+            out[case] = _summary(tsim.run_algorithm(
+                name, cfg, params, clients, test,
+                tsim.SimConfig(device="cpu", mesh=mesh, engine=engine,
+                               member_kernel=mk, record_trajectory=True,
+                               **FEDLM_SIM), **kw))
+        elif case[0] == "split":
+            cfg, clients, _, _, params = _fedlm_world()
+            out[case] = _split_case(cfg, clients, params, mesh, case[1])
+        else:
+            raise ValueError(f"unknown case {case!r}")
+    return out
+
+
 if __name__ == "__main__":
     _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
