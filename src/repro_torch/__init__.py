@@ -2,21 +2,21 @@
 
 The package mirrors ``repro``'s module names and namespaces
 (``repro_torch.federated``, ``core``, ``common``, ``kernels``,
-``checkpoint``, ``data``). It imports ``torch`` and ``numpy`` only: the
+``checkpoint``, ``data``, and ``models`` with ``ssm`` and ``moe``). It imports ``torch`` and ``numpy`` only: the
 numpy host layers it needs (data generation, the event timeline, latency
 and scheduling) are its own copies, pinned to the reference output for
 output by ``tests/test_torch_*.py``.
 
 What runs, on one H100 by default (``device="cpu"`` runs the kernels'
 plain versions): ``federated.run_algorithm`` for synchronous FedAvg and
-the seven async policies on the paper's image models and on the dense LM
-family (``fed-lm-smoke`` and the four dense configs, with a sliding
-window and ``remat`` none, full or dots), on the sequential and the cohort
+the seven async policies on the paper's image models and on the token LM
+families (dense, moe, ssm and hybrid: ``fed-lm-smoke``, its ssm and moe
+siblings and the assigned configs, with a sliding window and ``remat`` none, full or dots), on the sequential and the cohort
 engines, over streamed client populations, with checkpoint/resume;
 ``federated.run_sweep``'s lanes; the mesh-sharded server with
 data-parallel waves over ``torch.distributed`` (``SimConfig.mesh``); and
-the dense LM's prefill and decode (``launch.serve``). The reference's four
+the LMs' prefill and decode (``launch.serve``). The reference's four
 Pallas kernels and the attention backward are hand-written CUDA C++ for
-Hopper (``csrc/``). ROADMAP.md lists what is left (the other LM
-families).
+Hopper (``csrc/``). ROADMAP.md lists what is left (the frontends, and the
+moe, ssm and hybrid families on sweep lanes and the mesh).
 """

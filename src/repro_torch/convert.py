@@ -4,7 +4,12 @@ The reference's parameters (``jax.numpy`` arrays, or numpy arrays from
 them) keep their keys and layouts in the port, so conversion is a leafwise
 copy onto ``device``: bfloat16 leaves (ml_dtypes' ``bfloat16``, the LM
 configs' param dtype) arrive as ``torch.bfloat16`` bit for bit, and every
-other leaf as float32 (the image models' dtype).
+other leaf as float32 (the image models' dtype, and the leaves the
+reference keeps in float32 in a bfloat16 LM: mamba's ``a_log`` and
+``d_skip``). Every family's tree converts this way — the recurrent mixers'
+leaves, an MoE FFN's ``{router, w_in, w_gate, w_out[, shared]}`` or a
+``{moe, dense}`` pair — and ``FlatSpec`` then flattens it in
+``jax.tree_util`` order (sorted keys), as the reference does.
 """
 from __future__ import annotations
 

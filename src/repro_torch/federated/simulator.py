@@ -47,11 +47,14 @@ Streaming client shards and ``run_sweep`` stay single-device, as in the
 reference, and raise ``ValueError`` with a mesh. No path falls back to
 another.
 
-Token families (the dense LM, ``data_kind == "tokens"``: federated LM
-fine-tuning, ``configs.fed_lm``) run on every runner the image models run
-on: ``run_async`` on both engines, over the monolithic slab or streamed
-client shards, ``run_sweep``'s lanes and the mesh, with ``flash_attention``
-and its backward kernel in every local step, evaluation and FedPSA sketch.
+Token families (``data_kind == "tokens"``: federated LM fine-tuning,
+``configs.fed_lm``) run on the runners the image models run on. The dense
+LM is held to the reference on every one of them: ``run_async`` on both
+engines, over the monolithic slab or streamed client shards,
+``run_sweep``'s lanes and the mesh, with ``flash_attention`` and its
+backward kernel in every local step, evaluation and FedPSA sketch; the
+moe, ssm and hybrid families on ``run_async``'s two engines
+(``fed-lm-moe-smoke``, ``fed-lm-ssm-smoke``).
 """
 from __future__ import annotations
 

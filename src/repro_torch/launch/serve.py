@@ -1,15 +1,19 @@
 """Serving entry point of the port: prefill + batched greedy decode with the
-KV cache (the reference's ``repro/launch/serve.py``).
+decode cache (the reference's ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
         --batch 8 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # the smoke
 
-The ported archs are the dense LMs (``phi4-mini-3.8b``, ``codeqwen1.5-7b``,
-``minitron-8b``, ``llama3-405b``, ``fed-lm-smoke``) and their ``-smoke``
-variants. ``generate`` also serves a config's ``for_long_context()``
-variant: sliding-window attention (8,192 for every dense config) with a
-ring KV cache of ``min(window, prompt + gen)`` slots.
+The ported archs are the token LMs: dense (``phi4-mini-3.8b``,
+``codeqwen1.5-7b``, ``minitron-8b``, ``llama3-405b``), ssm
+(``xlstm-350m``), moe (``qwen2-moe-a2.7b``, ``arctic-480b``) and hybrid
+(``jamba-v0.1-52b``), the ``fed-lm-*`` scenarios, and their ``-smoke``
+variants. The cache holds each attention layer's KV cache and each
+recurrent layer's state. ``generate`` also serves a config's
+``for_long_context()`` variant: sliding-window attention (8,192 for every
+config with attention) with a ring KV cache of ``min(window, prompt +
+gen)`` slots.
 
 Runs on the CUDA card by default and raises without one (``--device cpu``
 runs the kernels' plain versions). Weights are a random init from a
@@ -17,9 +21,8 @@ runs the kernels' plain versions). Weights are a random init from a
 are the prompt tokens. The prefill sizes the cache for ``prompt + gen``
 tokens; ``gen - 1`` greedy decode steps follow. Prints the prefill's
 seconds and the decode's tokens per second; the first call on a card also
-pays one-time setup (kernel load, cuBLAS handles). The reference's default
-arch, ``xlstm-350m-smoke``, is an SSM and not ported; until it is, the
-default is ``phi4-mini-3.8b-smoke`` (ROADMAP.md Queue 1 item 10).
+pays one-time setup (kernel load, cuBLAS handles). The default arch is the
+reference's, ``xlstm-350m-smoke``.
 """
 from __future__ import annotations
 
@@ -68,7 +71,7 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, gen: int) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="phi4-mini-3.8b-smoke")
+    ap.add_argument("--arch", default="xlstm-350m-smoke")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

@@ -10,11 +10,11 @@ summary JSON under ``--out``. Initial weights come from a
 ``torch.Generator`` seeded with ``--seed``. Every algorithm of the
 reference runs (``--alg``: synchronous ``fedavg`` and the seven async
 policies) on the cohort engine (the default, as in the reference) and the
-sequential engine, on the paper's image models and on the dense token
-family: ``--arch fed-lm-smoke`` (or any dense LM id) trains the federated
-LM fine-tuning world, a document-partitioned bigram corpus in ``--seq``
-token sequences (``build_lm_task``); ``--arch`` of another family is not
-ported (ROADMAP.md).
+sequential engine, on the paper's image models and on the token families:
+``--arch fed-lm-smoke``, ``fed-lm-ssm-smoke``, ``fed-lm-moe-smoke`` (or any
+dense, moe, ssm or hybrid LM id) trains the federated LM fine-tuning world,
+a document-partitioned bigram corpus in ``--seq`` token sequences
+(``build_lm_task``); the frontend archs are not ported (ROADMAP.md).
 
 ``--mesh N`` shards the policy server over N ranks and trains the waves
 data-parallel (``SimConfig.mesh``), one process a rank: under ``torchrun``

@@ -1,13 +1,17 @@
-"""Model configuration: the paper's image families and the dense LM.
+"""Model configuration: the paper's image families and the token LMs.
 
 The reference ``repro.models.config.ModelConfig`` covers every architecture
 family; the port carries the fields its ported paths read: the image models
-(cnn / mlp) and the dense decoder LM (prefill, decode and training). A dense
-model is described, as in the reference, by a *superblock pattern*:
-``block_pattern`` gives the sequence mixer per layer inside one superblock
-and ``ffn_pattern`` the feed-forward kind; the pattern tiles to
-``num_layers``. The MoE, SSM and frontend fields of the reference come with
-the slices that read them (ROADMAP.md Queue 1 item 10c). ``scan_groups``
+(cnn / mlp) and the token LMs of the dense, moe, ssm and hybrid families
+(prefill, decode and training). A model is described, as in the reference,
+by a *superblock pattern*: ``block_pattern`` gives the sequence mixer per
+layer inside one superblock (``"attn" | "mamba" | "mlstm" | "slstm"``) and
+``ffn_pattern`` the feed-forward kind (``"dense" | "moe" | "moe+dense" |
+"none"``); the pattern tiles to ``num_layers``. ``dispatch_groups`` is
+part of the MoE's function, not a sharding knob: the capacity is computed
+per group of tokens, so it decides which tokens drop. The frontend fields
+of the reference come with the slice that reads them (ROADMAP.md Queue 1
+item 10c). ``scan_groups``
 is the reference's two-level remat: ``G > 1`` groups of superblocks, each
 checkpointed, around a checkpoint per superblock. ``q_chunk`` and
 ``kv_chunk`` are the reference's attention chunking: the port's attention
@@ -25,7 +29,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                                  # "cnn" | "mlp" | "dense"
+    family: str                # cnn | mlp | dense | moe | ssm | hybrid
     # LM fields (the reference's; zero for the image families)
     num_layers: int = 0
     d_model: int = 0
@@ -41,6 +45,24 @@ class ModelConfig:
     ffn_pattern: Tuple[str, ...] = ("dense",)
     sliding_window: Optional[int] = None
     long_context_window: Optional[int] = 8192
+    # MoE (the reference's fields; dispatch_groups splits the tokens into
+    # groups that each route within their own capacity)
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0
+    shared_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01   # load-balance loss coefficient
+    dispatch_groups: int = 1
+    # SSM (mamba)
+    ssm_expand: int = 2
+    ssm_state_dim: int = 16
+    conv_kernel: int = 4
+    dt_rank: int = 0                # 0 => ceil(d_model / 16)
+    # xLSTM
+    mlstm_proj_factor: float = 2.0
+    slstm_ffn_factor: float = 4.0 / 3.0
     frontend: Optional[str] = None               # None | "audio" | "vision"
     pad_vocab_to: int = 128
     dtype: str = "bfloat16"
@@ -73,6 +95,21 @@ class ModelConfig:
         return self.num_layers // len(self.block_pattern)
 
     @property
+    def dt_rank_actual(self) -> int:
+        return self.dt_rank if self.dt_rank > 0 else -(-self.d_model // 16)
+
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def slstm_ffn_dim(self) -> int:
+        """sLSTM post-cell FFN width, rounded up to a multiple of 128 (the
+        reference's rule)."""
+        f = int(self.d_model * self.slstm_ffn_factor)
+        return -(-f // 128) * 128
+
+    @property
     def is_encoder_only(self) -> bool:
         return not self.causal
 
@@ -93,8 +130,9 @@ class ModelConfig:
         return dataclasses.replace(self, sliding_window=self.long_context_window)
 
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant, the reference's rule for the fields carried
-        here: <= 2 superblocks, d_model <= 256, <= 4 heads, f32. The image
+        """Smoke-test variant, the reference's rule: <= 2 superblocks,
+        d_model <= 256, <= 4 heads, <= 4 experts, top-k <= 2 at the lossless
+        capacity ``max(cf, E / k)`` (no token drops), f32. The image
         families have no smoke variant."""
         if self.family in ("cnn", "mlp"):
             raise NotImplementedError(
@@ -110,6 +148,10 @@ class ModelConfig:
         n_kv = min(self.num_kv_heads, n_heads)
         while n_heads % n_kv:       # keep the GQA ratio valid
             n_kv -= 1
+        n_exp = min(self.num_experts, 4) if self.num_experts else 0
+        n_topk = min(self.top_k, 2) if self.top_k else 0
+        cf = (max(self.capacity_factor, n_exp / max(n_topk, 1)) if n_exp
+              else self.capacity_factor)
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
@@ -122,6 +164,12 @@ class ModelConfig:
             head_dim=d_model // n_heads,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512),
+            num_experts=n_exp,
+            top_k=n_topk,
+            capacity_factor=cf,
+            num_shared_experts=min(self.num_shared_experts, 1),
+            moe_d_ff=min(self.moe_d_ff, 128) if self.moe_d_ff else 0,
+            shared_d_ff=min(self.shared_d_ff, 128) if self.shared_d_ff else 0,
             num_prefix_tokens=min(self.num_prefix_tokens, 8),
             dtype="float32",
             param_dtype="float32",

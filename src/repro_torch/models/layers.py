@@ -219,9 +219,12 @@ def attention_decode(params, cache, x, pos: int, cfg: ModelConfig):
 # Dense feed-forward (SwiGLU / GELU / ReLU / squared ReLU)
 # ---------------------------------------------------------------------------
 
-def init_ffn(gen, cfg: ModelConfig, device, lead=()) -> dict:
+def init_ffn(gen, cfg: ModelConfig, device, lead=(),
+             d_ff: Optional[int] = None) -> dict:
+    """The dense FFN; ``d_ff`` overrides ``cfg.d_ff`` (the MoE's shared
+    experts)."""
     pd = param_dtype_of(cfg)
-    D, Fd = cfg.d_model, cfg.d_ff
+    D, Fd = cfg.d_model, (d_ff if d_ff is not None else cfg.d_ff)
     p = {"w_in": dense_init(gen, (D, Fd), pd, device, lead=lead),
          "w_out": dense_init(gen, (Fd, D), pd, device, lead=lead)}
     if cfg.ffn_act == "swiglu":

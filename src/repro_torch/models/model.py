@@ -17,8 +17,11 @@ matmul; per-member convolutions are one grouped convolution
 side by side, ``(n, B*C, H, W)``, and a single model's is its one-group
 case.
 
-The dense decoder LM (``family == "dense"``) keeps the reference's
-stacked-superblock layout: ``params["blocks"]["p{i}"]`` leaves carry a
+The token LMs (families ``dense``, ``moe``, ``ssm`` and ``hybrid``) keep
+the reference's stacked-superblock layout: position ``p{i}`` of a
+superblock has a sequence mixer (``attn | mamba | mlstm | slstm``, from
+``models/layers.py`` and ``models/ssm.py``) and an FFN kind (``dense | moe
+| moe+dense | none``, ``models/moe.py``), from the config's patterns; ``params["blocks"]["p{i}"]`` leaves carry a
 leading ``num_superblocks`` axis, and a Python loop over superblocks
 indexes them as views (no per-layer copies), where the reference scans;
 ``cfg.remat == "full"`` checkpoints each superblock
@@ -31,16 +34,17 @@ checkpoints the same regions selectively, under JAX's
 ``dots_with_no_batch_dims_saveable`` rule (``_dots_policy``): the outputs
 of products without a batch axis are kept and the rest is recomputed.
 Two layer loops share the parameters: the full-sequence one (``backbone_forward``: ``loss_fn``,
-the next-token cross-entropy in sequence chunks of 1,024;
-``forward_logits``, every position's logits; ``prefill``, which also fills
-the KV cache and returns the last position's) and ``decode_step`` (one
-token against the cache). The cache is stacked like the blocks, ``(nsb, B,
-C, Hkv, hd)``, and written in place. With ``members=True`` (the cohort
+the next-token cross-entropy in sequence chunks of 1,024, plus the MoE
+layers' Switch aux losses; ``forward_logits``, every position's logits;
+``prefill``, which also fills the cache and returns the last position's)
+and ``decode_step`` (one token against the cache). The cache is stacked
+like the blocks: ``(nsb, B, C, Hkv, hd)`` KV caches beside the recurrent
+layers' float32 states, each written in place. With ``members=True`` (the cohort
 engine) every LM leaf carries the member axis before the superblock axis,
 ``(B, nsb, ...)``, and the tokens ``(B, n, S)``. A ``sliding_window``
 reaches every attention layer: the flash kernels' band, and a ring KV cache
-of ``min(window, max_len)`` slots. Configurations the port does not cover
-(other families, a frontend) raise ``NotImplementedError``.
+of ``min(window, max_len)`` slots. A frontend (the audio and vision
+families) is not ported and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -52,8 +56,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from repro_torch.common.tree import tree_leaves, tree_map
-from repro_torch.models import layers, member_math
+from repro_torch.common.tree import tree_map
+from repro_torch.models import layers, member_math, moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.member_math import member_conv2d, member_dot
 
@@ -196,16 +200,18 @@ def loss_fn(params, batch, cfg: ModelConfig, members: bool = False):
     ``{"x", "y"}``; for the LM, the mean next-token cross-entropy on
     ``{"tokens", "labels"}`` (labels < 0 carry no target; position t
     predicts token t + 1), over the labels that count. With ``members``
-    (the LM), the (B,) per-member losses."""
+    (the LM), the (B,) per-member losses. The MoE families add their
+    layers' Switch aux losses, as the reference's ``ce + aux``."""
     if cfg.family in ("cnn", "mlp"):
         return _mean_xent(forward(params, batch["x"], cfg), batch["y"])
     x = layers.embed_tokens(params["embed"], batch["tokens"], cfg, members)
-    hidden = backbone_forward(params, x, cfg, members=members)
+    hidden, aux = backbone_forward(params, x, cfg, members=members)
     labels = batch["labels"]
     if cfg.causal:
         hidden, labels = hidden[..., :-1, :], labels[..., 1:]
-    return chunked_cross_entropy(hidden, layers.unembed_weight(params["embed"]),
-                                 labels, cfg, members=members)
+    ce = chunked_cross_entropy(hidden, layers.unembed_weight(params["embed"]),
+                               labels, cfg, members=members)
+    return ce if aux is None else ce + aux
 
 
 def _xent_from_logits(logits, labels) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -259,13 +265,31 @@ def token_accuracy(params, batch, cfg: ModelConfig) -> torch.Tensor:
 
 
 def count_params(cfg: ModelConfig) -> Tuple[int, int]:
-    """(total, active) parameter counts; ``active`` equals ``total`` for the
-    ported families (the reference discounts routed MoE experts)."""
+    """(total, active) parameter counts; ``active`` discounts the routed
+    experts to top_k / E, by the reference's rule (a leaf under a
+    ``w_in``/``w_gate``/``w_out`` key with E among its first two axes), and
+    equals ``total`` without experts."""
     if cfg.family in ("cnn", "mlp"):
         params = init_params(torch.Generator().manual_seed(0), cfg)
     else:
         params = init_params(None, cfg, "meta")
-    total = sum(leaf.numel() for leaf in tree_leaves(params))
+    total = expert = 0
+
+    def walk(node, keys):
+        nonlocal total, expert
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, keys + (k,))
+            return
+        n = node.numel()
+        total += n
+        if (cfg.num_experts > 0 and {"w_in", "w_gate", "w_out"} & set(keys)
+                and node.dim() >= 3 and cfg.num_experts in node.shape[:2]):
+            expert += n
+
+    walk(params, ())
+    if cfg.num_experts > 0 and cfg.top_k > 0:
+        return total, total - expert + expert * cfg.top_k // cfg.num_experts
     return total, total
 
 
@@ -282,38 +306,61 @@ def accuracy(params, batch, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 REMATS = ("none", "full", "dots")
+TOKEN_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+FFNS = ("dense", "moe", "moe+dense", "none")
 
 
 def check_lm(cfg: ModelConfig) -> None:
-    """Raise for an LM configuration the port does not cover, naming the
-    ROADMAP.md Queue 1 item that ports it, and for a ``remat`` that is
-    none of ``REMATS``."""
-    why = None
-    if cfg.family != "dense":
-        why, item = f"family {cfg.family!r}", "10c"
-    elif set(cfg.block_pattern) != {"attn"} or set(cfg.ffn_pattern) != {"dense"}:
-        why, item = (f"block pattern {cfg.block_pattern} / "
-                     f"{cfg.ffn_pattern}"), "10c"
-    elif cfg.frontend is not None:
-        why, item = f"frontend {cfg.frontend!r}", "10c"
-    elif cfg.remat not in REMATS:
+    """Raise for an LM configuration the port does not cover: a frontend
+    (the audio and vision families), naming the ROADMAP.md Queue 1 item
+    that ports it; and for a ``remat`` that is none of ``REMATS`` or a
+    superblock position of an unknown kind."""
+    if cfg.frontend is not None or cfg.family not in TOKEN_FAMILIES:
+        what = (f"frontend {cfg.frontend!r}" if cfg.frontend is not None
+                else f"family {cfg.family!r}")
+        raise NotImplementedError(
+            f"{cfg.name}: {what} is not ported (ROADMAP.md Queue 1 item "
+            f"10c)")
+    if cfg.remat not in REMATS:
         raise ValueError(f"{cfg.name}: remat must be one of {REMATS}, got "
                          f"{cfg.remat!r}")
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {why} is not ported (ROADMAP.md Queue 1 item "
-            f"{item})")
+    for mix, ffn in zip(cfg.block_pattern, cfg.ffn_pattern):
+        if mix not in MIXERS or ffn not in FFNS:
+            raise ValueError(f"{cfg.name}: superblock position ({mix!r}, "
+                             f"{ffn!r}) is not one of {MIXERS} x {FFNS}")
+        if "moe" in ffn and not (cfg.num_experts > 0 and cfg.top_k > 0):
+            raise ValueError(f"{cfg.name}: an MoE FFN needs num_experts and "
+                             f"top_k")
+
+
+_MIXER_INIT = {"attn": layers.init_attention, "mamba": ssm.init_mamba,
+               "mlstm": ssm.init_mlstm, "slstm": ssm.init_slstm}
+_MIXER_STATE = {"mamba": ssm.init_mamba_state, "mlstm": ssm.init_mlstm_state,
+                "slstm": ssm.init_slstm_state}
 
 
 def init_lm(gen, cfg: ModelConfig, device="cpu") -> dict:
+    """Stacked superblocks: position ``p{i}`` holds its mixer and, unless
+    its FFN kind is ``"none"``, ``norm2`` and the FFN (``dense``, ``moe``,
+    or ``{"moe", "dense"}`` side by side)."""
     pd = layers.param_dtype_of(cfg)
     D, lead = cfg.d_model, (cfg.num_superblocks,)
-    blocks = {f"p{i}": {
-        "norm1": layers.init_rmsnorm(D, pd, device, lead),
-        "mixer": layers.init_attention(gen, cfg, device, lead),
-        "norm2": layers.init_rmsnorm(D, pd, device, lead),
-        "ffn": layers.init_ffn(gen, cfg, device, lead),
-    } for i in range(len(cfg.block_pattern))}
+    blocks = {}
+    for i, (mix, ffn) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
+        pos = {"norm1": layers.init_rmsnorm(D, pd, device, lead),
+               "mixer": _MIXER_INIT[mix](gen, cfg, device, lead)}
+        if ffn != "none":
+            pos["norm2"] = layers.init_rmsnorm(D, pd, device, lead)
+            if ffn == "dense":
+                pos["ffn"] = layers.init_ffn(gen, cfg, device, lead)
+            elif ffn == "moe":
+                pos["ffn"] = moe.init_moe(gen, cfg, device, lead)
+            else:
+                pos["ffn"] = {"moe": moe.init_moe(gen, cfg, device, lead),
+                              "dense": layers.init_ffn(gen, cfg, device,
+                                                       lead)}
+        blocks[f"p{i}"] = pos
     return {"blocks": blocks,
             "final_norm": layers.init_rmsnorm(D, pd, device),
             "embed": layers.init_embed(gen, cfg, device)}
@@ -333,20 +380,57 @@ def _norm(p, x, cfg: ModelConfig, members: bool = False):
     return layers.rmsnorm({"scale": scale}, x, cfg.norm_eps)
 
 
+def _add_aux(total, aux):
+    """The MoE aux losses summed in layer order (None: no MoE layer)."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
+def _ffn_apply(pp, kind: str, x, cfg: ModelConfig, members: bool = False):
+    """A position's FFN -> (y, aux or None)."""
+    if kind == "dense":
+        return layers.ffn_forward(pp["ffn"], x, cfg, members), None
+    if kind == "moe":
+        return moe.moe_forward(pp["ffn"], x, cfg, members)
+    y, aux = moe.moe_forward(pp["ffn"]["moe"], x, cfg, members)
+    return y + layers.ffn_forward(pp["ffn"]["dense"], x, cfg, members), aux
+
+
+def _mixer_forward(mix: str, p, h, cfg: ModelConfig, positions, cache,
+                   members: bool):
+    """A position's sequence mixer; with ``cache`` (this position's views
+    of the stacked cache) it also fills it in place."""
+    if mix == "attn":
+        return layers.attention_forward(p, h, cfg, positions, cache,
+                                        members=members)
+    if cache is None:
+        return getattr(ssm, f"{mix}_forward")(p, h, cfg, members)
+    state, y = getattr(ssm, f"{mix}_fill_state")(p, h, cfg, members)
+    for k, v in state.items():
+        cache[k].copy_(v)
+    return y
+
+
 def superblock_forward(params, x, cfg: ModelConfig, positions, cache=None,
                        members: bool = False):
-    """One superblock over x (B, S, D) ((B, n, S, D) with ``members``).
-    With ``cache`` (this superblock's views of the stacked cache), each
-    attention layer also fills it."""
-    for i in range(len(cfg.block_pattern)):
+    """One superblock over x (B, S, D) ((B, n, S, D) with ``members``) ->
+    (x, the sum of its MoE aux losses or None). With ``cache`` (this
+    superblock's views of the stacked cache), each mixer also fills it: the
+    KV cache of an attention layer, the final state of a recurrent one."""
+    aux = None
+    for i, (mix, ffn) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
         pp = params[f"p{i}"]
         h = _norm(pp["norm1"], x, cfg, members)
-        x = x + layers.attention_forward(
-            pp["mixer"], h, cfg, positions,
-            None if cache is None else cache[f"p{i}"], members=members)
-        h = _norm(pp["norm2"], x, cfg, members)
-        x = x + layers.ffn_forward(pp["ffn"], h, cfg, members)
-    return x
+        x = x + _mixer_forward(mix, pp["mixer"], h, cfg, positions,
+                               None if cache is None else cache[f"p{i}"],
+                               members)
+        if ffn != "none":
+            h = _norm(pp["norm2"], x, cfg, members)
+            y, a = _ffn_apply(pp, ffn, h, cfg, members)
+            x = x + y
+            aux = _add_aux(aux, a)
+    return x, aux
 
 
 # JAX's ``dots_with_no_batch_dims_saveable``: a product whose operands
@@ -398,22 +482,25 @@ def _checkpointed(sb, x, cfg: ModelConfig, positions, members: bool):
 
 def _group_forward(sbs, x, cfg: ModelConfig, positions, members: bool):
     """The superblocks of one scan group, each checkpointed: the inner
-    level of the two-level remat."""
+    level of the two-level remat. Returns (x, aux or None)."""
+    aux = None
     for sb in sbs:
-        x = _checkpointed(sb, x, cfg, positions, members)
-    return x
+        x, a = _checkpointed(sb, x, cfg, positions, members)
+        aux = _add_aux(aux, a)
+    return x, aux
 
 
 def backbone_forward(params, x, cfg: ModelConfig, cache=None,
                      members: bool = False):
     """All superblocks and the final norm over x (B, S, D) ((B, n, S, D)
-    with ``members``) at positions 0..S-1; with ``cache`` (from
-    ``init_cache``) fills it. Under ``cfg.remat == "full"`` or ``"dots"``,
-    when autograd records, each superblock is checkpointed: its activations
-    are recomputed in the backward, apart from ``"dots"``'s saved products;
-    with ``cfg.scan_groups = G > 1`` dividing the superblocks, each group
-    of them is checkpointed too (the reference's two-level remat). Every
-    setting gives the same values."""
+    with ``members``) at positions 0..S-1 -> (hidden, the MoE aux losses
+    summed over the layers, or None without an MoE layer); with ``cache``
+    (from ``init_cache``) fills it. Under ``cfg.remat == "full"`` or
+    ``"dots"``, when autograd records, each superblock is checkpointed: its
+    activations are recomputed in the backward, apart from ``"dots"``'s
+    saved products; with ``cfg.scan_groups = G > 1`` dividing the
+    superblocks, each group of them is checkpointed too (the reference's
+    two-level remat). Every setting gives the same values."""
     check_lm(cfg)
     positions = torch.arange(x.shape[-2], device=x.device)[None, :]
     remat = (cfg.remat != "none" and cache is None
@@ -425,57 +512,73 @@ def backbone_forward(params, x, cfg: ModelConfig, cache=None,
                       params["blocks"])
     nsb, G = cfg.num_superblocks, cfg.scan_groups
     sbs = [tree_map(lambda views: views[s], blocks) for s in range(nsb)]
+    aux = None
     if remat and G > 1 and nsb % G == 0:
         n = nsb // G
         for g in range(G):
-            x = _checkpoint(_group_forward, sbs[g * n:(g + 1) * n], x, cfg,
-                            positions, members, cfg=cfg)
+            x, a = _checkpoint(_group_forward, sbs[g * n:(g + 1) * n], x,
+                               cfg, positions, members, cfg=cfg)
+            aux = _add_aux(aux, a)
     else:
         for s, sb in enumerate(sbs):
             if remat:
-                x = _checkpointed(sb, x, cfg, positions, members)
+                x, a = _checkpointed(sb, x, cfg, positions, members)
             else:
-                x = superblock_forward(
+                x, a = superblock_forward(
                     sb, x, cfg, positions,
                     None if cache is None else _superblock(cache, s), members)
-    return _norm(params["final_norm"], x, cfg, members)
+            aux = _add_aux(aux, a)
+    return _norm(params["final_norm"], x, cfg, members), aux
 
 
 def forward_logits(params, batch: dict, cfg: ModelConfig):
     """Full logits (B, S, vocab_padded), pad columns masked."""
     x = layers.embed_tokens(params["embed"], batch["tokens"], cfg)
-    return layers.unembed(params["embed"], backbone_forward(params, x, cfg), cfg)
+    hidden, _ = backbone_forward(params, x, cfg)
+    return layers.unembed(params["embed"], hidden, cfg)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu") -> dict:
-    """Zeroed KV caches, stacked ``(nsb, B, C, Hkv, hd)`` per position."""
+    """Zeroed decode caches, stacked ``(nsb, B, ...)`` per position: the KV
+    cache ``(nsb, B, C, Hkv, hd)`` of an attention layer, the recurrent
+    state of a mamba, mLSTM or sLSTM layer (f32, ``m`` at -1e30)."""
     check_lm(cfg)
-    return {f"p{i}": layers.init_attention_cache(
-        cfg, batch, max_len, device, lead=(cfg.num_superblocks,))
-        for i in range(len(cfg.block_pattern))}
+    lead = (cfg.num_superblocks,)
+    return {f"p{i}": (layers.init_attention_cache(cfg, batch, max_len,
+                                                  device, lead=lead)
+                      if mix == "attn" else
+                      _MIXER_STATE[mix](cfg, batch, device, lead=lead))
+            for i, mix in enumerate(cfg.block_pattern)}
 
 
 def prefill(params, batch: dict, cfg: ModelConfig,
             max_len: Optional[int] = None):
     """Full-sequence prefill: the forward of ``forward_logits`` filling the
-    cache. Returns (cache, last-position logits (B, V)), the cache sized for
-    ``max_len`` (>= S; defaults to S)."""
+    cache. Returns (cache, last-position logits (B, V)), the KV caches sized
+    for ``max_len`` (>= S; defaults to S)."""
     x = layers.embed_tokens(params["embed"], batch["tokens"], cfg)
     B, S = x.shape[:2]
     cache = init_cache(cfg, B, max(max_len or S, S), x.device)
-    hidden = backbone_forward(params, x, cfg, cache)
+    hidden, _ = backbone_forward(params, x, cfg, cache)
     return cache, layers.unembed(params["embed"], hidden[:, -1], cfg)
 
 
 def superblock_decode(params, cache, x, pos: int, cfg: ModelConfig):
     """One superblock for one token; writes its ``cache`` views."""
-    for i in range(len(cfg.block_pattern)):
+    for i, (mix, ffn) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
         pp = params[f"p{i}"]
+        c = cache[f"p{i}"]
         h = layers.rmsnorm(pp["norm1"], x, cfg.norm_eps)
-        _, y = layers.attention_decode(pp["mixer"], cache[f"p{i}"], h, pos, cfg)
+        if mix == "attn":
+            _, y = layers.attention_decode(pp["mixer"], c, h, pos, cfg)
+        else:
+            state, y = getattr(ssm, f"{mix}_decode")(pp["mixer"], c, h, cfg)
+            for k, v in state.items():
+                c[k].copy_(v)
         x = x + y
-        h = layers.rmsnorm(pp["norm2"], x, cfg.norm_eps)
-        x = x + layers.ffn_forward(pp["ffn"], h, cfg)
+        if ffn != "none":
+            h = layers.rmsnorm(pp["norm2"], x, cfg.norm_eps)
+            x = x + _ffn_apply(pp, ffn, h, cfg)[0]
     return cache, x
 
 

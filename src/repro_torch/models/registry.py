@@ -1,5 +1,5 @@
 """Model-family registry of the port: the paper's image families and the
-dense token family.
+token families (dense, moe, ssm, hybrid).
 
 One ``ModelFamily`` entry per family holds the callables the client
 runtime, the cohort engine and the simulator's evaluation loop share (the
@@ -12,11 +12,15 @@ and the result is the (B,) vector of per-member losses. Image families:
 without ``batch["sample_weight"]`` the plain mean cross-entropy,
 bit-identical to the sequential client's loss; with it (the cohort
 engine's ``masked_batch``) ``sum((lse - gold) * vm) / cnt``, so masked rows
-are exact no-ops. The token family (``"dense"``): ``model.loss_fn``, the
-mean next-token cross-entropy over the labels >= 0 after the causal shift;
-``masked_batch`` turns a masked row's labels into -1, so the row is an
-exact no-op in the loss and in its count. The reference's other token
-families (moe, ssm, hybrid) raise, naming ROADMAP.md Queue 1 item 10c.
+are exact no-ops. The token families (``"dense"``, ``"moe"``, ``"ssm"``,
+``"hybrid"``, as the reference registers them): ``model.loss_fn``, the mean
+next-token cross-entropy over the labels >= 0 after the causal shift (plus
+the MoE aux loss); ``masked_batch`` turns a masked row's labels into -1, so
+the row is an exact no-op in the loss and in its count (for an MoE only at
+lossless capacity and ``router_aux_coef = 0``, as ``fed-lm-moe-smoke`` sets
+them: a masked row's tokens still route and take expert slots). The
+reference registers no family for its frontends (audio, vision), and
+neither does the port.
 """
 from __future__ import annotations
 
@@ -77,18 +81,20 @@ def _token_masked_batch(xb, yb, vm, cnt) -> dict:
                                   torch.full_like(yb, -1))}
 
 
+def _token_entry(name: str) -> ModelFamily:
+    return ModelFamily(name=name, data_kind="tokens",
+                       client_loss=model_lib.loss_fn,
+                       masked_batch=_token_masked_batch,
+                       batch_fn=_token_batch_fn,
+                       eval_accuracy=model_lib.token_accuracy,
+                       keys=("tokens", "labels"))
+
+
 _REGISTRY = {
     "cnn": _image_entry("cnn", model_lib.cnn_loss),
     "mlp": _image_entry("mlp", model_lib.mlp_loss),
-    "dense": ModelFamily(name="dense", data_kind="tokens",
-                         client_loss=model_lib.loss_fn,
-                         masked_batch=_token_masked_batch,
-                         batch_fn=_token_batch_fn,
-                         eval_accuracy=model_lib.token_accuracy,
-                         keys=("tokens", "labels")),
+    **{fam: _token_entry(fam) for fam in model_lib.TOKEN_FAMILIES},
 }
-# the reference's other token families, and the item that ports them
-_UNPORTED = ("moe", "ssm", "hybrid")
 
 
 def register_family(entry: ModelFamily, *, override: bool = False) -> None:
@@ -118,8 +124,8 @@ def get_family(family) -> ModelFamily:
         family = family.family
     entry = _REGISTRY.get(family)
     if entry is None:
-        item = "10c" if family in _UNPORTED else "10"
         raise NotImplementedError(
-            f"model family {family!r} is not ported to repro_torch (ported: "
-            f"{registered_families()}); see ROADMAP.md Queue 1 item {item}")
+            f"model family {family!r} is not registered in repro_torch "
+            f"(registered: {registered_families()}); the frontend families "
+            f"are ROADMAP.md Queue 1 item 10c")
     return entry

@@ -168,18 +168,25 @@ def test_fed_lm_config_matches_reference():
         RM.count_params(rget("phi4-mini-3.8b"))
 
 
-@pytest.mark.parametrize("case", ["fed-lm-ssm-smoke", "fed-lm-moe-smoke",
-                                  "moe_family", "remat_dots"])
+@pytest.mark.parametrize("case", ["internvl2-1b", "hubert-xlarge",
+                                  "vlm_family", "remat_dots"])
 def test_unported_token_configs_raise(case):
-    """The other LM families raise, naming the ROADMAP item; ``remat="dots"``,
-    which raised until the port covered it, runs to the "none" loss
+    """The frontends (vision, audio) raise, naming the ROADMAP item; the
+    fed-lm ssm and moe scenarios, which raised here until the port covered
+    them, are held to the reference in ``tests/test_torch_fedlm_ssm.py`` and
+    ``tests/test_torch_fedlm_moe.py``. ``remat="dots"``, which raised until
+    the port covered it, runs to the "none" loss
     (``tests/test_torch_remat_dots.py`` holds its gradients)."""
-    if case.startswith("fed-lm"):
+    if case in ("internvl2-1b", "hubert-xlarge"):
+        for arch in (case, case + "-smoke"):
+            with pytest.raises(NotImplementedError, match="item 10c"):
+                tget(arch)
+        for arch in ("fed-lm-ssm-smoke", "fed-lm-moe-smoke"):
+            assert tget(arch).name == arch
+    elif case == "vlm_family":
         with pytest.raises(NotImplementedError, match="item 10c"):
-            tget(case)
-    elif case == "moe_family":
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            treg.get_family("moe")
+            treg.get_family("vlm")
+        assert treg.get_family("moe").data_kind == "tokens"
     else:
         p = load_npz_params(FIXTURE)
         batch = {"tokens": torch.arange(8).view(2, 4) % 7,

@@ -461,12 +461,14 @@ def test_unported_paths_raise(torch_world, case, request):
     cfg, clients, test, calib = torch_world
     sim = SimConfig(engine="sequential", device="cpu", **SIM)
     name = "fedbuff"
-    if case == "token_arch":     # fed-lm-smoke is ported; its ssm sibling not
+    if case == "token_arch":     # the fed-lm scenarios are ported; the
+        # frontend archs are not
+        assert tget("fed-lm-ssm-smoke").family == "ssm"
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tget("fed-lm-ssm-smoke")
+            tget("hubert-xlarge-smoke")
         return
     if case == "cohort_family":  # a family the port's registry lacks
-        cfg = dataclasses.replace(cfg, family="moe")
+        cfg = dataclasses.replace(cfg, family="vlm")
         sim = dataclasses.replace(sim, engine="cohort")
         with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
             run_algorithm(name, cfg, load_npz_params(FIXTURE), clients, test,
@@ -517,8 +519,10 @@ def test_port_imports_neither_jax_nor_reference():
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     scanned = {os.path.relpath(f, ROOT).replace(os.sep, "/") for f in files}
-    for mod in ("models/layers.py", "kernels/flash_attention.py",
+    for mod in ("models/layers.py", "models/ssm.py", "models/moe.py",
+                "kernels/flash_attention.py",
                 "launch/serve.py", "configs/phi4_mini_38b.py",
+                "configs/xlstm_350m.py", "configs/qwen2_moe_a27b.py",
                 "configs/population.py", "data/loader.py",
                 "common/sharding.py", "launch/mesh.py"):
         assert f"src/repro_torch/{mod}" in scanned, mod

@@ -241,8 +241,7 @@ def test_batch_iterator_matches_reference(n, bs, seed):
 
 def test_register_family_matches_reference():
     ported = treg.registered_families()
-    assert ported == tuple(f for f in rreg.registered_families()
-                           if f not in ("moe", "ssm", "hybrid"))
+    assert ported == rreg.registered_families()
     mlp = treg.get_family("mlp")
     copy = mlp._replace(name="mlp-copy")
     treg.register_family(copy)
