@@ -212,6 +212,27 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    the launches a prefill (xlstm: the line through
    ``FAMILY_PROFILE_PROMPTS``) and a decode step and the device's busy
    share; a ``{"families": ...}`` JSON line before the kernels line.
+9d. ``[frontends]``, the vision and audio frontends (after
+   ``[families]``, before the profiles): ``flash_attention`` at
+   internvl2-1b's prefill (8, 2304, 14/2, 64, causal: a GQA group of 7),
+   hubert-xlarge's encode (8, 2048, 16/16, 80, non-causal: hd 80) and an
+   edge (f32 and bf16, repeats bit-equal) and its backward at both train
+   shapes and the edge (bf16 against float64; f32 at the edge), each timed
+   beside its plain version, SDPA and its bound; ``internvl2-1b`` served
+   at full width (B = 8, 256 patches + a prompt of 2,048, 32 tokens
+   through ``serve.generate``; decode at position P + S within
+   ``SERVE_TOL`` of a prefill of one more token, ``flash_attention`` 24 a
+   prefill and 0 a decode step); ``hubert-xlarge`` encoded at full width
+   (B = 8, 2,048 frames: 48 launches; its first 2 superblocks in f32
+   arithmetic within 2e-5 x max|logit| of the plain attention); both
+   trained through ``launch.steps.make_train_step`` at full width (hubert
+   B = 4 with grad_accum 2, internvl2 B = 2), two steps twice, the runs
+   bit-equal, launches exact; ``make_sketch_step`` on hubert (one
+   ``sens_sketch`` launch over d = 946,260,480, held leaf by leaf against
+   the chunked plain version, timed against its bound, the layout table's
+   build timed); ``repro_torch.examples.pretrain_lm --preset 20m`` for 3
+   rounds with exact launches; a ``{"frontends": ...}`` JSON line before
+   the kernels line.
 
 Then it prints one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a card it exits non-zero
@@ -4859,6 +4880,597 @@ def phase_families(torch, dev, smi: str) -> tuple:
     return errs, paths, serve_stats
 
 
+# ---------------------------------------------------------------------------
+# [frontends]: the vision and audio frontends, the step builders, the
+# optimizers and the pretrain example
+# ---------------------------------------------------------------------------
+
+# flash_attention at the frontends' shapes, (B, Sq, Sk, H, Hkv, hd, causal):
+# internvl2-1b's prefill (8 x (256 patches + 2,048 tokens), GQA 14/2: a
+# group of 7) and its train step's (2 x 2,304), hubert-xlarge's encode (8 x
+# 2,048 frames, MHA 16/16, hd 80 in the kernels' 128 bucket, non-causal)
+# and its train step's microbatch (2 x 2,048), and an edge with a group of 7
+FRONT_VLM_PREFILL = (8, 2304, 2304, 14, 2, 64, True)
+FRONT_AUDIO_ENCODE = (8, 2048, 2048, 16, 16, 80, False)
+FRONT_VLM_TRAIN = (2, 2304, 2304, 14, 2, 64, True)
+FRONT_AUDIO_TRAIN = (2, 2048, 2048, 16, 16, 80, False)
+FRONT_EDGE = (1, 300, 300, 14, 2, 64, True)
+FRONT_FA_SHAPES = (FRONT_VLM_PREFILL, FRONT_AUDIO_ENCODE, FRONT_EDGE)
+FRONT_BWD_SHAPES = (FRONT_EDGE, FRONT_VLM_TRAIN, FRONT_AUDIO_TRAIN)
+FRONT_SERVE = dict(arch="internvl2-1b", batch=8, prompt=2048, gen=32, seed=0)
+FRONT_ENCODE = dict(arch="hubert-xlarge", batch=8, frames=2048, seed=0)
+# the encode's gate: the first superblocks of the full-width model in f32
+# arithmetic, the kernel path against the same forward through
+# flash_attention_plain, within FRONT_ENCODE_TOL x max|logit|
+FRONT_ENCODE_GATE_LAYERS = 2
+FRONT_ENCODE_TOL = 2e-5
+# make_train_step at full width: batch x seq (plus the 256 patches of
+# internvl2-1b), grad_accum, two steps a run, two runs
+FRONT_TRAIN = (dict(arch="hubert-xlarge", batch=4, seq=2048, grad_accum=2),
+               dict(arch="internvl2-1b", batch=2, seq=2048, grad_accum=1))
+FRONT_TRAIN_STEPS = 2
+FRONT_LR = 1e-3
+# make_sketch_step on hubert-xlarge at full width: a calibration batch of
+# 2 x 512 frames, k = 16, seed 42; the plain version held in chunks of
+# FRONT_SKETCH_CHUNK elements of a leaf
+FRONT_SKETCH = dict(batch=2, frames=512, k=16, seed=42)
+FRONT_SKETCH_CHUNK = 1 << 25
+FRONT_PRETRAIN = ("--preset", "20m", "--rounds", "3", "--device", "cuda")
+
+
+def _front_params(torch, dev, arch: str, seed: int, **over):
+    """``arch`` at full width, random init on the card from a seeded
+    generator (bf16, as shipped)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(arch), **over)
+    return cfg, M.init_params(torch.Generator(device=dev).manual_seed(seed),
+                              cfg, dev)
+
+
+def _front_batch(torch, dev, cfg, B: int, S: int, seed: int) -> dict:
+    """A batch from a seeded host generator: tokens, labels and the patch
+    embeddings (vision), or frame features and per-frame labels (audio);
+    features and patches f32 normal, as the reference's serve draws them."""
+    gen = torch.Generator().manual_seed(seed)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    if cfg.frontend == "audio":
+        out = {"features": torch.randn((B, S, cfg.d_model), generator=gen),
+               "labels": labels}
+    else:
+        out = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                       generator=gen), "labels": labels}
+        if cfg.frontend == "vision":
+            out["patches"] = torch.randn((B, cfg.num_prefix_tokens,
+                                          cfg.d_model), generator=gen)
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def _front_bounds(shape, backward: bool = False) -> tuple:
+    """(bound ms, by what, FLOP, bytes) of attention at ``shape`` in bf16:
+    2 products (the forward) or 5 (the backward) of 2 hd FLOP per unmasked
+    (query, key) pair and head at the bf16 tensor-core peak, against q, k,
+    v, o (and dO, dq, dk, dv and the lse for the backward) moved once."""
+    B, Sq, Sk, H, Hkv, hd, causal = shape
+    pairs = _band_pairs(Sq, Sk, causal, None)
+    flops = (5 if backward else 2) * 2 * hd * pairs * B * H
+    qo, kv = B * Sq * H * hd, B * Sk * Hkv * hd
+    bytes_ = 2 * (4 * qo + 4 * kv) + 4 * B * H * Sq if backward \
+        else 2 * (2 * qo + 2 * kv)
+    o_ms = flops / BF16_TC_FLOPS_PER_S * 1e3
+    b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    return max(o_ms, b_ms), "operations" if o_ms >= b_ms else "bytes", \
+        flops, bytes_
+
+
+def _front_kernels(torch, dev) -> dict:
+    """flash_attention and its backward at the frontends' shapes against
+    their plain versions: the forward in f32 (2e-5 x max(1, max|plain|))
+    and bf16 (``bf16_limit``) at ``FRONT_FA_SHAPES``, repeats bit-equal; the
+    backward through ``_bwd_check`` at ``FRONT_BWD_SHAPES`` in bf16 (the
+    tensor-core kernels against float64, ``bwd_bf16_tc_limit``) and at the
+    edge in f32 (the CUDA-core kernels). Then the times (L2 flushed) of the
+    hubert encode's and the internvl2 prefill's forward and of both train
+    shapes' backward in bf16, each beside its plain version, SDPA (forward,
+    or its autograd backward) on the same inputs and its bound. Returns the
+    errors, shares and timings."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(25)
+    out = {"fwd_f32_err": 0.0, "fwd_bf16_err": 0.0, "fwd_bf16_share": 0.0,
+           "bwd_f32_err": 0.0, "bwd_bf16_share": 0.0, "timing": []}
+    for shape in FRONT_FA_SHAPES:
+        B, Sq, Sk, H, Hkv, hd, causal = shape
+        q = _rand(torch, rng, (B, Sq, H, hd), dev)
+        k = _rand(torch, rng, (B, Sk, Hkv, hd), dev)
+        v = _rand(torch, rng, (B, Sk, Hkv, hd), dev)
+        for dt in (torch.float32, torch.bfloat16):
+            a, b, c = q.to(dt), k.to(dt), v.to(dt)
+            got = fa.flash_attention(a, b, c, causal=causal)
+            want = fa.flash_attention_plain(a, b, c, causal=causal)
+            again = fa.flash_attention(a, b, c, causal=causal)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if dt == torch.float32:
+                share = err / (2e-5 * max(1.0, float(want.float().abs().max())))
+                out["fwd_f32_err"] = max(out["fwd_f32_err"], err)
+            else:
+                share = float((diff / fa.bf16_limit(want, c)).max())
+                out["fwd_bf16_err"] = max(out["fwd_bf16_err"], err)
+                out["fwd_bf16_share"] = max(out["fwd_bf16_share"], share)
+            same = torch.equal(got, again)
+            log(f"[frontends] flash_attention B={B} Sq={Sq} Sk={Sk} H={H} "
+                f"Hkv={Hkv} hd={hd} {'causal' if causal else 'full'} "
+                f"{str(dt)[6:]}: max|err|={err:.3e}, worst at {share:.3f} of "
+                f"its limit; repeat bit-equal {same}")
+            if not (share <= 1.0 and same and got.dtype == dt):
+                raise AssertionError(f"flash_attention {shape} {dt}: {err}, "
+                                     f"{share} of its limit, repeat {same}")
+            del got, want, again, diff
+        del q, k, v
+    for shape in FRONT_BWD_SHAPES:
+        B, Sq, Sk, H, Hkv, hd, causal = shape
+        for dt in ((torch.float32, torch.bfloat16) if shape == FRONT_EDGE
+                   else (torch.bfloat16,)):
+            q, do = (_rand(torch, rng, (B, Sq, H, hd), dev).to(dt)
+                     for _ in range(2))
+            k, v = (_rand(torch, rng, (B, Sk, Hkv, hd), dev).to(dt)
+                    for _ in range(2))
+            o, lse = fa._forward(q, k, v, causal, with_lse=True)
+            r = _bwd_check(torch, fa, q, k, v, o, do, lse, causal)
+            what = (f"B={B} Sq={Sq} H={H} Hkv={Hkv} hd={hd} "
+                    f"{'causal' if causal else 'full'} {str(dt)[6:]}")
+            log(f"[frontends] flash_attention_bwd {what} ({r['route']}): "
+                f"{r['note']}; repeat bit-equal {r['same']}")
+            if not (r["share"] <= 1.0 and r["same"] and r["finite"]):
+                raise AssertionError(f"flash_attention_bwd {what}: {r}")
+            if dt == torch.float32:
+                out["bwd_f32_err"] = max(out["bwd_f32_err"], max(r["errs"]))
+            else:
+                out["bwd_bf16_share"] = max(out["bwd_bf16_share"], r["share"])
+            del q, k, v, do, o, lse
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    for shape, backward in ((FRONT_AUDIO_ENCODE, False),
+                            (FRONT_VLM_PREFILL, False),
+                            (FRONT_AUDIO_TRAIN, True), (FRONT_VLM_TRAIN, True)):
+        B, Sq, Sk, H, Hkv, hd, causal = shape
+        dt = torch.bfloat16
+        q, do = (_rand(torch, rng, (B, Sq, H, hd), dev).to(dt)
+                 for _ in range(2))
+        k, v = (_rand(torch, rng, (B, Sk, Hkv, hd), dev).to(dt)
+                for _ in range(2))
+        bound, by, flops, bytes_ = _front_bounds(shape, backward)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(backward)
+                      for x in (q, k, v))
+        sdpa = functools.partial(F.scaled_dot_product_attention,
+                                 is_causal=causal, enable_gqa=H != Hkv)
+        if backward:
+            o, lse = fa._forward(q, k, v, causal, with_lse=True)
+            ot, dot = sdpa(qt, kt, vt), do.transpose(1, 2)
+            fn = lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, causal)  # noqa: E731
+            plain = lambda: _bwd_plain_by_kv(torch, fa, q, k, v, o, do, lse,  # noqa: E731
+                                             causal, None)
+            lib = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,  # noqa: E731
+                                              retain_graph=True)
+        else:
+            fn = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
+            plain = lambda: fa.flash_attention_plain(q, k, v, causal=causal)  # noqa: E731
+            lib = lambda: sdpa(qt, kt, vt)  # noqa: E731
+        lib_ms, why = _sdpa_or_none(torch, lib, 20, flush)
+        r = dict(shape=f"{'backward ' if backward else ''}B={B} S={Sq} H={H} "
+                       f"Hkv={Hkv} hd={hd} "
+                       f"{'causal' if causal else 'non-causal'} bf16",
+                 ms=_time_ms(torch, fn, 20, flush),
+                 plain_ms=_time_ms(torch, plain, 3, flush),
+                 library_ms=lib_ms, bound_ms=bound, bound_by=by, flops=flops,
+                 bytes=bytes_,
+                 library_note=("SDPA's autograd backward" if backward
+                               else "F.scaled_dot_product_attention")
+                 + (f": {why}" if why else ""))
+        out["timing"].append(r)
+        log(f"[timing] frontends {r['shape']}: kernel {r['ms'] * 1e3:.1f}us, "
+            f"plain {r['plain_ms'] * 1e3:.1f}us, {r['library_note']} "
+            + ("not run" if lib_ms is None else f"{lib_ms * 1e3:.1f}us")
+            + f"; {flops:.4e} FLOP, {bytes_ / 1e6:.1f} MB: bound "
+            f"{bound * 1e3:.1f}us by {by} ({100 * bound / r['ms']:.2f}% of "
+            f"it)")
+        del q, k, v, do, qt, kt, vt
+        if backward:
+            del o, lse, ot, dot
+    del flush
+    return out
+
+
+def _front_serve(torch, dev, smi: str) -> tuple:
+    """internvl2-1b served at full width: B = 8, 256 patches + a prompt of
+    2,048, 32 tokens (``serve.generate`` with patches). Decode's logits at
+    position P + S against the last logits of a prefill of S + 1 tokens
+    after the same patches, within SERVE_TOL x max|prefill|;
+    flash_attention once a layer a prefill and never in a decode step.
+    Returns (counts, stats)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    spec = FRONT_SERVE
+    _free_card(torch)
+    t0 = time.perf_counter()
+    cfg, params = _front_params(torch, dev, spec["arch"], spec["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S, P = spec["batch"], spec["prompt"], cfg.num_prefix_tokens
+    batch = _front_batch(torch, dev, cfg, B, S + 1, spec["seed"])
+    toks, patches = batch["tokens"], batch["patches"]
+    attn = cfg.num_superblocks
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        cache, _ = M.prefill(params, {"tokens": toks[:, :S],
+                                      "patches": patches}, cfg,
+                             max_len=P + S + 1)
+        per_pre = ops.launch_counts()
+        ops.reset_launch_counts()
+        _, dec = M.decode_step(params, cache, toks[:, S:], P + S, cfg)
+        per_dec = ops.launch_counts()
+        del cache
+        _, pre = M.prefill(params, {"tokens": toks, "patches": patches}, cfg)
+    V = cfg.vocab_size
+    dec, pre = dec[:, 0, :V].float(), pre[:, :V].float()
+    err, big = float((dec - pre).abs().max()), float(pre.abs().max())
+    agree = float((dec.argmax(-1) == pre.argmax(-1)).float().mean())
+    log(f"[frontends] {cfg.name} B={B} P={P} prompt={S}: decode logits at "
+        f"position {P + S} vs prefill of {S + 1} tokens after the patches: "
+        f"max|diff|={err:.4e} max|prefill|={big:.4e} ({err / big:.3e} of it; "
+        f"tol {SERVE_TOL * big:.4e}) greedy agreement {agree:.3f}; launches "
+        f"per prefill {per_pre}, per decode step {per_dec}")
+    want_pre = {k: (attn if k == "flash_attention" else 0) for k in per_pre}
+    if per_pre != want_pre or any(per_dec.values()):
+        raise AssertionError(f"{cfg.name}: launches per prefill {per_pre} "
+                             f"(want {want_pre}), per decode {per_dec}")
+    if not (bool(torch.isfinite(dec).all()) and err <= SERVE_TOL * big):
+        raise AssertionError(f"{cfg.name} decode vs prefill: {err} > "
+                             f"{SERVE_TOL} * {big}")
+    del dec, pre
+    _free_card_keep(torch)
+    prompts = toks[:, :S].contiguous()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve.generate(params, cfg, prompts, spec["gen"], patches)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tok = res["tokens"]
+    log(f"[frontends] {cfg.name} serve.generate B={B} patches={P} prompt={S} "
+        f"gen={spec['gen']}: prefill {res['prefill_s']:.4f}s "
+        f"({B * (P + S) / res['prefill_s']:.0f} positions/s), "
+        f"{res['decode_steps']} decode steps {res['decode_s']:.4f}s "
+        f"({1e3 * res['decode_s'] / res['decode_steps']:.2f} ms/step, "
+        f"{res['decode_tok_s']:.1f} tok/s), peak device memory "
+        f"{peak / 2**30:.2f} GiB, init {init_s:.1f}s, launches={counts} on "
+        f"{smi}")
+    want = {k: (attn if k == "flash_attention" else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{cfg.name} serve: launches {counts} != {want}")
+    if tuple(tok.shape) != (B, spec["gen"]) or int(tok.min()) < 0 \
+            or int(tok.max()) >= V:
+        raise AssertionError(f"{cfg.name} serve: tokens {tuple(tok.shape)}")
+    stats = dict(prefill_s=res["prefill_s"], decode_ms_per_step=1e3
+                 * res["decode_s"] / res["decode_steps"],
+                 decode_tok_s=res["decode_tok_s"], peak_bytes=peak,
+                 gap=err, prefill_max_abs=big, greedy_agreement=agree)
+    del params, batch, toks, patches, prompts, res
+    _free_card(torch)
+    return counts, stats
+
+
+def _front_encode(torch, dev, smi: str) -> tuple:
+    """hubert-xlarge encoded at full width through ``make_encode_step``: B =
+    8, 2,048 frames, flash_attention once a layer; finite logits (B, S,
+    vocab_padded). Then its first ``FRONT_ENCODE_GATE_LAYERS`` superblocks
+    in f32 arithmetic (the bf16 weights): the kernel path within
+    ``FRONT_ENCODE_TOL`` x max|logit| of the same forward with
+    flash_attention_plain in the layers. Returns (counts, stats)."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import layers
+    spec = FRONT_ENCODE
+    _free_card(torch)
+    cfg, params = _front_params(torch, dev, spec["arch"], spec["seed"])
+    B, S = spec["batch"], spec["frames"]
+    batch = _front_batch(torch, dev, cfg, B, S, spec["seed"])
+    feats = {"features": batch["features"]}
+    encode = steps.make_encode_step(cfg)
+    with torch.no_grad():
+        encode(params, feats)           # warm (cuBLAS handles)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = encode(params, feats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+        shape = tuple(logits.shape)
+        del logits
+        n = FRONT_ENCODE_GATE_LAYERS
+        c2 = dataclasses.replace(cfg, num_layers=n, dtype="float32")
+        p2 = dict(params, blocks=tree_map(lambda a: a[:n], params["blocks"]))
+        got = steps.make_encode_step(c2)(p2, feats)
+        kernel = layers.flash_attention
+        layers.flash_attention = fa.flash_attention_plain
+        try:
+            want = steps.make_encode_step(c2)(p2, feats)
+        finally:
+            layers.flash_attention = kernel
+        err = float((got - want)[..., :cfg.vocab_size].abs().max())
+        big = float(want[..., :cfg.vocab_size].abs().max())
+    want_counts = {k: (cfg.num_superblocks if k == "flash_attention" else 0)
+                   for k in counts}
+    log(f"[frontends] {cfg.name} encode B={B} frames={S}: {wall:.4f}s "
+        f"({B * S / wall:.0f} frames/s), logits {shape} finite {finite}, peak "
+        f"device memory {peak / 2**30:.2f} GiB, launches={counts}; "
+        f"{n} superblocks in f32 arithmetic, kernel vs flash_attention_plain: "
+        f"max|diff|={err:.4e} max|logit|={big:.4e} ({err / big:.3e} of it, "
+        f"tol {FRONT_ENCODE_TOL:g}) on {smi}")
+    if counts != want_counts or not finite \
+            or shape != (B, S, cfg.vocab_padded) \
+            or not err <= FRONT_ENCODE_TOL * big:
+        raise AssertionError(f"{cfg.name} encode: launches {counts} (want "
+                             f"{want_counts}), finite {finite}, {shape}, "
+                             f"gap {err} of {big}")
+    stats = dict(encode_s=wall, peak_bytes=peak, gate_gap=err,
+                 gate_max_abs=big)
+    del params, p2, got, want, batch, feats
+    _free_card(torch)
+    return counts, stats
+
+
+def _front_train(torch, dev, smi: str, spec: dict) -> tuple:
+    """``make_train_step`` at full width, FRONT_TRAIN_STEPS steps, twice
+    from the same init: per step and microbatch flash_attention twice a
+    layer (remat "full" recomputes the forward) and its backward once, the
+    two runs bit-equal (every leaf and every loss), finite. Returns (counts
+    of one run, stats)."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    _free_card(torch)
+    cfg, params = _front_params(torch, dev, spec["arch"], 0,
+                                grad_accum=spec["grad_accum"])
+    batch = _front_batch(torch, dev, cfg, spec["batch"], spec["seq"], 1)
+    step = steps.make_train_step(cfg)
+    m, L = spec["grad_accum"], cfg.num_superblocks
+    runs = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        p, losses = params, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FRONT_TRAIN_STEPS):
+            p, loss = step(p, batch, FRONT_LR)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append(dict(params=p, losses=[float(x) for x in losses],
+                         counts=ops.launch_counts(), wall=wall,
+                         peak=torch.cuda.max_memory_allocated()))
+    a, b = runs
+    same = a["losses"] == b["losses"] and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(a["params"]),
+                                          tree_leaves(b["params"])))
+    finite = all(np.isfinite(a["losses"])) and all(
+        bool(torch.isfinite(x).all()) for x in tree_leaves(a["params"]))
+    moved = not all(torch.equal(x, y) for x, y in
+                    zip(tree_leaves(a["params"]), tree_leaves(params)))
+    n = FRONT_TRAIN_STEPS * m * L
+    want = {k: 0 for k in a["counts"]}
+    want.update(flash_attention=2 * n, flash_attention_bwd=n)
+    toks = spec["batch"] * (spec["seq"] + (cfg.num_prefix_tokens if
+                                           cfg.frontend == "vision" else 0))
+    log(f"[frontends] {cfg.name} make_train_step B={spec['batch']} "
+        f"({toks} positions) grad_accum={m}: losses {a['losses']}, "
+        f"{a['wall'] / FRONT_TRAIN_STEPS:.4f} and "
+        f"{b['wall'] / FRONT_TRAIN_STEPS:.4f} s a step, peak device memory "
+        f"{a['peak'] / 2**30:.2f} GiB, launches={a['counts']} (want {want}); "
+        f"the two runs bit-equal {same}, finite {finite}, moved {moved} on "
+        f"{smi}")
+    if not (same and finite and moved and a["counts"] == want
+            and b["counts"] == want):
+        raise AssertionError(f"{cfg.name} train: bit-equal {same}, finite "
+                             f"{finite}, moved {moved}, launches "
+                             f"{a['counts']} / {b['counts']} (want {want})")
+    stats = dict(s_per_step=[r["wall"] / FRONT_TRAIN_STEPS for r in runs],
+                 peak_bytes=a["peak"], losses=a["losses"])
+    del params, runs, a, b, p, batch
+    _free_card(torch)
+    return want, stats
+
+
+def _front_sketch(torch, dev, smi: str, flush) -> tuple:
+    """``make_sketch_step`` on hubert-xlarge at full width (d =
+    946,260,480): one sens_sketch launch. The kernel on the same trees'
+    flat rows against its plain version, summed over chunks of every leaf
+    (each chunk hashed from its index in the leaf), within ``_sketch_tol``;
+    the step's own sketch too. The layout table's build on the host (no
+    cache), the kernel's time beside the chunked plain version's and the
+    bound. Returns (counts, stats)."""
+    from repro_torch.common.tree import FlatSpec, grad
+    from repro_torch.core.sensitivity import fisher_diagonal
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sens_sketch as ss
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    _free_card(torch)
+    sp = FRONT_SKETCH
+    cfg, params = _front_params(torch, dev, "hubert-xlarge", 0)
+    calib = _front_batch(torch, dev, cfg, sp["batch"], sp["frames"], 2)
+    step = steps.make_sketch_step(cfg, k=sp["k"], seed=sp["seed"])
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_step = step(params, calib)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_superblocks
+    want = {k: 0 for k in counts}
+    want.update(sens_sketch=1, flash_attention=4 * L, flash_attention_bwd=2 * L)
+    if counts != want:
+        raise AssertionError(f"{cfg.name} sketch step: launches {counts} != "
+                             f"{want}")
+
+    def loss(p, b):
+        return M.loss_fn(p, b, cfg)
+
+    spec = FlatSpec(params)
+    g_tree = grad(loss, params, calib)
+    f_tree = fisher_diagonal(loss, params, calib, num_micro=1)
+    with torch.no_grad():
+        w, g, f = (spec.flatten(t)[None] for t in (params, g_tree, f_tree))
+        del g_tree, f_tree
+        t0 = time.perf_counter()
+        fresh = ss.layout_table.__wrapped__(spec.sizes, sp["seed"], sp["k"],
+                                            str(dev))
+        torch.cuda.synchronize()
+        table_s = time.perf_counter() - t0
+        ntiles = fresh.tiles.shape[0]
+        del fresh
+        table = ss.layout_table(spec.sizes, sp["seed"], sp["k"], str(dev))
+        got = ss.sens_sketch_rows(w, g, f, table)[0]
+        t0 = time.perf_counter()
+        want_s = torch.zeros(sp["k"], dtype=torch.float32, device=dev)
+        for off, n, seed, base in table.leaves:
+            for lo in range(0, n, FRONT_SKETCH_CHUNK):
+                c = min(FRONT_SKETCH_CHUNK, n - lo)
+                part = ss.SketchTable(sp["k"], c, ((0, c, seed, base + lo),),
+                                      None)
+                sl = slice(off + lo, off + lo + c)
+                want_s += ss.sens_sketch_rows_plain(w[:, sl], g[:, sl],
+                                                    f[:, sl], part)[0]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        tol = _sketch_tol(torch, w, g, f, sp["k"])[0].float()
+        share = float(((got - want_s).abs() / tol).max())
+        step_share = float(((s_step - want_s).abs() / tol).max())
+        step_same = torch.equal(s_step, got)
+        ms = _time_ms(torch, lambda: ss.sens_sketch_rows(w, g, f, table), 5,
+                      flush)
+    d = spec.size
+    bound, by = _sketch_bound(d, sp["k"])
+    log(f"[frontends] {cfg.name} make_sketch_step (calibration {sp['batch']} "
+        f"x {sp['frames']} frames): {wall:.3f}s, peak device memory "
+        f"{peak / 2**30:.2f} GiB, launches={counts}; sens_sketch over d={d} "
+        f"({len(spec.sizes)} leaves, {ntiles} tile records built in "
+        f"{table_s:.3f}s on the host, uncached): max|err| vs the chunked "
+        f"plain version {float((got - want_s).abs().max()):.4e}, worst at "
+        f"{share:.3f} of _sketch_tol; the step's own sketch at "
+        f"{step_share:.3f} of it (bit-equal to the kernel on the same trees "
+        f"{step_same}); kernel {ms * 1e3:.1f}us, plain (chunked, one run) "
+        f"{plain_ms * 1e3:.1f}us, bound {bound * 1e3:.1f}us by {by} "
+        f"({100 * bound / ms:.1f}% of it) on {smi}")
+    if not (share <= 1.0 and step_share <= 1.0
+            and bool(torch.isfinite(s_step).all())):
+        raise AssertionError(f"{cfg.name} sketch: {share}, {step_share} of "
+                             f"the tolerance")
+    stats = dict(s=wall, peak_bytes=peak, d=d, tiles=ntiles, table_s=table_s,
+                 max_abs_err=float((got - want_s).abs().max()), share=share,
+                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                 step_bit_equal=step_same)
+    del params, calib, w, g, f, got, want_s, tol, s_step
+    _free_card(torch)
+    return counts, stats
+
+
+def _front_pretrain(torch, dev, smi: str) -> tuple:
+    """``repro_torch.examples.pretrain_lm --preset 20m`` for a few rounds
+    on the card (AdamW, warmup_cosine, client_sketch, server_step), after
+    buffer_agg against its plain version at the example's d (its buffer of
+    2). Launches exact: sens_sketch once a receive, once an aggregation and
+    once for the initial global sketch; buffer_agg once an aggregation;
+    flash_attention and its backward once a layer a pass (remat "none"):
+    the local steps and 5 passes a sketch (the gradient and 4 Fisher
+    microbatches). Returns (counts, stats, buffer_agg's max|err|)."""
+    from repro_torch.examples import pretrain_lm
+    from repro_torch.kernels import buffer_agg as ba
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    cfg = pretrain_lm.make_cfg(FRONT_PRETRAIN[1])
+    d, _ = M.count_params(cfg)
+    rng = np.random.default_rng(26)
+    wts = torch.softmax(_rand(torch, rng, (2,), dev), 0)
+    glob, u = _rand(torch, rng, (d,), dev), _rand(torch, rng, (2, d), dev)
+    got, exp = ba.buffer_agg(wts, glob, u), ba.buffer_agg_plain(wts, glob, u)
+    err = float((got - exp).abs().max())
+    tol = 1e-6 * (1.0 + float(exp.abs().max())) * 2
+    if not err <= tol:
+        raise AssertionError(f"buffer_agg d={d}: {err} > {tol}")
+    del glob, u, got, exp
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pretrain_lm.main(list(FRONT_PRETRAIN))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    R, V, S = res["receives"], res["versions"], res["local_steps"]
+    passes = cfg.num_superblocks * (S + 5 * (R + V + 1))
+    want = dict(buffer_agg=V, sens_sketch=R + V + 1, grouped_matmul=0,
+                flash_attention=passes, flash_attention_bwd=passes)
+    log(f"[frontends] pretrain_lm {' '.join(FRONT_PRETRAIN)}: d={d}, "
+        f"buffer_agg L=2 max|err|={err:.3e} (tol {tol:.3e}); {R} receives, "
+        f"{V} aggregations, {S} local steps in {wall:.2f}s "
+        f"({wall / R:.4f} s/receive), losses {res['losses'][0]:.4f} -> "
+        f"{res['losses'][-1]:.4f}, launches={counts} (want {want}) on {smi}")
+    if counts != want or not np.all(np.isfinite(res["losses"])):
+        raise AssertionError(f"pretrain_lm: launches {counts} != {want} or "
+                             f"losses {res['losses']}")
+    stats = dict(s=wall, s_per_receive=wall / R, receives=R, versions=V,
+                 d=d, losses=res["losses"])
+    del res
+    _free_card(torch)
+    return counts, stats, err
+
+
+def phase_frontends(torch, dev, smi: str) -> tuple:
+    """[frontends]: the kernels at the frontends' shapes against their
+    plain versions, timed; internvl2-1b served and hubert-xlarge encoded at
+    full width; both trained through ``make_train_step`` at full width
+    (hubert with grad_accum 2), two runs bit-equal; ``make_sketch_step`` on
+    hubert (one sens_sketch launch over d = 946,260,480); the pretrain
+    example on the card. Returns (kernel results, launch counts by path,
+    stats)."""
+    t_phase = time.perf_counter()
+    paths, stats = {}, {}
+    kern = _front_kernels(torch, dev)
+    log(f"[frontends] kernels {time.perf_counter() - t_phase:.1f}s")
+    t0 = time.perf_counter()
+    paths["frontends-internvl2-1b-serve"], stats["serve"] = _front_serve(
+        torch, dev, smi)
+    paths["frontends-hubert-xlarge-encode"], stats["encode"] = _front_encode(
+        torch, dev, smi)
+    log(f"[frontends] serve and encode {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for spec in FRONT_TRAIN:
+        paths[f"frontends-{spec['arch']}-train"], stats[
+            f"train-{spec['arch']}"] = _front_train(torch, dev, smi, spec)
+    log(f"[frontends] train steps {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    paths["frontends-hubert-xlarge-sketch"], kern["sketch"] = _front_sketch(
+        torch, dev, smi, flush)
+    del flush
+    paths["frontends-pretrain-20m"], stats["pretrain"], kern["buffer_agg"] = \
+        _front_pretrain(torch, dev, smi)
+    log(f"[frontends] sketch step and pretrain example "
+        f"{time.perf_counter() - t0:.1f}s")
+    log(f"[frontends] the whole phase took {time.perf_counter() - t_phase:.1f}s")
+    return kern, paths, stats
+
+
 def _seconds(what: str, fn, *args):
     """``fn(*args)``, printing its seconds as a ``[fed-lm]`` sub-phase."""
     t0 = time.perf_counter()
@@ -4926,6 +5538,8 @@ def main() -> int:
     log(f"[fed-lm] full-width phases {time.perf_counter() - t0:.1f}s")
     fam_errs, fam_paths, fam_serve = phase_families(torch, dev, smi)
     by_path.update(fam_paths)
+    front, front_paths, front_stats = phase_frontends(torch, dev, smi)
+    by_path.update(front_paths)
     phase_profile(torch)
     phase_profile_serve(torch, dev)
     sources = {"buffer_agg": ("src/repro_torch/csrc/buffer_agg.cu",
@@ -4951,6 +5565,8 @@ def main() -> int:
                         "population_shape": pop_cases[k],
                         **{x: r[x] for x in ("device_ms", "host_us", "design",
                                              "cases", "probe") if x in r}})
+    kernels[0]["frontends"] = {"pretrain_20m_max_abs_err": front["buffer_agg"]}
+    kernels[1]["frontends"] = front["sketch"]
     from repro_torch.kernels import flash_attention as fa
     r = timing["flash_attention"]
     kernels.append({
@@ -4972,10 +5588,15 @@ def main() -> int:
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "shape": r["shape"], "design": r["design"],
-        "window": timing["flash_attention_window"]})
+        "window": timing["flash_attention_window"],
+        "frontends": {"max_abs_err": front["fwd_f32_err"],
+                      "max_abs_err_bf16": front["fwd_bf16_err"],
+                      "bf16_worst_share_of_limit": front["fwd_bf16_share"],
+                      "timing": [t for t in front["timing"]
+                                 if not t["shape"].startswith("backward")]}})
     kernels[-1]["launches_by_path"].update(
         {p: c["flash_attention"] for p, c in
-         {**serve_paths, **fedlm_paths, **fam_paths}.items()})
+         {**serve_paths, **fedlm_paths, **fam_paths, **front_paths}.items()})
     r = fedlm_kern["timing"]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
@@ -4985,7 +5606,8 @@ def main() -> int:
                          "chunked_attention",
         "launches": fedlm_paths["fed-lm-train-cli"]["flash_attention_bwd"],
         "launches_by_path": {p: c["flash_attention_bwd"]
-                             for p, c in {**fedlm_paths, **fam_paths}.items()},
+                             for p, c in {**fedlm_paths, **fam_paths,
+                                          **front_paths}.items()},
         "max_abs_err": fedlm_kern["f32"]["max_abs_err"],
         "max_abs_err_bf16": fedlm_kern["bf16"]["max_abs_err"],
         "bf16_worst_share_of_limit": fedlm_kern["bf16"]["share"],
@@ -5001,10 +5623,15 @@ def main() -> int:
         "bound_by": r["bound_by"], "fp32_bound_ms": r["fp32_bound_ms"],
         "cuda_core_ms": r["cuda_core_ms"],
         "library_ms": r["library_ms"], "shape": r["shape"],
-        "design": r["design"], "window": fedlm_kern["window_timing"]})
+        "design": r["design"], "window": fedlm_kern["window_timing"],
+        "frontends": {"max_abs_err": front["bwd_f32_err"],
+                      "bf16_worst_share_of_limit": front["bwd_bf16_share"],
+                      "timing": [t for t in front["timing"]
+                                 if t["shape"].startswith("backward")]}})
     log(json.dumps({"serve": {**serve_stats, **serve_check}}))
     log(json.dumps({"serve_more": serve_more}))
     log(json.dumps({"families": fam_serve}))
+    log(json.dumps({"frontends": front_stats}))
     log(json.dumps({"fed_lm_full_width": {
         k: fedlm_full[k] for k in (
             "s_per_step", "peak_bytes", "busy_share", "tc_kernel_us",

@@ -39,12 +39,23 @@ def tree_unflatten_like(template, leaves):
     return build(template)
 
 
-def grad(loss_fn: Callable, params, *args):
-    """Gradient tree of ``loss_fn(params, *args)`` at ``params`` (the values
-    are not modified; autograd runs on detached aliases)."""
+def value_and_grad(loss_fn: Callable, params, *args):
+    """(loss, gradient tree) of ``loss_fn(params, *args)`` at ``params``
+    (the values are not modified; autograd runs on detached aliases). A
+    leaf the loss does not read gets a zero gradient, as ``jax.grad``
+    gives it (a vision model's ``proj`` on a batch without patches)."""
     p = tree_map(lambda x: x.detach().requires_grad_(True), params)
     leaves = tree_leaves(p)
-    return tree_unflatten_like(p, torch.autograd.grad(loss_fn(p, *args), leaves))
+    loss = loss_fn(p, *args)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten_like(p, grads)
+
+
+def grad(loss_fn: Callable, params, *args):
+    """Gradient tree of ``loss_fn(params, *args)`` at ``params``."""
+    return value_and_grad(loss_fn, params, *args)[1]
 
 
 def tree_add(a, b):

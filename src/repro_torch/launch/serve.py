@@ -9,8 +9,12 @@ The ported archs are the token LMs: dense (``phi4-mini-3.8b``,
 ``codeqwen1.5-7b``, ``minitron-8b``, ``llama3-405b``), ssm
 (``xlstm-350m``), moe (``qwen2-moe-a2.7b``, ``arctic-480b``) and hybrid
 (``jamba-v0.1-52b``), the ``fed-lm-*`` scenarios, and their ``-smoke``
-variants. The cache holds each attention layer's KV cache and each
-recurrent layer's state. ``generate`` also serves a config's
+variants, and the vision frontend (``internvl2-1b``): its prompts come
+after ``num_prefix_tokens`` patch embeddings, so the cache holds P +
+prompt + gen positions and decode starts at position P + prompt. An
+encoder-only arch (``hubert-xlarge``) has no decode path and raises. The
+cache holds each attention layer's KV cache and each recurrent layer's
+state. ``generate`` also serves a config's
 ``for_long_context()`` variant: sliding-window attention (8,192 for every
 config with attention) with a ring KV cache of ``min(window, prompt +
 gen)`` slots.
@@ -18,8 +22,10 @@ gen)`` slots.
 Runs on the CUDA card by default and raises without one (``--device cpu``
 runs the kernels' plain versions). Weights are a random init from a
 ``torch.Generator`` seeded with ``--seed`` (on the run's device), and so
-are the prompt tokens. The prefill sizes the cache for ``prompt + gen``
-tokens; ``gen - 1`` greedy decode steps follow. Prints the prefill's
+are the prompt tokens and, for a vision arch, the patch embeddings
+(float32 normal, as the reference draws them). The prefill sizes the
+cache for ``prompt + gen`` tokens (after the patches); ``gen - 1`` greedy
+decode steps follow. Prints the prefill's
 seconds and the decode's tokens per second; the first call on a card also
 pays one-time setup (kernel load, cuBLAS handles). The default arch is the
 reference's, ``xlstm-350m-smoke``.
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import torch
 
@@ -42,17 +49,23 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def generate(params, cfg: ModelConfig, prompts: torch.Tensor, gen: int) -> dict:
-    """Prefill ``prompts`` (B, S) and greedily decode ``gen`` tokens (the
-    prefill's argmax, then ``gen - 1`` decode steps). Returns the tokens
-    (B, gen) and the host seconds of each phase (each ends in a device
+def generate(params, cfg: ModelConfig, prompts: torch.Tensor, gen: int,
+             patches: Optional[torch.Tensor] = None) -> dict:
+    """Prefill ``prompts`` (B, S), after ``patches`` (B, P, D) for a vision
+    frontend, and greedily decode ``gen`` tokens (the prefill's argmax, then
+    ``gen - 1`` decode steps from position P + S). Returns the tokens (B,
+    gen) and the host seconds of each phase (each ends in a device
     synchronize)."""
     dev = prompts.device
     B, S = prompts.shape
+    batch = {"tokens": prompts}
+    if patches is not None:
+        batch["patches"] = patches
+        S += patches.shape[1]
     with torch.no_grad():
         _sync(dev)
         t0 = time.perf_counter()
-        cache, logits = model_lib.prefill(params, {"tokens": prompts}, cfg,
+        cache, logits = model_lib.prefill(params, batch, cfg,
                                           max_len=S + gen)
         out = [torch.argmax(logits, dim=-1)[:, None]]
         _sync(dev)
@@ -84,12 +97,19 @@ def main(argv=None) -> dict:
 
     cfg = get_config(args.arch)
     model_lib.check_lm(cfg)
+    if not cfg.has_decode:
+        raise ValueError(f"{cfg.name} is encoder-only: nothing to serve")
     dev = setup_device(args.device)
     params = model_lib.init_params(
         torch.Generator(device=dev).manual_seed(args.seed), cfg, dev)
+    host = torch.Generator().manual_seed(args.seed)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=torch.Generator().manual_seed(args.seed))
-    res = generate(params, cfg, prompts.to(dev), args.gen)
+                            generator=host)
+    patches = None
+    if cfg.frontend == "vision":
+        patches = torch.randn((args.batch, cfg.num_prefix_tokens,
+                               cfg.d_model), generator=host).to(dev)
+    res = generate(params, cfg, prompts.to(dev), args.gen, patches)
     print(f"[serve] {cfg.name} on {args.device}: prefill({args.batch}x"
           f"{args.prompt_len}) {res['prefill_s']:.4f} s; "
           f"{res['decode_steps']} decode steps {res['decode_s']:.4f} s "

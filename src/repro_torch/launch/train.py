@@ -14,7 +14,9 @@ sequential engine, on the paper's image models and on the token families:
 ``--arch fed-lm-smoke``, ``fed-lm-ssm-smoke``, ``fed-lm-moe-smoke`` (or any
 dense, moe, ssm or hybrid LM id) trains the federated LM fine-tuning world,
 a document-partitioned bigram corpus in ``--seq`` token sequences
-(``build_lm_task``); the frontend archs are not ported (ROADMAP.md).
+(``build_lm_task``). The frontend archs (``internvl2-1b``,
+``hubert-xlarge``) have no registered family, as in the reference, and
+raise: they train through ``launch.steps.make_train_step``.
 
 ``--mesh N`` shards the policy server over N ranks and trains the waves
 data-parallel (``SimConfig.mesh``), one process a rank: under ``torchrun``

@@ -1,17 +1,21 @@
-"""Model configuration: the paper's image families and the token LMs.
+"""Model configuration: the paper's image families and the LMs.
 
 The reference ``repro.models.config.ModelConfig`` covers every architecture
 family; the port carries the fields its ported paths read: the image models
-(cnn / mlp) and the token LMs of the dense, moe, ssm and hybrid families
-(prefill, decode and training). A model is described, as in the reference,
+(cnn / mlp), the token LMs of the dense, moe, ssm and hybrid families
+(prefill, decode and training) and the frontends, vision (vlm: patch
+embeddings in front of the tokens) and audio (an encoder-only stack over
+frame embeddings). The reference's sharding fields (``pure_data_parallel``,
+``seq_shard``, ``expert_tensor_parallel``) come with ROADMAP.md Queue 1
+item 12. A model is described, as in the reference,
 by a *superblock pattern*: ``block_pattern`` gives the sequence mixer per
 layer inside one superblock (``"attn" | "mamba" | "mlstm" | "slstm"``) and
 ``ffn_pattern`` the feed-forward kind (``"dense" | "moe" | "moe+dense" |
 "none"``); the pattern tiles to ``num_layers``. ``dispatch_groups`` is
 part of the MoE's function, not a sharding knob: the capacity is computed
-per group of tokens, so it decides which tokens drop. The frontend fields
-of the reference come with the slice that reads them (ROADMAP.md Queue 1
-item 10c). ``scan_groups``
+per group of tokens, so it decides which tokens drop. ``grad_accum``
+splits ``launch.steps.make_train_step``'s batch into microbatches.
+``scan_groups``
 is the reference's two-level remat: ``G > 1`` groups of superblocks, each
 checkpointed, around a checkpoint per superblock. ``q_chunk`` and
 ``kv_chunk`` are the reference's attention chunking: the port's attention
@@ -29,7 +33,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                # cnn | mlp | dense | moe | ssm | hybrid
+    family: str        # cnn | mlp | dense | moe | ssm | hybrid | vlm | audio
     # LM fields (the reference's; zero for the image families)
     num_layers: int = 0
     d_model: int = 0

@@ -1,6 +1,7 @@
-"""Shared LM layers: norms, RoPE, GQA attention with its KV cache, FFNs,
-embeddings. The port of the reference's ``repro.models.layers`` for the
-dense decoder's training, prefill and decode.
+"""Shared LM layers: norms (rmsnorm, and layernorm for the audio encoder),
+RoPE, GQA attention with its KV cache, FFNs, embeddings. The port of the
+reference's ``repro.models.layers`` for the LMs' training, prefill and
+decode.
 
 Every layer is a pair ``init_*(gen, cfg, ...) -> params`` and
 ``apply(params, x, ...) -> y`` over plain dicts of tensors, with the
@@ -78,6 +79,22 @@ def rmsnorm(params, x, eps: float = 1e-5):
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(d: int, dtype, device, lead=()) -> dict:
+    shape = tuple(lead) + (d,)
+    return {"scale": torch.ones(shape, dtype=dtype, device=device),
+            "bias": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    """f32 layernorm with the population variance (``jnp.var``, so
+    ``correction=0``), cast back to x's dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

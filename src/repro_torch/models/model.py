@@ -43,8 +43,18 @@ layers' float32 states, each written in place. With ``members=True`` (the cohort
 engine) every LM leaf carries the member axis before the superblock axis,
 ``(B, nsb, ...)``, and the tokens ``(B, n, S)``. A ``sliding_window``
 reaches every attention layer: the flash kernels' band, and a ring KV cache
-of ``min(window, max_len)`` slots. A frontend (the audio and vision
-families) is not ported and raises ``NotImplementedError``.
+of ``min(window, max_len)`` slots.
+
+The frontends share that stack (``embed_inputs``). Vision (family
+``vlm``): a batch's ``patches`` (B, P, D) go through ``proj`` and sit in
+front of the token embeddings, RoPE and the causal mask run over all P + S
+positions, the loss gives the patch positions no label, and decode goes on
+from position P + S. Audio (family ``audio``, ``causal=False``): frame
+embeddings ``features`` (B, S, D) through ``in_proj``, layernorm in every
+norm, bidirectional attention and per-frame logits through ``cls``
+(``encode``); it is encoder-only, so ``init_cache``, ``prefill`` and
+``decode_step`` raise. The member-batched path is for the families the
+simulator registers, and the frontends are not among them.
 """
 from __future__ import annotations
 
@@ -199,18 +209,26 @@ def loss_fn(params, batch, cfg: ModelConfig, members: bool = False):
     """The training loss: mean cross-entropy of the image models on
     ``{"x", "y"}``; for the LM, the mean next-token cross-entropy on
     ``{"tokens", "labels"}`` (labels < 0 carry no target; position t
-    predicts token t + 1), over the labels that count. With ``members``
+    predicts token t + 1), over the labels that count; with a vision
+    frontend the batch's ``patches`` come first and carry no label; for the
+    audio encoder (``causal=False``) the per-frame cross-entropy on
+    ``{"features", "labels"}``, without a shift. With ``members``
     (the LM), the (B,) per-member losses. The MoE families add their
     layers' Switch aux losses, as the reference's ``ce + aux``."""
     if cfg.family in ("cnn", "mlp"):
         return _mean_xent(forward(params, batch["x"], cfg), batch["y"])
-    x = layers.embed_tokens(params["embed"], batch["tokens"], cfg, members)
+    x = embed_inputs(params, batch, cfg, members)
     hidden, aux = backbone_forward(params, x, cfg, members=members)
     labels = batch["labels"]
+    if cfg.frontend == "vision" and "patches" in batch:
+        # the patch positions carry no labels
+        pad = labels.new_full(labels.shape[:1] + batch["patches"].shape[1:2],
+                              -1)
+        labels = torch.cat([pad, labels], dim=1)
     if cfg.causal:
         hidden, labels = hidden[..., :-1, :], labels[..., 1:]
-    ce = chunked_cross_entropy(hidden, layers.unembed_weight(params["embed"]),
-                               labels, cfg, members=members)
+    ce = chunked_cross_entropy(hidden, _unembed_weight(params, cfg), labels,
+                               cfg, members=members)
     return ce if aux is None else ce + aux
 
 
@@ -307,21 +325,24 @@ def accuracy(params, batch, cfg: ModelConfig) -> torch.Tensor:
 
 REMATS = ("none", "full", "dots")
 TOKEN_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FRONTEND_FAMILIES = ("vlm", "audio")
+FRONTENDS = (None, "vision", "audio")
 MIXERS = ("attn", "mamba", "mlstm", "slstm")
 FFNS = ("dense", "moe", "moe+dense", "none")
 
 
 def check_lm(cfg: ModelConfig) -> None:
-    """Raise for an LM configuration the port does not cover: a frontend
-    (the audio and vision families), naming the ROADMAP.md Queue 1 item
-    that ports it; and for a ``remat`` that is none of ``REMATS`` or a
+    """Raise for an LM configuration the port does not know: a family that
+    is none of ``TOKEN_FAMILIES`` or ``FRONTEND_FAMILIES``, a frontend that
+    is none of ``FRONTENDS``, a ``remat`` that is none of ``REMATS`` or a
     superblock position of an unknown kind."""
-    if cfg.frontend is not None or cfg.family not in TOKEN_FAMILIES:
-        what = (f"frontend {cfg.frontend!r}" if cfg.frontend is not None
-                else f"family {cfg.family!r}")
+    if cfg.family not in TOKEN_FAMILIES + FRONTEND_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported (ROADMAP.md Queue 1 item "
-            f"10c)")
+            f"{cfg.name}: family {cfg.family!r} is not one of "
+            f"{TOKEN_FAMILIES + FRONTEND_FAMILIES}")
+    if cfg.frontend not in FRONTENDS:
+        raise ValueError(f"{cfg.name}: frontend must be one of {FRONTENDS}, "
+                         f"got {cfg.frontend!r}")
     if cfg.remat not in REMATS:
         raise ValueError(f"{cfg.name}: remat must be one of {REMATS}, got "
                          f"{cfg.remat!r}")
@@ -340,18 +361,29 @@ _MIXER_STATE = {"mamba": ssm.init_mamba_state, "mlstm": ssm.init_mlstm_state,
                 "slstm": ssm.init_slstm_state}
 
 
+def _norm_init(cfg: ModelConfig):
+    """The norms' init: layernorm for the audio family, else rmsnorm."""
+    if cfg.family == "audio":
+        return layers.init_layernorm
+    return layers.init_rmsnorm
+
+
 def init_lm(gen, cfg: ModelConfig, device="cpu") -> dict:
     """Stacked superblocks: position ``p{i}`` holds its mixer and, unless
     its FFN kind is ``"none"``, ``norm2`` and the FFN (``dense``, ``moe``,
-    or ``{"moe", "dense"}`` side by side)."""
+    or ``{"moe", "dense"}`` side by side). Then the inputs' and outputs'
+    leaves: ``embed`` (tokens), with ``proj`` (D, D) beside it for a vision
+    frontend; for the audio frontend ``in_proj`` (D, D) and the ``cls``
+    head (D, vocab_padded), its pad columns zero."""
     pd = layers.param_dtype_of(cfg)
     D, lead = cfg.d_model, (cfg.num_superblocks,)
+    norm_init = _norm_init(cfg)
     blocks = {}
     for i, (mix, ffn) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
-        pos = {"norm1": layers.init_rmsnorm(D, pd, device, lead),
+        pos = {"norm1": norm_init(D, pd, device, lead),
                "mixer": _MIXER_INIT[mix](gen, cfg, device, lead)}
         if ffn != "none":
-            pos["norm2"] = layers.init_rmsnorm(D, pd, device, lead)
+            pos["norm2"] = norm_init(D, pd, device, lead)
             if ffn == "dense":
                 pos["ffn"] = layers.init_ffn(gen, cfg, device, lead)
             elif ffn == "moe":
@@ -361,9 +393,53 @@ def init_lm(gen, cfg: ModelConfig, device="cpu") -> dict:
                               "dense": layers.init_ffn(gen, cfg, device,
                                                        lead)}
         blocks[f"p{i}"] = pos
-    return {"blocks": blocks,
-            "final_norm": layers.init_rmsnorm(D, pd, device),
-            "embed": layers.init_embed(gen, cfg, device)}
+    params = {"blocks": blocks, "final_norm": norm_init(D, pd, device)}
+    if cfg.frontend == "audio":
+        params["in_proj"] = layers.dense_init(gen, (D, D), pd, device)
+        params["cls"] = F.pad(layers.dense_init(gen, (D, cfg.vocab_size), pd,
+                                                device),
+                              (0, cfg.vocab_padded - cfg.vocab_size))
+    else:
+        params["embed"] = layers.init_embed(gen, cfg, device)
+        if cfg.frontend == "vision":
+            params["proj"] = layers.dense_init(gen, (D, D), pd, device)
+    return params
+
+
+def embed_inputs(params, batch: dict, cfg: ModelConfig,
+                 members: bool = False):
+    """The backbone's input x (B, S, D): the token embeddings; with a
+    vision frontend and ``patches`` (B, P, D) in the batch, the projected
+    patches in front of them, (B, P + S, D); for the audio frontend the
+    projected ``features`` (B, S, D). ``members`` is for the token
+    families only."""
+    if members and (cfg.frontend is not None
+                    or cfg.family in FRONTEND_FAMILIES):
+        raise ValueError(f"{cfg.name}: the member-batched path has no "
+                         f"frontend (the simulator registers no "
+                         f"{cfg.family!r} family)")
+    if cfg.frontend == "audio":
+        x = batch["features"].to(layers.dtype_of(cfg))
+        return member_dot(x, params["in_proj"].to(x.dtype))
+    tok = layers.embed_tokens(params["embed"], batch["tokens"], cfg, members)
+    if cfg.frontend == "vision" and "patches" in batch:
+        p = member_dot(batch["patches"].to(tok.dtype),
+                       params["proj"].to(tok.dtype))
+        tok = torch.cat([p, tok], dim=1)
+    return tok
+
+
+def _unembed_weight(params, cfg: ModelConfig):
+    """The (D, Vp) output head: ``cls`` for the audio frontend, else the
+    token table's (``layers.unembed_weight``)."""
+    if cfg.frontend == "audio":
+        return params["cls"]
+    return layers.unembed_weight(params["embed"])
+
+
+def _unembed(params, x, cfg: ModelConfig):
+    logits = member_dot(x, _unembed_weight(params, cfg).to(x.dtype))
+    return layers.mask_vocab_pad(logits, cfg)
 
 
 def _superblock(stacked, i: int):
@@ -372,12 +448,14 @@ def _superblock(stacked, i: int):
 
 
 def _norm(p, x, cfg: ModelConfig, members: bool = False):
-    """rmsnorm; with ``members`` each member's (D,) scale on its rows."""
-    scale = p["scale"]
+    """rmsnorm (layernorm for the audio family); with ``members`` each
+    member's (D,) leaves on its rows."""
     if members:
-        scale = scale.reshape(scale.shape[:1] + (1,) * (x.dim() - 2)
-                              + scale.shape[-1:])
-    return layers.rmsnorm({"scale": scale}, x, cfg.norm_eps)
+        p = tree_map(lambda a: a.reshape(a.shape[:1] + (1,) * (x.dim() - 2)
+                                         + a.shape[-1:]), p)
+    if cfg.family == "audio":
+        return layers.layernorm(p, x, cfg.norm_eps)
+    return layers.rmsnorm(p, x, cfg.norm_eps)
 
 
 def _add_aux(total, aux):
@@ -532,17 +610,31 @@ def backbone_forward(params, x, cfg: ModelConfig, cache=None,
 
 
 def forward_logits(params, batch: dict, cfg: ModelConfig):
-    """Full logits (B, S, vocab_padded), pad columns masked."""
-    x = layers.embed_tokens(params["embed"], batch["tokens"], cfg)
+    """Full logits (B, S, vocab_padded), pad columns masked ((B, P + S,
+    ...) with patches)."""
+    x = embed_inputs(params, batch, cfg)
     hidden, _ = backbone_forward(params, x, cfg)
-    return layers.unembed(params["embed"], hidden, cfg)
+    return _unembed(params, hidden, cfg)
+
+
+def encode(params, batch: dict, cfg: ModelConfig):
+    """The encoder-only forward (hubert): per-frame logits (B, S,
+    vocab_padded), the reference's ``encode``."""
+    return forward_logits(params, batch, cfg)
+
+
+def _check_decode(cfg: ModelConfig) -> None:
+    check_lm(cfg)
+    if not cfg.has_decode:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode path")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu") -> dict:
     """Zeroed decode caches, stacked ``(nsb, B, ...)`` per position: the KV
     cache ``(nsb, B, C, Hkv, hd)`` of an attention layer, the recurrent
-    state of a mamba, mLSTM or sLSTM layer (f32, ``m`` at -1e30)."""
-    check_lm(cfg)
+    state of a mamba, mLSTM or sLSTM layer (f32, ``m`` at -1e30). An
+    encoder-only config raises ``ValueError``."""
+    _check_decode(cfg)
     lead = (cfg.num_superblocks,)
     return {f"p{i}": (layers.init_attention_cache(cfg, batch, max_len,
                                                   device, lead=lead)
@@ -555,12 +647,15 @@ def prefill(params, batch: dict, cfg: ModelConfig,
             max_len: Optional[int] = None):
     """Full-sequence prefill: the forward of ``forward_logits`` filling the
     cache. Returns (cache, last-position logits (B, V)), the KV caches sized
-    for ``max_len`` (>= S; defaults to S)."""
-    x = layers.embed_tokens(params["embed"], batch["tokens"], cfg)
+    for ``max_len`` (>= S; defaults to S). With ``patches`` (B, P, D) the
+    sequence is the P patches and then the S tokens, at positions 0 .. P +
+    S - 1, so decode goes on from position P + S."""
+    _check_decode(cfg)
+    x = embed_inputs(params, batch, cfg)
     B, S = x.shape[:2]
     cache = init_cache(cfg, B, max(max_len or S, S), x.device)
     hidden, _ = backbone_forward(params, x, cfg, cache)
-    return cache, layers.unembed(params["embed"], hidden[:, -1], cfg)
+    return cache, _unembed(params, hidden[:, -1], cfg)
 
 
 def superblock_decode(params, cache, x, pos: int, cfg: ModelConfig):
@@ -568,7 +663,7 @@ def superblock_decode(params, cache, x, pos: int, cfg: ModelConfig):
     for i, (mix, ffn) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
         pp = params[f"p{i}"]
         c = cache[f"p{i}"]
-        h = layers.rmsnorm(pp["norm1"], x, cfg.norm_eps)
+        h = _norm(pp["norm1"], x, cfg)
         if mix == "attn":
             _, y = layers.attention_decode(pp["mixer"], c, h, pos, cfg)
         else:
@@ -577,7 +672,7 @@ def superblock_decode(params, cache, x, pos: int, cfg: ModelConfig):
                 c[k].copy_(v)
         x = x + y
         if ffn != "none":
-            h = layers.rmsnorm(pp["norm2"], x, cfg.norm_eps)
+            h = _norm(pp["norm2"], x, cfg)
             x = x + _ffn_apply(pp, ffn, h, cfg)[0]
     return cache, x
 
@@ -585,10 +680,10 @@ def superblock_decode(params, cache, x, pos: int, cfg: ModelConfig):
 def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig):
     """One-token decode. tokens: (B, 1); ``pos`` the tokens' position.
     Updates ``cache`` in place; returns (cache, logits (B, 1, V))."""
-    check_lm(cfg)
+    _check_decode(cfg)
     x = layers.embed_tokens(params["embed"], tokens, cfg)
     for s in range(cfg.num_superblocks):
         _, x = superblock_decode(_superblock(params["blocks"], s),
                                  _superblock(cache, s), x, pos, cfg)
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return cache, layers.unembed(params["embed"], x, cfg)
+    x = _norm(params["final_norm"], x, cfg)
+    return cache, _unembed(params, x, cfg)

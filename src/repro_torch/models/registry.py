@@ -126,6 +126,8 @@ def get_family(family) -> ModelFamily:
     if entry is None:
         raise NotImplementedError(
             f"model family {family!r} is not registered in repro_torch "
-            f"(registered: {registered_families()}); the frontend families "
-            f"are ROADMAP.md Queue 1 item 10c")
+            f"(registered: {registered_families()}); the reference "
+            f"registers no family for its frontends (vlm, audio), whose "
+            f"batches need patch or frame embeddings that the federated data "
+            f"layer does not make")
     return entry

@@ -90,20 +90,19 @@ def test_full_size_tree_and_counts_match_reference(arch):
 
 def test_every_assigned_arch_resolves_but_the_frontends():
     """``configs.get_config`` resolves every assigned architecture of the
-    reference and its ``-smoke`` variant; the two frontends raise, naming
-    ROADMAP.md Queue 1 item 10c."""
+    reference and its ``-smoke`` variant, the two frontends too since the
+    frontends slice (``tests/test_torch_frontends.py`` holds them to the
+    reference), each field for field the reference's config."""
     from repro.configs import ASSIGNED
     frontends = {"internvl2-1b", "hubert-xlarge"}
     assert frontends < set(ASSIGNED)
     for arch in ASSIGNED:
         for a in (arch, arch + "-smoke"):
+            assert tget(a) == dataclasses.replace(
+                tget(a), **{f.name: getattr(rget(a), f.name)
+                            for f in dataclasses.fields(tget(a))})
             if arch in frontends:
-                with pytest.raises(NotImplementedError, match="item 10c"):
-                    tget(a)
-            else:
-                assert tget(a) == dataclasses.replace(
-                    tget(a), **{f.name: getattr(rget(a), f.name)
-                                for f in dataclasses.fields(tget(a))})
+                assert tget(a).frontend == rget(a).frontend is not None
 
 
 def test_full_size_counts():

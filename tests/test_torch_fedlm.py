@@ -171,21 +171,25 @@ def test_fed_lm_config_matches_reference():
 @pytest.mark.parametrize("case", ["internvl2-1b", "hubert-xlarge",
                                   "vlm_family", "remat_dots"])
 def test_unported_token_configs_raise(case):
-    """The frontends (vision, audio) raise, naming the ROADMAP item; the
-    fed-lm ssm and moe scenarios, which raised here until the port covered
-    them, are held to the reference in ``tests/test_torch_fedlm_ssm.py`` and
-    ``tests/test_torch_fedlm_moe.py``. ``remat="dots"``, which raised until
+    """The frontends (vision, audio), which raised here until the port
+    covered them, resolve (``tests/test_torch_frontends.py`` holds them to
+    the reference), and so do the fed-lm ssm and moe scenarios (held in
+    ``tests/test_torch_fedlm_ssm.py`` and ``tests/test_torch_fedlm_moe.py``);
+    the registry, as the reference's, has no family for the frontends, so
+    the federated runners refuse them. ``remat="dots"``, which raised until
     the port covered it, runs to the "none" loss
     (``tests/test_torch_remat_dots.py`` holds its gradients)."""
     if case in ("internvl2-1b", "hubert-xlarge"):
         for arch in (case, case + "-smoke"):
-            with pytest.raises(NotImplementedError, match="item 10c"):
-                tget(arch)
+            assert tget(arch).name == arch
+            assert tget(arch).family == rget(arch).family
         for arch in ("fed-lm-ssm-smoke", "fed-lm-moe-smoke"):
             assert tget(arch).name == arch
     elif case == "vlm_family":
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            treg.get_family("vlm")
+        for fam in ("vlm", "audio"):
+            with pytest.raises(NotImplementedError,
+                               match="registers no family"):
+                treg.get_family(fam)
         assert treg.get_family("moe").data_kind == "tokens"
     else:
         p = load_npz_params(FIXTURE)

@@ -347,24 +347,27 @@ def test_unported_lm_configs_raise(case):
         cache = TM.init_cache(lcfg, 1, 16384 + 32, "meta")
         assert cache["p0"]["k"].shape == (32, 1, 8192, 8, 128)
         return
-    if case in ("arch", "family"):
+    if case in ("arch", "family", "frontend"):
         # the recurrent, MoE and hybrid families are ported since the
         # families slice (tests/test_torch_families.py holds them to the
-        # reference); a frontend arch or family still raises
+        # reference), the frontend archs and families since the frontends
+        # slice (tests/test_torch_frontends.py): the audio family's norms
+        # are layernorms, a vision frontend adds the patch projector
         cfg2 = tget("xlstm-350m-smoke")
         assert cfg2.family == "ssm" and bool(torch.isfinite(TM.init_params(
             torch.Generator().manual_seed(0), cfg2)["final_norm"]["scale"]
         ).all())
+        over = {"arch": {}, "family": {"family": "audio"},
+                "frontend": {"frontend": "vision"}}[case]
+        cfg = (tget("internvl2-1b-smoke") if case == "arch"
+               else dataclasses.replace(cfg, **over))
+        p = TM.init_params(torch.Generator().manual_seed(0), cfg)
+        assert set(p["final_norm"]) == ({"scale", "bias"} if case == "family"
+                                        else {"scale"})
+        assert ("proj" in p) == (case != "family")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "arch":
-            tget("internvl2-1b-smoke")
-        elif case == "image_smoke":             # image models have no smoke
-            tget("paper-cifar10-cnn-smoke")
-        else:
-            over = {"family": {"family": "audio"},
-                    "frontend": {"frontend": "vision"}}[case]
-            cfg = dataclasses.replace(cfg, **over)
-            TM.init_params(torch.Generator().manual_seed(0), cfg)
+        tget("paper-cifar10-cnn-smoke")          # image models have no smoke
 
 
 def test_serve_cli_on_cpu(capsys):

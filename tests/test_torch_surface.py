@@ -1,7 +1,8 @@
 """The port's package surface against the reference's, on the CPU.
 
 Each namespace of the port (``repro_torch.federated``, ``core``,
-``common``, ``kernels``, ``checkpoint``, ``data``) holds the public names
+``common``, ``kernels``, ``checkpoint``, ``data``, ``optim``, ``configs``)
+holds the public names
 that the reference's ``__init__`` exports, less the stated ``LEFT_OUT``
 list, each with its reason; ``AS_MODULE`` names are the port's submodule
 of that name, which holds the function (exporting the function would
@@ -54,7 +55,8 @@ from torch_threads import one_torch_thread  # noqa: F401
 rsens = importlib.import_module("repro.core.sensitivity")
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
-NAMESPACES = ("federated", "core", "common", "kernels", "checkpoint", "data")
+NAMESPACES = ("federated", "core", "common", "kernels", "checkpoint", "data",
+              "optim", "configs")
 LEFT_OUT = {
     "federated": {
         "make_legacy_server": "federated/legacy.py is ROADMAP.md Queue 1 "
@@ -83,12 +85,15 @@ AS_MODULE = {("core", "sensitivity"), ("kernels", "flash_attention")}
 
 
 def _reference_exports(ns: str) -> list:
-    """The names ``src/repro/<ns>/__init__.py`` binds by its imports."""
+    """The names ``src/repro/<ns>/__init__.py`` binds by its imports from
+    the reference's own modules (``configs`` also imports ``typing`` and
+    ``__future__`` names, which are no part of the package)."""
     with open(os.path.join(SRC, "repro", ns, "__init__.py")) as fh:
         tree = ast.parse(fh.read())
     names = []
     for node in tree.body:
-        if isinstance(node, ast.ImportFrom):
+        if isinstance(node, ast.ImportFrom) and node.module.startswith(
+                "repro"):
             names += [a.asname or a.name for a in node.names]
     return names
 
