@@ -52,9 +52,10 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    kernels, each run with exact launch counts (``buffer_agg`` once per
    apply, every receive under fedfa; ``sens_sketch`` per sketch);
 5b. sweeps: a 3-lane ``run_sweep`` of every policy on the golden world
-   (data seeds [0, 0, 1234], ``SWEEP_HYPER`` on lane 1) with both member
-   kernels: lane 0 holds the golden, under ``"grouped"`` lanes 1 and 2 the
-   port's standalone runs at the lane tolerance (rtol 1e-5, atol 1e-4),
+   (data seeds [0, 0, 1234], ``SWEEP_HYPER`` on lane 1), the policies
+   taking the two member kernels in turn: lane 0 holds the golden, lane 1
+   or 2 (in turn) the port's standalone run at the lane tolerance (rtol
+   1e-5, atol 1e-4),
    with exact launch counts (``buffer_agg`` per lane and apply,
    ``sens_sketch`` once per wave for all lanes plus each lane's refreshes,
    ``grouped_matmul`` as the standalone run's);
@@ -71,7 +72,8 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    kernels (``sens_sketch`` once per wave: waves + aggregations + 1);
 7b. the other policies at full width: fedasync, fedpac, ca2fl, fedfa
    and asyncfeded (l2, sketch) on ``paper-cifar10-cnn``, cohort engine
-   with ``member_kernel="grouped"``, horizon 2,000: exact launch counts,
+   with ``member_kernel="grouped"``, horizon ``POLICY_HORIZON`` (1,200):
+   exact launch counts,
    a finite (d,) global, accuracy in [0, 1], and each run's receives,
    wall, s/receive and peak device memory;
 7c. the same window at full width: FedPSA with cuDNN's deterministic flag
@@ -104,26 +106,29 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    engine, each job's ranks spawned by this script on the one card (the
    ``--mesh-rank`` entry): first the width probe behind the engine's
    split rule (cuDNN's grouped convolution, shares of 4 and 8 members
-   bit-equal to a call of 8 or 16); (a) the golden world, cohort/grouped, nine runs on 1
-   NCCL rank bit-equal to phase 5 and on 2 gloo ranks within the golden
-   tolerance, fedpsa on 4 gloo ranks (d = 4,522 padded by 2); (b) phase
-   7c's full-width window, FedPSA and asyncfeded l2, on 1 NCCL and 2 gloo
-   ranks, each bit-equal to the single-device run (the lane tolerance is
-   the gate); every rank's launch counts exact, every rank returning the
-   same run, s/receive, each rank's peak memory and the collectives a
-   receive; (c) the 2-rank golden FedPSA run again with rank 0 under a
-   device-only profile: every port kernel on one stream; gloo's host time
-   a collective on CUDA tensors; (d) full-width waves of 8 and 16 members
+   bit-equal to a call of 8 or 16); (a) the golden world, cohort/grouped:
+   fedpsa, fedfa and asyncfeded sketch on 1 NCCL rank bit-equal to phase
+   5, all nine golden runs on 2 gloo ranks within the golden tolerance,
+   fedpsa on 4 gloo ranks (d = 4,522 padded by 2); (b) phase
+   7c's full-width window, FedPSA on 1 NCCL and 2 gloo ranks and
+   asyncfeded l2 on the 2, each bit-equal to the single-device run (the
+   lane tolerance is the gate); every rank's launch counts exact, every
+   rank returning the same run, s/receive, each rank's peak memory and the
+   collectives a receive; gloo's host time a collective on CUDA tensors;
+   (c) full-width waves of 8 and 16 members
    through the cohort engine on 2 gloo ranks with the mesh and without
    it: every rank splits each wave, to the single-device bits, with
-   the same launches; (e) the fed-lm world (fedasync, fedpsa, and fedpsa
-   with a window of 8; cohort/grouped) on 1 NCCL rank bit-equal to
+   the same launches; (d) the fed-lm world (fedasync, fedpsa, and fedpsa
+   with a window of 8; cohort/grouped; fedpsa alone on NCCL) on 1 NCCL
+   rank bit-equal to
    ``[fed-lm]``'s single-device runs and on 2 gloo ranks within the golden
    tolerance of the golden and the window fixture, each rank with one
    device's launches, and the 2-rank fedpsa run traced on rank 0 (every
-   port kernel on one stream); then 2 NCCL ranks on the one card, which
-   must fail;
-8. profile: the first ``PROFILE_HORIZON`` (1,000) virtual units of both
+   port kernel on one stream); (e) the fed-lm ssm and moe worlds
+   (fedasync under "vmap", fedpsa under "grouped") on the 2 gloo ranks,
+   bit-equal to the single-device cohort runs of 9c; then 2 NCCL ranks on
+   the one card, which must fail;
+8. profile: the first ``PROFILE_HORIZON`` (500) virtual units of both
    main paths, and one serve prefill plus decode, under
    ``torch.profiler``: the device's busy
    share of the wall time and the CUDA kernels by total time (printed; a
@@ -169,13 +174,16 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    backward at ``FEDLM_BWD_WINDOW`` (the tensor-core kernels at the
    long-context and full-width shapes and at edges against float64, the
    CUDA-core ones in f32, at the windowed fed-lm run's wave shape
-   included, and at hd 256), its time at the long-context
+   included, and at hd 256; ``FA_WINDOW_SHAPES``' two causal=False shapes
+   in both dtypes, one with rows that see no key, whose gradient sends
+   do / Sk to every key's dv: ``FA_EMPTY_ROWS``, also timed), its time at
+   the long-context
    shape beside the unwindowed backward and SDPA's with the mask, and
    ``fed-lm-smoke`` with a window of 8, fedasync and fedpsa on
    cohort/grouped, against the reference's digests in
    ``tests/torch_fixtures/fed_lm_window8_digests.json`` with exact launch
-   counts. Sweeps: 3-lane ``run_sweep``s of fedasync and fedpsa on both
-   member kernels and of windowed fedpsa under ``"grouped"``, lane 0 held
+   counts. Sweeps: 3-lane ``run_sweep``s of fedasync (under ``"vmap"``),
+   fedpsa and windowed fedpsa (under ``"grouped"``), lane 0 held
    to the golden (or the window fixture), every lane to the reference's
    lanes (``tests/torch_fixtures/fed_lm_sweep_digests.json``), launches
    exact (``buffer_agg`` S x versions, ``sens_sketch`` waves + S x
@@ -190,20 +198,26 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    it, with its seconds a step and peak memory (at 1 x 2,048 tokens a
    step if it does not fit at 2 x 2,048, after printing the bytes asked
    for).
-9c. ``[families]``, the recurrent, MoE and hybrid LM families (after the
-   full-width fed-lm runs, before the profiles): ``grouped_matmul``,
-   ``buffer_agg`` and ``sens_sketch`` against their plain versions at the
-   fed-lm ssm and moe shapes; ``fed-lm-ssm-smoke`` and ``fed-lm-moe-smoke``
-   (horizon 2,000), fedasync and fedpsa on the three engine settings
+9c. ``[families]``, the recurrent, MoE and hybrid LM families. Before
+   ``[mesh]``: ``grouped_matmul``, ``buffer_agg`` and ``sens_sketch``
+   against their plain versions at the fed-lm ssm and moe shapes;
+   ``fed-lm-ssm-smoke`` and ``fed-lm-moe-smoke`` (horizon 2,000),
+   fedasync on the three engine settings and fedpsa on cohort/grouped,
    against the reference's runs in
    ``tests/torch_fixtures/fed_lm_{ssm,moe}_digests.json`` from its inits
-   there, launches exact (``_fedlm_want``); two forward-backward passes of
+   there, launches exact (``_fedlm_want``); 3-lane sweeps of both
+   (data seeds 0, 1, 2; fedasync under ``"vmap"``, fedpsa under
+   ``"grouped"``) against the reference's lanes in ``tests/torch_fixtures/
+   fed_lm_families_sweep_digests.json`` at the lane tolerance (lane 0 also
+   against the sequential fixture), launches exact (their 2-rank runs are
+   ``[mesh]``'s (e)). After the full-width fed-lm runs, before the
+   profiles: two forward-backward passes of
    an MoE layer bit-equal (f32, bf16, a grouped wave of 3, with dropped
    choices); ``jamba-v0.1-52b`` and ``arctic-480b`` at ``-smoke`` size on
    the card (finite loss and gradients, launches, decode vs prefill) and at
    full size on the meta device; then ``xlstm-350m`` and
    ``qwen2-moe-a2.7b`` at full width (random bf16 init on the card; B = 8,
-   prompt 2,048, 32 tokens through ``serve.generate``): decode vs a prefill
+   prompts 512 and 2,048, 32 tokens through ``serve.generate``): decode vs a prefill
    of one more token (xlstm at ``FAMILY_RECURRENT_GATE_PROMPT``; qwen2-moe
    gated at lossless capacity in f32
    arithmetic at ``FAMILY_GATE_BATCH``, its shipped bf16 gap printed),
@@ -233,6 +247,24 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    build timed); ``repro_torch.examples.pretrain_lm --preset 20m`` for 3
    rounds with exact launches; a ``{"frontends": ...}`` JSON line before
    the kernels line.
+9e. ``[legacy]``, the legacy class-based servers (after ``[frontends]``):
+   the reference's ``benchmarks/kernel_micro.py`` server-step cell at
+   CIFAR full width (``paper-cifar10-cnn``, d = 1,756,426): legacy FedPSA
+   against ``servers.make_server("fedpsa")``, both with the simulator's
+   ``make_sketch_fn``, 60 arrivals a pass, a warm-up pass then a timed one:
+   µs an arrival each, ``speedup_x``, the final parameters within 1e-4,
+   launches exact on each side (``sens_sketch`` at init and each
+   aggregation on both, ``buffer_agg`` each aggregation on the fused side
+   only); then fedasync, fedbuff, ca2fl, fedfa and fedpac legacy against
+   their policies on one pass (flags, versions, parameters within 1e-5,
+   launches exact).
+9f. ``[examples]``: the examples' entry points, ``quickstart.main`` at
+   ``EXAMPLE_QUICKSTART_HORIZON`` (two 3-lane sweeps; cut from its own
+   30,000) and ``paper_protocol.main`` with ``--horizon
+   EXAMPLE_PROTOCOL_HORIZON`` (8 runs, then its ordering, thermometer and
+   kappa lines), each with ``--device cuda``, their printed lines logged,
+   launches exact in total; a ``{"legacy": ..., "examples": ...}`` JSON
+   line before the kernels line.
 
 Then it prints one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a card it exits non-zero
@@ -1339,6 +1371,12 @@ SWEEP_HYPER = {
     "asyncfeded": {"alpha": 0.4},
 }
 SWEEP_SEEDS = [0, 0, 1234]
+# phase 5b's sweeps take the member kernels and the standalone lanes in
+# turn, policy by policy (POLICIES[i]: SWEEP_MEMBER_KERNELS[i % 2], lane
+# 1 + i % 2), so both kernels and both reshuffled lanes run on the card
+# at one sweep and one standalone run a policy (the CPU tests hold every
+# lane under both)
+SWEEP_MEMBER_KERNELS = ("grouped", "vmap")
 # a lane against its standalone run (the reference's tests/test_sweep.py)
 LANE_RTOL, LANE_ATOL = 1e-5, 1e-4
 
@@ -1372,79 +1410,73 @@ def _lane_gap(got, want) -> float:
 
 def phase_sweeps_golden(torch):
     """Phase 5b: a 3-lane sweep of every policy on the golden world (data
-    seeds [0, 0, 1234], hyperparameters [None, SWEEP_HYPER, None]) on both
-    member kernels: lane 0 holds the committed golden, and under
-    ``"grouped"`` lanes 1 and 2 hold the port's standalone runs on the card
-    at the lane tolerance; launch counts exact (``grouped_matmul`` as the
+    seeds [0, 0, 1234], hyperparameters [None, SWEEP_HYPER, None]), the
+    policies taking ``SWEEP_MEMBER_KERNELS`` in turn: lane 0 holds the
+    committed golden, lane 1 (even policies) or lane 2 (odd ones) the
+    port's standalone run on the card under the same member kernel at the
+    lane tolerance; launch counts exact (``grouped_matmul`` as the
     standalone cohort run's: the same waves and local steps)."""
     from repro_torch.core.psa import PSAConfig
     from repro_torch.federated.simulator import (SimConfig, SweepConfig,
                                                  run_algorithm, run_sweep)
     from repro_torch.kernels import ops
     cfg, clients, test, calib, params = _golden_world()
-    for name in POLICIES:
+    for i, name in enumerate(POLICIES):
         with open(os.path.join(ROOT, "tests", "golden", f"{name}.json")) as fh:
             golden = json.load(fh)
         kw = (dict(psa_cfg=PSAConfig(**GOLDEN_PSA), calib_batch=calib)
               if name == "fedpsa" else {})
         hypers = [None, SWEEP_HYPER[name], None]
-        for mk in ("vmap", "grouped"):
-            what = f"sweep {name} cohort/{mk}"
-            sim = SimConfig(engine="cohort", member_kernel=mk, device="cuda",
-                            record_trajectory=True, **GOLDEN_SIM)
-            ops.reset_launch_counts()
-            res = run_sweep(name, cfg, params, clients, test, sim,
-                            SweepConfig(data_seeds=SWEEP_SEEDS,
-                                        policy_params=hypers), **kw)
-            counts = ops.launch_counts()
-            want = np.asarray(golden["digests"])
-            got = np.asarray(res.digests[0])
-            if got.shape != want.shape:
-                raise AssertionError(f"{what}: {got.shape} != {want.shape}")
-            np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
-            for key in ("versions", "dispatches", "dropped", "launched"):
-                if getattr(res, key) != golden["final"][key]:
-                    raise AssertionError(f"{what}: {key} {getattr(res, key)}"
-                                         f" != {golden['final'][key]}")
-            np.testing.assert_allclose(res.final_accuracy[0],
-                                       golden["final"]["final_accuracy"],
-                                       atol=2e-3)
-            _check_launches(what, counts, _want_sweep_launches(name, "l2", res),
-                            mk == "grouped")
-            gaps = []
-            if mk == "grouped":
-                for s in (1, 2):
-                    lane_kw = dict(kw)
-                    if s == 1 and name == "fedpsa":
-                        lane_kw["psa_cfg"] = PSAConfig(**GOLDEN_PSA,
-                                                       **SWEEP_HYPER[name])
-                    elif s == 1:
-                        lane_kw["server_kwargs"] = dict(SWEEP_HYPER[name])
-                    ops.reset_launch_counts()
-                    solo = run_algorithm(
-                        name, cfg, params, clients, test,
-                        SimConfig(engine="cohort", member_kernel=mk,
-                                  device="cuda", record_trajectory=True,
-                                  **{**GOLDEN_SIM, "seed": SWEEP_SEEDS[s],
-                                     "timeline_seed": GOLDEN_SIM["seed"]}),
-                        **lane_kw)
-                    solo_gm = ops.launch_counts()["grouped_matmul"]
-                    gaps.append(_lane_gap(res.digests[s], solo.digests))
-                    if gaps[-1] > 1.0 or solo.receive_log != res.receive_log:
-                        raise AssertionError(f"{what}: lane {s} at {gaps[-1]}"
-                                             f" of the lane tolerance")
-                    if counts["grouped_matmul"] != solo_gm:
-                        raise AssertionError(
-                            f"{what}: grouped_matmul {counts['grouped_matmul']}"
-                            f" != the standalone run's {solo_gm}")
-            rel = float(np.max(np.abs(got - want)
-                               / (np.abs(want) + ATOL / RTOL)))
-            log(f"[sweep] {name} cohort/{mk} 3 lanes: lane 0 matches the "
-                f"golden (max rel {rel:.2e})"
-                + (f", lanes 1-2 vs standalone at {gaps[0]:.2e}, "
-                   f"{gaps[1]:.2e} of the lane tolerance" if gaps else "")
-                + f"; cohorts={res.cohorts} versions={res.versions} "
-                f"launches={counts}")
+        mk, lane = SWEEP_MEMBER_KERNELS[i % 2], 1 + i % 2
+        what = f"sweep {name} cohort/{mk}"
+        sim = SimConfig(engine="cohort", member_kernel=mk, device="cuda",
+                        record_trajectory=True, **GOLDEN_SIM)
+        ops.reset_launch_counts()
+        res = run_sweep(name, cfg, params, clients, test, sim,
+                        SweepConfig(data_seeds=SWEEP_SEEDS,
+                                    policy_params=hypers), **kw)
+        counts = ops.launch_counts()
+        want = np.asarray(golden["digests"])
+        got = np.asarray(res.digests[0])
+        if got.shape != want.shape:
+            raise AssertionError(f"{what}: {got.shape} != {want.shape}")
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        for key in ("versions", "dispatches", "dropped", "launched"):
+            if getattr(res, key) != golden["final"][key]:
+                raise AssertionError(f"{what}: {key} {getattr(res, key)}"
+                                     f" != {golden['final'][key]}")
+        np.testing.assert_allclose(res.final_accuracy[0],
+                                   golden["final"]["final_accuracy"],
+                                   atol=2e-3)
+        _check_launches(what, counts, _want_sweep_launches(name, "l2", res),
+                        mk == "grouped")
+        lane_kw = dict(kw)
+        if lane == 1 and name == "fedpsa":
+            lane_kw["psa_cfg"] = PSAConfig(**GOLDEN_PSA, **SWEEP_HYPER[name])
+        elif lane == 1:
+            lane_kw["server_kwargs"] = dict(SWEEP_HYPER[name])
+        ops.reset_launch_counts()
+        solo = run_algorithm(
+            name, cfg, params, clients, test,
+            SimConfig(engine="cohort", member_kernel=mk, device="cuda",
+                      record_trajectory=True,
+                      **{**GOLDEN_SIM, "seed": SWEEP_SEEDS[lane],
+                         "timeline_seed": GOLDEN_SIM["seed"]}),
+            **lane_kw)
+        solo_gm = ops.launch_counts()["grouped_matmul"]
+        gap = _lane_gap(res.digests[lane], solo.digests)
+        if gap > 1.0 or solo.receive_log != res.receive_log:
+            raise AssertionError(f"{what}: lane {lane} at {gap} of the lane "
+                                 f"tolerance")
+        if counts["grouped_matmul"] != solo_gm:
+            raise AssertionError(f"{what}: grouped_matmul "
+                                 f"{counts['grouped_matmul']} != the "
+                                 f"standalone run's {solo_gm}")
+        rel = float(np.max(np.abs(got - want) / (np.abs(want) + ATOL / RTOL)))
+        log(f"[sweep] {name} cohort/{mk} 3 lanes: lane 0 matches the golden "
+            f"(max rel {rel:.2e}), lane {lane} vs standalone at {gap:.2e} of "
+            f"the lane tolerance; cohorts={res.cohorts} "
+            f"versions={res.versions} launches={counts}")
 
 
 CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
@@ -1585,7 +1617,9 @@ def _main_world(torch):
     return cfg, clients, test, calib, params
 
 
-MAIN_SIM = dict(num_clients=50, concurrency=0.2, horizon=6_000,
+# phases 6-7: the main path's window, cut from the paper's 86,400 virtual
+# units to 3,000 (about 135 receives) for the script's time limit
+MAIN_SIM = dict(num_clients=50, concurrency=0.2, horizon=3_000,
                 eval_every=2_000, seed=0, device="cuda")
 
 
@@ -1694,18 +1728,20 @@ def phase_main_cohort(torch):
     return counts
 
 
-# phase 7b: the other policies at full width, over 2,000 units of the
-# main world (93 receives)
+# phase 7b: the other policies at full width, over 1,200 units of the
+# main world (cut from 2,000 and its 93 receives for the script's time
+# limit; its about 55 receives still fill the thermometer's 50)
 POLICY_RUNS = (("fedasync", "l2"), ("fedpac", "l2"), ("ca2fl", "l2"),
                ("fedfa", "l2"), ("asyncfeded", "l2"), ("asyncfeded", "sketch"))
-POLICY_HORIZON = 2_000
+POLICY_HORIZON = 1_200
 
 
 def phase_policies(torch) -> dict:
     """Every policy other than FedPSA on ``paper-cifar10-cnn`` at full
     width, cohort engine with the grouped member kernel, horizon cut to
     ``POLICY_HORIZON``: exact launch counts, a finite (d,) global, accuracy
-    in [0, 1]. Returns each run's launch counts by path name."""
+    in [0, 1]. Returns (each run's launch counts by path name, the
+    single-device runs ``[mesh]`` holds its ``MESH_FULL`` runs to)."""
     from repro_torch.federated import servers, simulator
     from repro_torch.kernels import ops
     cfg, clients, test, calib, params = _main_world(torch)
@@ -1724,7 +1760,7 @@ def phase_policies(torch) -> dict:
 
     simulator._make_cohort_engine = capture_engine
     servers.make_server = capture_server
-    by_path = {}
+    by_path, refs = {}, {}
     try:
         for name, metric in POLICY_RUNS:
             what = name if name != "asyncfeded" else f"{name}-{metric}"
@@ -1734,8 +1770,10 @@ def phase_policies(torch) -> dict:
             live = torch.cuda.memory_allocated()
             ops.reset_launch_counts()
             t0 = time.perf_counter()
+            # a run [mesh] holds its mesh runs to records its trajectory
             res = simulator.run_algorithm(
-                name, cfg, params, clients, test, sim,
+                name, cfg, params, clients, test, dataclasses.replace(
+                    sim, record_trajectory=(name, metric) in MESH_FULL),
                 server_kwargs={"metric": metric} if name == "asyncfeded"
                 else None)
             torch.cuda.synchronize()
@@ -1765,6 +1803,8 @@ def phase_policies(torch) -> dict:
                 f"max_mem={torch.cuda.max_memory_allocated() / 2**20:.1f}MiB "
                 f"(live at start {live / 2**20:.1f}MiB) launches={counts}")
             by_path[f"cohort-{what}"] = counts
+            if (name, metric) in MESH_FULL:
+                refs[name, metric] = _run_ref(res, counts, wall)
             # the next run's peak holds none of this run's tensors
             engines.clear()
             made.clear()
@@ -1772,7 +1812,7 @@ def phase_policies(torch) -> dict:
     finally:
         simulator._make_cohort_engine = make_engine
         servers.make_server = make_server
-    return by_path
+    return by_path, refs
 
 
 # phase 7c's sweep: data seeds and FedPSA temperature slopes of its 3 lanes
@@ -2101,7 +2141,8 @@ MLP_GM_PER_STEP = 3 * 3 - 1
 # (c) the reference population benchmark's sizing
 # (benchmarks/population_throughput.py): 1,024 in flight, latency U(100,
 # 500), 2 local epochs of batch 32; about 500 receives (the benchmark's
-# 1,000, halved for the script's time limit)
+# 1,000, halved for the script's time limit; at 250 the pop-1m runs train
+# one wave, so nothing is left to prefetch)
 POP_LATENCY = (100.0, 500.0)
 POP_RECEIVES = 500
 # (preset, policy, prefetch): each preset's own prefetch setting, and
@@ -2110,8 +2151,9 @@ POP_SCALE_RUNS = (("pop-100k", "fedasync", False),
                   ("pop-100k", "fedpsa", False),
                   ("pop-1m", "fedasync", True), ("pop-1m", "fedpsa", True),
                   ("pop-1m", "fedpsa", False))
-# pop-1m without the profiler, prefetch off and on in alternating order
-POP_PAIR_ORDER = (False, True, True, False)
+# pop-1m without the profiler, prefetch off, then on (one pair, for the
+# script's time limit)
+POP_PAIR_ORDER = (False, True)
 TRACE_PATH = os.path.join(ROOT, "build", "chip_smoke_population_trace.json")
 
 
@@ -2660,8 +2702,12 @@ MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh")
 # each rank's process group times out a collective after this long, so a
 # collective that only some ranks reach fails the phase instead of hanging
 MESH_GROUP_TIMEOUT_S = 120
+# the golden world's runs on the mesh: all nine on 2 gloo ranks; on the
+# 1-rank NCCL job (bit-equal to phase 5) a buffered apply with the sketch
+# refresh, the per-receive ring and the sharded sketch
 MESH_GOLDEN = [(n, "l2") for n in POLICIES] + [("asyncfeded", "cosine"),
                                                 ("asyncfeded", "sketch")]
+MESH_GOLDEN_NCCL = [("fedpsa", "l2"), ("fedfa", "l2"), ("asyncfeded", "sketch")]
 # the full-width runs: phase 7c's FedPSA window, and asyncfeded l2 on it
 MESH_FULL = (("fedpsa", "l2"), ("asyncfeded", "l2"))
 # full-width waves of B members, each trained by the cohort engine with the
@@ -2672,14 +2718,22 @@ MESH_SPLIT_B = (8, 16)
 # 8 is FEDLM_WINDOW, the window of tests/torch_fixtures/
 # fed_lm_window8_digests.json
 MESH_FEDLM = (("fedasync", 0), ("fedpsa", 0), ("fedpsa", 8))
-# (ranks, backend, golden cases, full-width cases, split waves, the worlds
-# whose fedpsa run is traced once more on rank 0, collective costs, fed-lm
-# cases) of each job, in the order they run
+# (ranks, backend, job) in the order they run. A job's golden, full-width
+# and fed-lm cases, its split waves, the worlds whose fedpsa run is traced
+# once more on rank 0, whether it times the collectives, and whether it
+# runs the fed-lm ssm and moe cases (``FAMILY_CARD_CASES`` of each
+# family). The 1-rank NCCL job runs fedpsa alone at full width and in the
+# fed-lm world, and the 2-rank job traces the fed-lm run alone (its trace
+# holds all five port kernels), for the script's time limit.
 MESH_JOBS = (
-    (1, "nccl", MESH_GOLDEN, MESH_FULL, (), (), False, MESH_FEDLM),
-    (2, "gloo", MESH_GOLDEN, MESH_FULL, MESH_SPLIT_B, ("golden", "fedlm"),
-     True, MESH_FEDLM),
-    (4, "gloo", [("fedpsa", "l2")], (), (), (), False, ()),
+    (1, "nccl", dict(golden=MESH_GOLDEN_NCCL, full=MESH_FULL[:1], split=(),
+                     trace=(), costs=False, fedlm=MESH_FEDLM[1:2],
+                     families=False)),
+    (2, "gloo", dict(golden=MESH_GOLDEN, full=MESH_FULL, split=MESH_SPLIT_B,
+                     trace=("fedlm",), costs=True, fedlm=MESH_FEDLM,
+                     families=True)),
+    (4, "gloo", dict(golden=[("fedpsa", "l2")], full=(), split=(), trace=(),
+                     costs=False, fedlm=(), families=False)),
 )
 
 
@@ -2819,15 +2873,19 @@ def _mesh_rank_main(rank: int, n: int, jobdir: str) -> int:
         worlds = {"golden": _golden_world(),
                   "full": (_main_world(torch) if job["full"] or job["split"]
                            else None),
-                  "fedlm": _fedlm_world() if job["fedlm"] else None}
+                  "fedlm": _fedlm_world() if job["fedlm"] else None,
+                  **{fam: _family_world(fam)
+                     for fam in {c[0] for c in job["families"]}}}
         out["split"] = [_mesh_split_case(torch, worlds["full"], mesh, B)
                         for B in job["split"]]
         # the traced runs come last: a profiler session slows the runs
-        # after it. A fed-lm case's "metric" is its sliding window.
+        # after it. A fed-lm case's "metric" is its sliding window, a
+        # family case's its member kernel.
         for kind, name, metric, trace in (
                 [("golden", n_, m, False) for n_, m in job["golden"]]
                 + [("full", n_, m, False) for n_, m in job["full"]]
                 + [("fedlm", n_, w, False) for n_, w in job["fedlm"]]
+                + [(f, n_, mk, False) for f, n_, mk in job["families"]]
                 + ([("golden", "fedpsa", "l2", True)]
                    if "golden" in job["trace"] else [])
                 + ([("fedlm", "fedpsa", 0, True)]
@@ -2835,17 +2893,19 @@ def _mesh_rank_main(rank: int, n: int, jobdir: str) -> int:
             cfg, clients, test, calib, params = worlds[kind]
             if kind == "fedlm" and metric:
                 cfg = dataclasses.replace(cfg, sliding_window=metric)
-            base = {"golden": GOLDEN_SIM, "fedlm": FEDLM_SIM}.get(
+            family = kind in FAMILY_FEDLM
+            base = {"golden": GOLDEN_SIM, "fedlm": FEDLM_SIM,
+                    **{f: FAMILY_FEDLM_SIM for f in FAMILY_FEDLM}}.get(
                 kind, {**MAIN_SIM, "horizon": POLICY_HORIZON})
             sim = simulator.SimConfig(
-                engine="cohort", member_kernel="grouped",
+                engine="cohort", member_kernel=metric if family else "grouped",
                 record_trajectory=True, mesh=mesh,
                 **{**base, "device": "cuda"})
             kw = {}
             if name == "fedpsa":
                 kw = dict(psa_cfg=PSAConfig(**(GOLDEN_PSA if kind != "full"
                                                else {})), calib_batch=calib)
-            if kind != "fedlm" and metric != "l2":
+            if kind in ("golden", "full") and metric != "l2":
                 kw["server_kwargs"] = {"metric": metric}
             engines.clear()
             for k in ("all_reduce", "all_gather", "bytes"):
@@ -3039,51 +3099,44 @@ def _mesh_width_probe(torch) -> None:
 
 
 def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict,
-               fedlm_ref: dict) -> dict:
+               fedlm_ref: dict, fam_ref: dict) -> dict:
     """``[mesh]``: the port's mesh path, each job's ranks spawned from this
     script on the one card (``MESH_JOBS``): (a) the golden world, cohort
-    engine with ``"grouped"``: 1 rank on NCCL bit-equal to phase 5's
-    single-device runs, 2 ranks on gloo at the golden tolerance
-    (asyncfeded's cosine and sketch metrics against their fixtures), and
-    fedpsa on 4 gloo ranks (d = 4,522 padded by 2), after the width probe
-    behind the engine's split rule (``_mesh_width_probe``); (b) the
-    full-width CIFAR window of phase 7c: FedPSA and asyncfeded l2, 1 NCCL
-    rank
-    bit-equal to the single-device runs, 2 gloo ranks within the lane
-    tolerance; (c) the 2-rank golden FedPSA run once more, rank 0 under a
-    device-only profile: every port kernel on one stream; (d) full-width
+    engine with ``"grouped"``: ``MESH_GOLDEN_NCCL`` on 1 NCCL rank
+    bit-equal to phase 5's single-device runs, all nine ``MESH_GOLDEN``
+    runs on 2 gloo ranks at the golden tolerance (asyncfeded's cosine and
+    sketch metrics against their fixtures), and fedpsa on 4 gloo ranks
+    (d = 4,522 padded by 2), after the width probe behind the engine's
+    split rule (``_mesh_width_probe``); (b) the full-width CIFAR window of
+    phase 7c: FedPSA (and asyncfeded l2 on 2 ranks), 1 NCCL rank bit-equal
+    to the single-device runs (``full_ref``), 2 gloo ranks within the lane
+    tolerance; (c) full-width
     waves of 8 and 16 members on the 2 gloo ranks, with the mesh and
     without it: split on every rank, bit-equal, the same launches
-    (``_mesh_check_split``); (e) the fed-lm world (``MESH_FEDLM``:
-    fedasync, fedpsa, and fedpsa with a window of 8, cohort/grouped): 1
-    NCCL rank bit-equal to ``[fed-lm]``'s single-device runs
+    (``_mesh_check_split``); (d) the fed-lm world (``MESH_FEDLM``:
+    fedasync, fedpsa, and fedpsa with a window of 8, cohort/grouped; fedpsa
+    alone on NCCL): 1 NCCL rank bit-equal to ``[fed-lm]``'s single-device
+    runs
     (``fedlm_ref``), 2 gloo ranks at the golden tolerance against the
     golden and the window fixture, and the 2-rank fedpsa run once more
     with rank 0 under a device-only profile, every port kernel on one
-    stream. Every rank's launch counts are exact (``buffer_agg`` an apply on its shard,
+    stream; (e) ``fed-lm-ssm-smoke`` and ``fed-lm-moe-smoke``,
+    ``FAMILY_CARD_CASES`` (fedasync under "vmap", fedpsa under "grouped")
+    on the 2 gloo ranks, bit-equal to the single-device cohort runs
+    (``fam_ref``). Every rank's launch counts are exact (``buffer_agg`` an apply on its shard,
     ``sens_sketch`` as on one device, ``grouped_matmul`` the single-device
     run's; a fed-lm run's attention launches the single-device run's, its
     waves training whole on every rank), every rank returns the same run.
     Then 2 NCCL ranks on the one card must fail. Returns the launch counts
-    of the 2-rank full-width FedPSA run, rank 0, and of the fed-lm runs by
-    path."""
-    from repro_torch.federated import simulator
+    of the 2-rank full-width FedPSA run, rank 0, and of the fed-lm and
+    the families' runs by path."""
     t_phase = time.perf_counter()
-    cfg, clients, test, calib, params = _main_world(torch)
-    sim = simulator.SimConfig(engine="cohort", member_kernel="grouped",
-                              record_trajectory=True,
-                              **{**MAIN_SIM, "horizon": POLICY_HORIZON})
-    res, wall, _, counts = _timed_run(torch, lambda: simulator.run_algorithm(
-        "asyncfeded", cfg, params, clients, test, sim))
-    full_ref = {**full_ref, ("asyncfeded", "l2"): _run_ref(res, counts, wall)}
-    del cfg, clients, test, calib, params, res
-    gc.collect()
-    torch.cuda.empty_cache()
     _mesh_width_probe(torch)
     out, fedlm_paths = {}, {}
-    for n, backend, gold, full, split, trace, costs, fedlm in MESH_JOBS:
-        job = {"golden": gold, "full": full, "split": split, "trace": trace,
-               "costs": costs, "fedlm": fedlm}
+    for n, backend, job in MESH_JOBS:
+        job = {**job, "families": [
+            (f, n_, mk) for f in FAMILY_FEDLM for n_, mk in FAMILY_CARD_CASES]
+            if job["families"] else []}
         results, codes, tails, secs = _mesh_spawn(n, backend, job, 600)
         if any(c != 0 for c in codes) or any(r is None for r in results):
             for r, t in enumerate(tails):
@@ -3096,16 +3149,24 @@ def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict,
             kind, key = run["kind"], (run["name"], run["metric"])
             what = (f"mesh n={n} {backend} fed-lm {run['name']} window="
                     f"{run['metric']}" if kind == "fedlm" else
+                    f"mesh n={n} {backend} {FAMILY_FEDLM[kind]} "
+                    f"{run['name']} cohort/{run['metric']}"
+                    if kind in FAMILY_FEDLM else
                     f"mesh n={n} {backend} {kind} "
                     f"{run['name']}/{run['metric']}")
-            ref = {"golden": golden_ref, "full": full_ref,
-                   "fedlm": fedlm_ref}[kind][key]
+            # the families' waves train whole on every rank: bit-equal
+            exact = n == 1 or kind in FAMILY_FEDLM
+            if kind in FAMILY_FEDLM:
+                ref = fam_ref[(kind,) + key]
+            else:
+                ref = {"golden": golden_ref, "full": full_ref,
+                       "fedlm": fedlm_ref}[kind][key]
             if kind in ("golden", "fedlm") and n > 1:
                 ref = {**ref, "digests": ref["file_digests"], "tol": "golden",
                        **ref["file_final"]}
-            elif kind == "full":
+            elif kind not in ("golden", "fedlm"):
                 ref = {**ref, "tol": "lane"}
-            if kind == "fedlm":
+            if kind == "fedlm" or kind in FAMILY_FEDLM:
                 want = dict(ref["counts"])
             else:
                 res_like = types.SimpleNamespace(**{k: run[k] for k in (
@@ -3119,8 +3180,8 @@ def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict,
                     if other[k] != run[k]:
                         raise AssertionError(f"{what}: rank {r}'s {k} differ "
                                              f"from rank 0's")
-                gap = _mesh_check_run(f"{what} rank {r}", other, ref,
-                                      n == 1, want)
+                gap = _mesh_check_run(f"{what} rank {r}", other, ref, exact,
+                                      want)
             if run["kind"] == "golden" and n > 1 and "weights" in ref:
                 np.testing.assert_allclose(run["weights"], ref["weights"],
                                            rtol=1e-4)
@@ -3144,6 +3205,9 @@ def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict,
             if kind == "fedlm" and not run["traced"]:
                 fedlm_paths[f"mesh-n{n}-{backend}-fed-lm-{run['name']}-w"
                             f"{run['metric']}"] = run["counts"]
+            elif kind in FAMILY_FEDLM:
+                fedlm_paths[f"{FAMILY_FEDLM[kind]}-mesh-n{n}-{run['name']}-"
+                            f"{run['metric']}"] = run["counts"]
             if run["streams"] is not None:
                 port = [s for s, by in run["streams"].items() if by["port"]]
                 log(f"[mesh] {what} rank 0 trace by stream: "
@@ -3160,7 +3224,8 @@ def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict,
     # own error, not hang and not run on another backend
     results, codes, tails, secs = _mesh_spawn(
         2, "nccl", {"golden": [("fedbuff", "l2")], "full": [], "split": [],
-                    "trace": [], "costs": False, "fedlm": []}, 180)
+                    "trace": [], "costs": False, "fedlm": [],
+                    "families": []}, 180)
     if all(c == 0 for c in codes) or any(c == -9 for c in codes) or \
             not any("Duplicate GPU" in t for t in tails):
         raise AssertionError(f"[mesh] 2 NCCL ranks on one card: exit codes "
@@ -3174,8 +3239,9 @@ def phase_mesh(torch, smi: str, golden_ref: dict, full_ref: dict,
 
 
 # phase 8's profiled FedPSA window (at 2,000 units the profiler took about
-# a minute to parse its two traces' 370 k events)
-PROFILE_HORIZON = 1_000
+# a minute to parse its two traces' 370 k events; cut to 500 for the
+# script's time limit)
+PROFILE_HORIZON = 500
 
 
 def _profile_run(torch, engine: str) -> None:
@@ -3504,7 +3570,9 @@ FEDLM_WINDOW = 8
 # tensor-core kernels at the long-context and full-width shapes and at
 # edges (a window below a tile, Sq < Sk, causal=False, hd 80, MHA); the
 # CUDA-core kernels in f32 (the windowed fed-lm run's wave shape, window
-# 8, among them) and in bf16 at hd 256
+# 8, among them) and in bf16 at hd 256; and FA_WINDOW_SHAPES' two
+# causal=False shapes in both dtypes, the second with rows that see no key
+# (their gradient: dv += do / Sk, nothing to dq or dk)
 FEDLM_BWD_WINDOW = (FA_WINDOW + ("bfloat16",),
                     (2, 2048, 2048, 24, 8, 128, True, 512, "bfloat16"),
                     (2, 300, 300, 8, 2, 64, True, 17, "bfloat16"),
@@ -3514,7 +3582,10 @@ FEDLM_BWD_WINDOW = (FA_WINDOW + ("bfloat16",),
                     (32, 16, 16, 2, 2, 8, True, FEDLM_WINDOW, "float32"),
                     (2, 300, 300, 4, 2, 64, True, 77, "float32"),
                     (2, 200, 320, 4, 2, 32, False, 60, "float32"),
-                    (1, 200, 200, 2, 1, 256, True, 50, "bfloat16"))
+                    (1, 200, 200, 2, 1, 256, True, 50, "bfloat16"),
+                    (2, 333, 333, 6, 3, 128, False, 129, "float32"),
+                    (1, 400, 200, 4, 2, 64, False, 50, "float32"),
+                    (1, 400, 200, 4, 2, 64, False, 50, "bfloat16"))
 FEDLM_WINDOW_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures",
                                     "fed_lm_window8_digests.json")
 # the reference's run_sweep lanes of the fed-lm world (tests/
@@ -3724,6 +3795,55 @@ def phase_fedlm_kernels(torch, dev) -> dict:
     del q, k, v, do, o, lse, qt, kt, vt, ot, dot
     out["timing"] = r
     out["window_timing"] = _time_bwd_window(torch, dev, rng, flush)
+    out["empty_rows_timing"] = _time_bwd_empty_rows(torch, dev, rng, flush)
+    return out
+
+
+# the backward with rows that see no key (FA_WINDOW_SHAPES' last shape)
+FA_EMPTY_ROWS = (1, 400, 200, 4, 2, 64, False, 50)
+
+
+def _time_bwd_empty_rows(torch, dev, rng, flush) -> list:
+    """The backward at ``FA_EMPTY_ROWS`` in bf16 (the tensor-core kernels)
+    and f32 (the CUDA-core kernels), each with its third kernel for the
+    empty rows' dv, beside the plain backward. Bound: five products of
+    2 hd FLOP per band pair at the dtype's peak, or the bytes (q, k, v, o,
+    dO and the lse read once, dq, dk, dv written once). No library yardstick:
+    SDPA gives NaN on a row whose mask is all False."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, H, Hkv, hd, causal, W = FA_EMPTY_ROWS
+    pairs = B * H * _band_pairs(Sq, Sk, causal, W)
+    out = []
+    for dt, peak in ((torch.bfloat16, BF16_TC_FLOPS_PER_S),
+                     (torch.float32, FP32_FLOPS_PER_S)):
+        q, do = (_rand(torch, rng, (B, Sq, H, hd), dev).to(dt)
+                 for _ in range(2))
+        k, v = (_rand(torch, rng, (B, Sk, Hkv, hd), dev).to(dt)
+                for _ in range(2))
+        o, lse = fa._forward(q, k, v, causal, True, W)
+        el = q.element_size()
+        bytes_ = (el * (3 * B * Sq * H * hd + 4 * B * Sk * Hkv * hd
+                        + B * Sq * H * hd) + 4 * B * H * Sq)
+        o_ms = 10 * hd * pairs / peak * 1e3
+        b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        r = dict(shape=f"B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} hd={hd} full "
+                       f"window={W} {str(dt).split('.')[-1]} (rows from "
+                       f"{Sk + W - 1} see no key)",
+                 route=fa.bwd_route(dt, hd),
+                 ms=_time_ms(torch, lambda: fa.flash_attention_bwd(
+                     q, k, v, o, do, lse, causal, W), 20, flush),
+                 plain_ms=_time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                     q, k, v, o, do, lse, causal, window=W), 5, flush),
+                 library_ms=None, bound_ms=max(o_ms, b_ms),
+                 bound_by="operations" if o_ms >= b_ms else "bytes",
+                 pairs=pairs)
+        log(f"[timing] flash_attention_bwd {r['shape']} ({r['route']}): "
+            f"{r['ms'] * 1e3:.1f}us, plain {r['plain_ms'] * 1e3:.1f}us; bound "
+            f"{r['bound_ms'] * 1e3:.2f}us by {r['bound_by']} "
+            f"({100 * r['bound_ms'] / r['ms']:.2f}% of it); no library call "
+            f"(SDPA gives NaN on a row with no key)")
+        out.append(r)
+        del q, k, v, do, o, lse
     return out
 
 
@@ -3745,12 +3865,16 @@ def _fedlm_window_kernels(torch, dev, rng) -> dict:
         lse_p = torch.cat([fa._plain_forward(
             q[:, :, h * G:(h + 1) * G], k[:, :, h:h + 1], v[:, :, h:h + 1],
             causal, W)[1] for h in range(Hkv)], dim=1)
-        lse_err = float((lse - lse_p).abs().max())
-        lse_tol = 2e-5 * max(1.0, float(lse_p.abs().max()))
+        # the rows that see a key (a row that sees none has lse -1e30)
+        seen = slice(0, Sk + W - 1 if fa.has_empty_rows(Sq, Sk, W) else Sq)
+        lse_err = float((lse - lse_p)[..., seen].abs().max())
+        lse_tol = 2e-5 * max(1.0, float(lse_p[..., seen].abs().max()))
         del lse_p
         r = _bwd_check(torch, fa, q, k, v, o, do, lse, causal, W)
         what = (f"B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} hd={hd} "
-                f"{'causal' if causal else 'full'} window={W} {dts}")
+                f"{'causal' if causal else 'full'} window={W} {dts}"
+                + (" (rows from Sk + window - 1 see no key)"
+                   if fa.has_empty_rows(Sq, Sk, W) else ""))
         log(f"[fed-lm] flash_attention_bwd window {what} ({r['route']}): "
             f"vs plain max|err| dq/dk/dv {r['errs'][0]:.3e}/"
             f"{r['errs'][1]:.3e}/{r['errs'][2]:.3e}; {r['note']}; repeat "
@@ -4041,10 +4165,17 @@ def phase_fedlm_window(torch, smi: str) -> tuple:
     return paths, refs
 
 
+# the fed-lm sweeps on the card as (policy, member kernel, window): each
+# member kernel once (the CPU tests sweep both policies under both)
+FEDLM_SWEEPS = (("fedasync", "vmap", 0), ("fedpsa", "grouped", 0),
+                ("fedpsa", "grouped", FEDLM_WINDOW))
+
+
 def phase_fedlm_sweeps(torch, smi: str, refs: dict) -> dict:
     """3-lane ``run_sweep``s of the fed-lm world (data seeds [0, 0, 1234],
-    ``SWEEP_HYPER`` on lane 1): fedasync and fedpsa on both member kernels,
-    and fedpsa under ``"grouped"`` once more with a window of 8. Lane 0
+    ``SWEEP_HYPER`` on lane 1), ``FEDLM_SWEEPS``: fedasync under "vmap",
+    fedpsa under "grouped", and fedpsa under "grouped" once more with a
+    window of 8. Lane 0
     holds the golden (the window fixture with the window), every lane the
     reference's ``run_sweep`` lane (``FEDLM_SWEEP_FIXTURE``), at
     RTOL/ATOL with times and counters exact; launch counts exact
@@ -4066,8 +4197,7 @@ def phase_fedlm_sweeps(torch, smi: str, refs: dict) -> dict:
     with open(FEDLM_WINDOW_FIXTURE) as fh:
         windowed = json.load(fh)["policies"]
     paths = {}
-    cases = [(n, mk, 0) for n in FEDLM_POLICIES for mk in ("vmap", "grouped")]
-    for name, mk, window in cases + [("fedpsa", "grouped", FEDLM_WINDOW)]:
+    for name, mk, window in FEDLM_SWEEPS:
         what = f"fed-lm sweep {name} cohort/{mk} window={window}"
         cfg = dataclasses.replace(cfg0, sliding_window=window) if window \
             else cfg0
@@ -4389,9 +4519,12 @@ def _full_width_profile(torch, prof, wall: float, steps: int, want: dict,
 # [families]: the recurrent, MoE and hybrid LM families
 # ---------------------------------------------------------------------------
 
-# the two families' full-width serve runs: B = 8, prompt 2,048, 32 tokens
-FAMILY_SERVE = tuple(dict(SERVE, arch=a) for a in ("xlstm-350m",
-                                                   "qwen2-moe-a2.7b"))
+# the two families' full-width serve runs: B = 8, 32 tokens, prompt 2,048
+# (xlstm-350m's cut to 512 for the script's time limit: its eager
+# recurrences took 21.5 s to prefill 2,048 tokens on an H100 80GB HBM3 at
+# 700 W)
+FAMILY_SERVE = (dict(SERVE, arch="xlstm-350m", prompt=512),
+                dict(SERVE, arch="qwen2-moe-a2.7b"))
 # xlstm-350m's prefill launches: profiled at these prompt lengths, where
 # the eager recurrences make the count a + b * S; the line through them
 # gives the count at the serve prompt (a profile of the serve prompt's 1.2
@@ -4406,11 +4539,17 @@ FAMILY_PROFILE_PROMPTS = (16, 32, 64)
 # slots) within the card beside the weights.
 FAMILY_GATE_BATCH = 4
 # the recurrent families' decode-vs-prefill check runs at this prompt (the
-# serve run stays at 2,048): their eager prefill takes 18-24 s at 2,048
+# serve run at its own): their eager prefill takes 18-24 s at 2,048
 # tokens on the H100, and the check needs two more
 FAMILY_RECURRENT_GATE_PROMPT = 256
 FAMILY_DECODE_STEPS = 7
 FAMILY_FEDLM = {"ssm": "fed-lm-ssm-smoke", "moe": "fed-lm-moe-smoke"}
+# their runs on the card as (policy, engine, member kernel): fedasync on
+# the three engine settings, fedpsa (the ssm family's took 0.76-0.84 s a
+# receive on an H100 80GB HBM3 at 700 W) on cohort/grouped; the CPU tests
+# run both on all three
+FAMILY_RUNS = (tuple(("fedasync",) + es for es in ENGINE_SETTINGS)
+               + (("fedpsa", "cohort", "grouped"),))
 # tests/torch_fedlm_families.py's world and simulation
 FAMILY_FEDLM_SIM = dict(num_clients=6, horizon=2_000.0, eval_every=1_000.0,
                         seed=0, local_epochs=2, batch_size=8)
@@ -4481,74 +4620,166 @@ def _families_kernel_parity(torch, dev) -> dict:
     return worst
 
 
-def _families_fedlm(torch, smi: str) -> dict:
-    """``fed-lm-ssm-smoke`` and ``fed-lm-moe-smoke`` on the card: fedasync
-    and fedpsa on the sequential engine and on the cohort engine with both
-    member kernels, from the reference's init
+def _family_fixture(fam: str) -> dict:
+    """The reference's sequential runs of a fed-lm family
+    (``tests/torch_fixtures/fed_lm_<family>_digests.json``)."""
+    with open(os.path.join(ROOT, "tests", "torch_fixtures",
+                           f"fed_lm_{fam}_digests.json")) as fh:
+        fix = json.load(fh)
+    if fix["sim"] != FAMILY_FEDLM_SIM or fix["model"] != FAMILY_FEDLM[fam]:
+        raise AssertionError(f"{fam}: fixture {fix['model']} {fix['sim']} "
+                             f"!= {FAMILY_FEDLM_SIM}")
+    return fix
+
+
+def _family_world(fam: str):
+    """``(cfg, clients, test, calib, init)`` of a fed-lm family's world,
+    the init the reference's (``tests/torch_fixtures/
+    fed_lm_<family>_smoke_init_seed0.npz``)."""
+    from repro_torch.convert import load_npz_params
+    from repro_torch.launch.train import build_task
+    W = FEDLM_WORLD
+    cfg, clients, test, calib = build_task(FAMILY_FEDLM[fam], W["samples"],
+                                           W["alpha"], W["clients"],
+                                           W["seed"], seq_len=W["seq"])
+    return cfg, clients, test, calib, load_npz_params(os.path.join(
+        ROOT, "tests", "torch_fixtures", f"fed_lm_{fam}_smoke_init_seed0.npz"))
+
+
+def _families_fedlm(torch, smi: str) -> tuple:
+    """``fed-lm-ssm-smoke`` and ``fed-lm-moe-smoke`` on the card:
+    ``FAMILY_RUNS``, from the reference's init
     (``tests/torch_fixtures/fed_lm_<family>_smoke_init_seed0.npz``), against
     the reference's runs in ``tests/torch_fixtures/fed_lm_<family>_digests
     .json`` (RTOL/ATOL on the digests, accuracies within 2e-3, counters
     exact), with exact launch counts (``_fedlm_want``: the ssm world
-    launches no attention kernel). Returns launch counts by path."""
-    from repro_torch.convert import load_npz_params
+    launches no attention kernel). Returns (launch counts by path, the
+    cohort runs by (family, policy, member kernel): what the sweeps and
+    the mesh runs are held to)."""
     from repro_torch.core.psa import PSAConfig
     from repro_torch.federated.simulator import SimConfig, run_algorithm
     from repro_torch.kernels import ops
-    from repro_torch.launch.train import build_task
-    W = FEDLM_WORLD
-    paths = {}
+    paths, refs = {}, {}
     for fam, arch in FAMILY_FEDLM.items():
-        fixtures = os.path.join(ROOT, "tests", "torch_fixtures")
-        with open(os.path.join(fixtures, f"fed_lm_{fam}_digests.json")) as fh:
-            fix = json.load(fh)
-        if fix["sim"] != FAMILY_FEDLM_SIM or fix["model"] != arch:
-            raise AssertionError(f"{arch}: fixture {fix['model']} "
-                                 f"{fix['sim']} != {FAMILY_FEDLM_SIM}")
-        cfg, clients, test, calib = build_task(arch, W["samples"], W["alpha"],
-                                               W["clients"], W["seed"],
-                                               seq_len=W["seq"])
-        params = load_npz_params(os.path.join(
-            fixtures, f"fed_lm_{fam}_smoke_init_seed0.npz"))
-        for name in FEDLM_POLICIES:
+        fix = _family_fixture(fam)
+        cfg, clients, test, calib, params = _family_world(fam)
+        for name, engine, mk in FAMILY_RUNS:
             want = fix["policies"][name]
-            for engine, mk in ENGINE_SETTINGS:
-                what = f"{arch} {name} {engine}/{mk}"
-                kw = (dict(psa_cfg=PSAConfig(**GOLDEN_PSA), calib_batch=calib)
-                      if name == "fedpsa" else {})
-                sim = SimConfig(engine=engine, member_kernel=mk,
-                                device="cuda", record_trajectory=True,
-                                **FAMILY_FEDLM_SIM)
-                ops.reset_launch_counts()
-                t0 = time.perf_counter()
-                res = run_algorithm(name, cfg, params, clients, test, sim, **kw)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                counts = ops.launch_counts()
-                got, exp = np.asarray(res.digests), np.asarray(want["digests"])
-                if got.shape != exp.shape or res.engine != engine:
-                    raise AssertionError(f"{what}: {got.shape} != {exp.shape}")
-                np.testing.assert_allclose(got, exp, rtol=RTOL, atol=ATOL)
-                for key in ("versions", "dispatches", "dropped", "launched"):
-                    if getattr(res, key) != want["final"][key]:
-                        raise AssertionError(f"{what}: {key} "
-                                             f"{getattr(res, key)} != "
-                                             f"{want['final'][key]}")
-                np.testing.assert_allclose(res.accuracies, want["accuracies"],
-                                           atol=2e-3)
-                want_counts = _fedlm_want(name, res, cfg, mk == "grouped"
-                                          and engine == "cohort")
-                if counts != want_counts:
-                    raise AssertionError(f"{what}: launches {counts} != "
-                                         f"{want_counts}")
-                rel = float(np.max(np.abs(got - exp)
-                                   / (np.abs(exp) + ATOL / RTOL)))
-                paths[f"{arch}-{name}-{engine}-{mk}"] = counts
-                log(f"[families] {what}: {len(got)} digests match the "
-                    f"reference's (max rel {rel:.2e}), local steps "
-                    f"{res.local_steps}, versions={res.versions} dispatches="
-                    f"{res.dispatches} final={res.final_accuracy:.4f} "
-                    f"{wall:.2f}s ({wall / res.dispatches:.4f} s/receive) "
-                    f"launches={counts} on {smi}")
+            what = f"{arch} {name} {engine}/{mk}"
+            kw = (dict(psa_cfg=PSAConfig(**GOLDEN_PSA), calib_batch=calib)
+                  if name == "fedpsa" else {})
+            sim = SimConfig(engine=engine, member_kernel=mk, device="cuda",
+                            record_trajectory=True, **FAMILY_FEDLM_SIM)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run_algorithm(name, cfg, params, clients, test, sim, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            got, exp = np.asarray(res.digests), np.asarray(want["digests"])
+            if got.shape != exp.shape or res.engine != engine:
+                raise AssertionError(f"{what}: {got.shape} != {exp.shape}")
+            np.testing.assert_allclose(got, exp, rtol=RTOL, atol=ATOL)
+            for key in ("versions", "dispatches", "dropped", "launched"):
+                if getattr(res, key) != want["final"][key]:
+                    raise AssertionError(f"{what}: {key} {getattr(res, key)}"
+                                         f" != {want['final'][key]}")
+            np.testing.assert_allclose(res.accuracies, want["accuracies"],
+                                       atol=2e-3)
+            want_counts = _fedlm_want(name, res, cfg, mk == "grouped"
+                                      and engine == "cohort")
+            if counts != want_counts:
+                raise AssertionError(f"{what}: launches {counts} != "
+                                     f"{want_counts}")
+            rel = float(np.max(np.abs(got - exp)
+                               / (np.abs(exp) + ATOL / RTOL)))
+            paths[f"{arch}-{name}-{engine}-{mk}"] = counts
+            if engine == "cohort":
+                refs[fam, name, mk] = {**_run_ref(res, counts, wall),
+                                       "accuracies": res.accuracies,
+                                       "local_steps": res.local_steps}
+            log(f"[families] {what}: {len(got)} digests match the "
+                f"reference's (max rel {rel:.2e}), local steps "
+                f"{res.local_steps}, versions={res.versions} dispatches="
+                f"{res.dispatches} final={res.final_accuracy:.4f} "
+                f"{wall:.2f}s ({wall / res.dispatches:.4f} s/receive) "
+                f"launches={counts} on {smi}")
+    return paths, refs
+
+
+# the families' sweep lanes: tests/test_torch_sweep_families.py's (data
+# seeds 0, 1, 2) against the reference's run_sweep lanes in its fixture
+FAMILY_SWEEP_SEEDS = [0, 1, 2]
+# the families' sweeps and mesh runs on the card as (policy, member
+# kernel): each member kernel once, each against the cohort run of
+# FAMILY_RUNS with the same member kernel (the CPU tests run both policies
+# under both)
+FAMILY_CARD_CASES = (("fedasync", "vmap"), ("fedpsa", "grouped"))
+FAMILY_SWEEP_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures",
+                                    "fed_lm_families_sweep_digests.json")
+
+
+def _families_sweeps(torch, smi: str, refs: dict) -> dict:
+    """3-lane ``run_sweep``s (data seeds 0, 1, 2) of both families,
+    ``FAMILY_CARD_CASES``: every lane against the
+    reference's ``run_sweep`` lane (``FAMILY_SWEEP_FIXTURE``) at the lane
+    tolerance (rtol 1e-5, atol 1e-4), lane 0 also against the reference's
+    sequential run, times and counters exact; launches exact
+    (``_fedlm_want`` over 3 lanes) with the local steps of the standalone
+    cohort run in ``refs`` (the same waves). Returns launch counts by
+    path."""
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated import SimConfig, SweepConfig, run_sweep
+    with open(FAMILY_SWEEP_FIXTURE) as fh:
+        fixture = json.load(fh)
+    if fixture["sim"] != FAMILY_FEDLM_SIM or \
+            fixture["data_seeds"] != FAMILY_SWEEP_SEEDS:
+        raise AssertionError(f"family sweep fixture for {fixture['sim']}, "
+                             f"{fixture['data_seeds']}")
+    paths = {}
+    for fam in FAMILY_FEDLM:
+        seq = _family_fixture(fam)["policies"]
+        cfg, clients, test, calib, params = _family_world(fam)
+        for name, mk in FAMILY_CARD_CASES:
+            lanes = fixture["sweeps"][f"{fam}/{name}"]
+            what = f"{FAMILY_FEDLM[fam]} sweep {name} cohort/{mk}"
+            kw = (dict(psa_cfg=PSAConfig(**GOLDEN_PSA), calib_batch=calib)
+                  if name == "fedpsa" else {})
+            sim = SimConfig(engine="cohort", member_kernel=mk, device="cuda",
+                            record_trajectory=True, **FAMILY_FEDLM_SIM)
+            res, wall, _, counts = _timed_run(torch, lambda: run_sweep(
+                name, cfg, params, clients, test, sim,
+                SweepConfig(data_seeds=FAMILY_SWEEP_SEEDS), **kw))
+            if res.times != lanes["times"]:
+                raise AssertionError(f"{what}: times {res.times}")
+            for key, val in lanes["final"].items():
+                if getattr(res, key) != val:
+                    raise AssertionError(f"{what}: {key} "
+                                         f"{getattr(res, key)} != {val}")
+            shares = [_lane_gap(res.digests[s_], want)
+                      for s_, want in enumerate(lanes["digests"])]
+            seq_share = _lane_gap(res.digests[0], seq[name]["digests"])
+            if not max(shares + [seq_share]) <= 1.0:
+                raise AssertionError(f"{what}: lanes at {shares} of the lane "
+                                     f"tolerance, lane 0 at {seq_share} "
+                                     f"against the sequential run")
+            solo = refs[fam, name, mk]
+            if res.local_steps != solo["local_steps"]:
+                raise AssertionError(f"{what}: local steps {res.local_steps}"
+                                     f" != the standalone run's "
+                                     f"{solo['local_steps']}")
+            want_counts = _fedlm_want(name, res, cfg, mk == "grouped")
+            if counts != want_counts:
+                raise AssertionError(f"{what}: launches {counts} != "
+                                     f"{want_counts}")
+            paths[f"{FAMILY_FEDLM[fam]}-sweep-{name}-{mk}"] = counts
+            log(f"[families] {what} 3 lanes: vs the reference's lanes "
+                f"{[f'{x:.3e}' for x in shares]} of the lane tolerance, "
+                f"lane 0 vs its sequential run {seq_share:.3e}; "
+                f"cohorts={res.cohorts} versions={res.versions} local steps "
+                f"{res.local_steps} {wall:.2f}s ({wall / res.dispatches:.4f} "
+                f"s/receive, the standalone run {solo['s_per_receive']:.4f}) "
+                f"launches={counts} on {smi}")
     return paths
 
 
@@ -4853,21 +5084,34 @@ def _families_meta(torch, dev, smi: str) -> dict:
     return paths
 
 
-def phase_families(torch, dev, smi: str) -> tuple:
-    """[families]: the recurrent, MoE and hybrid LMs on the card. The FL
-    kernels at the new paths' shapes; the fed-lm ssm and moe scenarios
-    against the reference's digests with exact launches; two MoE layer
-    backwards bit-equal; xlstm-350m and qwen2-moe-a2.7b served at full
-    width (B = 8, prompt 2,048, 32 tokens); jamba-v0.1-52b and arctic-480b
-    at smoke size and on the meta device. Returns (kernel errors, launch
-    counts by path, serve stats by model)."""
-    t_phase = time.perf_counter()
+def phase_families_fedlm(torch, dev, smi: str) -> tuple:
+    """``[families]``' small world, before ``[mesh]`` (which holds the
+    families' mesh runs to its cohort runs): the FL kernels at the fed-lm
+    ssm and moe shapes, ``FAMILY_RUNS`` against the reference's digests
+    and the ``FAMILY_CARD_CASES`` sweeps against its lanes, launches
+    exact. Returns (kernel errors, launch counts by path, the cohort runs
+    by (family, policy, member kernel))."""
     errs = _families_kernel_parity(torch, dev)
     t0 = time.perf_counter()
-    paths = _families_fedlm(torch, smi)
+    paths, refs = _families_fedlm(torch, smi)
     log(f"[families] fed-lm ssm and moe runs {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    paths.update(_families_sweeps(torch, smi, refs))
+    log(f"[families] fed-lm ssm and moe sweeps "
+        f"{time.perf_counter() - t0:.1f}s")
+    return errs, paths, refs
+
+
+def phase_families(torch, dev, smi: str) -> tuple:
+    """[families]: the recurrent, MoE and hybrid LMs on the card (the
+    fed-lm runs came before ``[mesh]``, ``phase_families_fedlm``): two MoE
+    layer backwards bit-equal; xlstm-350m and qwen2-moe-a2.7b served at
+    full width (B = 8, 32 tokens; prompts ``FAMILY_SERVE``);
+    jamba-v0.1-52b and arctic-480b at smoke size and on the meta device.
+    Returns (launch counts by path, serve stats by model)."""
+    t_phase = time.perf_counter()
     _families_moe_backward(torch, dev)
-    paths.update(_families_meta(torch, dev, smi))
+    paths = _families_meta(torch, dev, smi)
     serve_stats = {}
     for spec in FAMILY_SERVE:
         t0 = time.perf_counter()
@@ -4877,7 +5121,7 @@ def phase_families(torch, dev, smi: str) -> tuple:
         log(f"[families] {spec['arch']} serve phase "
             f"{time.perf_counter() - t0:.1f}s")
     log(f"[families] the whole phase took {time.perf_counter() - t_phase:.1f}s")
-    return errs, paths, serve_stats
+    return paths, serve_stats
 
 
 # ---------------------------------------------------------------------------
@@ -5471,6 +5715,258 @@ def phase_frontends(torch, dev, smi: str) -> tuple:
     return kern, paths, stats
 
 
+# ---------------------------------------------------------------------------
+# [legacy]: the class-based servers; [examples]: the reference's examples
+# ---------------------------------------------------------------------------
+
+# the reference's benchmarks/kernel_micro.py server-step cell at CIFAR full
+# width: arrivals a pass (a warm-up pass, then a timed one)
+LEGACY_ARRIVALS = 60
+# the five other legacy servers against their policies, on the same stream
+LEGACY_OTHERS = ("fedasync", "fedbuff", "ca2fl", "fedfa", "fedpac")
+LEGACY_CLIENTS = 10
+LEGACY_TOL = 1e-4        # kernel_micro's legacy/fused gate
+LEGACY_POLICY_TOL = 1e-5  # tests/test_policies.py's
+
+
+def _legacy_stream(torch, params, k: int):
+    """``kernel_micro.bench_server_step``'s arrivals at ``params``' shapes
+    on the card: deltas of 0.01 N(0, 1) (numpy seed 0, leaf by leaf in
+    sorted-key order), random sketches, tau = i % 3, client i % 10."""
+    from repro_torch.common.tree import tree_map
+    rng = np.random.RandomState(0)
+    deltas, metas = [], []
+    for i in range(LEGACY_ARRIVALS):
+        deltas.append(tree_map(lambda x: torch.from_numpy(
+            (rng.randn(*x.shape) * 0.01).astype(np.float32)).cuda(), params))
+    for i in range(LEGACY_ARRIVALS):
+        metas.append({"tau": i % 3, "client_id": i % LEGACY_CLIENTS,
+                      "data_size": 10.0, "sketch": torch.from_numpy(
+                          rng.randn(k).astype(np.float32)).cuda()})
+    return deltas, metas
+
+
+def _tree_gap(a, b) -> float:
+    return max(float((a[k] - b[k]).abs().max()) if not isinstance(a[k], dict)
+               else _tree_gap(a[k], b[k]) for k in a)
+
+
+def phase_legacy(torch, smi: str) -> tuple:
+    """[legacy]: ``kernel_micro.bench_server_step`` at CIFAR full width
+    (``paper-cifar10-cnn``, d = 1,756,426): legacy FedPSA
+    (``federated.legacy``: a Python-list buffer, one tree op at a time)
+    against the fused policy server (``servers.make_server``: the flat
+    ring, ``buffer_agg`` once an aggregation), both with the simulator's
+    ``make_sketch_fn`` (one ``sens_sketch`` launch a tree), each driven by
+    ``LEGACY_ARRIVALS`` arrivals twice (a warm-up pass, then a timed pass;
+    the state carries over): µs an arrival, ``speedup_x``, the final
+    parameters within 1e-4 of each other, launches exact on each side
+    (legacy: ``sens_sketch`` once at init and once an aggregation, no
+    ``buffer_agg``; fused: the same ``sens_sketch`` and ``buffer_agg`` once
+    an aggregation). Then the five other legacy servers against their
+    policies on one pass of the same stream (client model = global +
+    delta): flags and versions equal, parameters within 1e-5, launches
+    exact. Returns (the JSON row, launch counts by path)."""
+    from repro_torch.common.tree import tree_add, tree_size
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated import legacy, servers
+    from repro_torch.federated.simulator import make_sketch_fn
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    cfg, clients, test, calib, params = _main_world(torch)
+    psa = PSAConfig()
+    sketch_fn = make_sketch_fn(cfg, calib, psa, "cuda")
+    deltas, metas = _legacy_stream(torch, params, psa.sketch_k)
+
+    def drive(server):
+        for delta, meta in zip(deltas, metas):
+            server.receive(delta, delta, meta)
+        torch.cuda.synchronize()
+
+    def timed(make):
+        ops.reset_launch_counts()
+        server = make()
+        drive(server)                 # warm-up pass
+        t0 = time.perf_counter()
+        drive(server)                 # timed pass (the state carries over)
+        return ((time.perf_counter() - t0) / LEGACY_ARRIVALS, server,
+                ops.launch_counts())
+
+    t_leg, srv_l, c_leg = timed(lambda: legacy.make_legacy_server(
+        "fedpsa", params, psa_cfg=psa, sketch_fn=sketch_fn))
+    t_fus, srv_f, c_fus = timed(lambda: servers.make_server(
+        "fedpsa", params, psa_cfg=psa, sketch_fn=sketch_fn))
+    diff = _tree_gap(srv_l.params, srv_f.params)
+    aggs = 2 * LEGACY_ARRIVALS // psa.buffer_size
+    want_l = {"sens_sketch": aggs + 1, "buffer_agg": 0}
+    want_f = {"sens_sketch": aggs + 1, "buffer_agg": aggs}
+    got_l = {k: c_leg[k] for k in want_l}
+    got_f = {k: c_fus[k] for k in want_f}
+    row = {"model": cfg.name, "params_d": tree_size(params),
+           "arrivals": LEGACY_ARRIVALS, "buffer_size": psa.buffer_size,
+           "legacy_us_per_arrival": t_leg * 1e6,
+           "fused_us_per_arrival": t_fus * 1e6, "speedup_x": t_leg / t_fus,
+           "max_param_diff": diff, "versions": srv_f.version,
+           "legacy_launches": got_l, "fused_launches": got_f}
+    log(f"[legacy] server_step fedpsa d={row['params_d']}: legacy "
+        f"{t_leg * 1e6:.1f}us an arrival, fused {t_fus * 1e6:.1f}us, "
+        f"speedup {t_leg / t_fus:.3f}x; final parameters max|diff| "
+        f"{diff:.3e} (tol {LEGACY_TOL}); versions {srv_l.version}/"
+        f"{srv_f.version}; launches legacy {got_l}, fused {got_f} on {smi}")
+    if not (diff <= LEGACY_TOL and srv_l.version == srv_f.version == aggs
+            and got_l == want_l and got_f == want_f
+            and len(srv_l.log) == aggs):
+        raise AssertionError(f"[legacy] fedpsa: {row} (want launches "
+                             f"{want_l}, {want_f})")
+    paths = {"legacy-fedpsa-server-step": c_leg,
+             "fused-fedpsa-server-step": c_fus}
+    del srv_l, srv_f
+    clients_params = [tree_add(params, d) for d in deltas]
+    for name in LEGACY_OTHERS:
+        kw = {"num_clients": LEGACY_CLIENTS}
+        ops.reset_launch_counts()
+        old = legacy.make_legacy_server(name, params, **kw)
+        flags_l = [old.receive(d, c, m)
+                   for d, c, m in zip(deltas, clients_params, metas)]
+        torch.cuda.synchronize()
+        c_old = ops.launch_counts()
+        ops.reset_launch_counts()
+        new = servers.make_server(name, params, **kw)
+        flags_p = [new.receive(d, c, m)
+                   for d, c, m in zip(deltas, clients_params, metas)]
+        torch.cuda.synchronize()
+        c_new = ops.launch_counts()
+        gap = _tree_gap(old.params, new.params)
+        applies = LEGACY_ARRIVALS if name == "fedfa" else (
+            0 if name == "fedasync" else new.version)
+        want = ({"buffer_agg": 0, "sens_sketch": 0},
+                {"buffer_agg": applies, "sens_sketch": 0})
+        got = ({k: c_old[k] for k in want[0]}, {k: c_new[k] for k in want[1]})
+        log(f"[legacy] {name}: legacy vs policy max|diff| {gap:.3e} (tol "
+            f"{LEGACY_POLICY_TOL}), versions {old.version}/{new.version}, "
+            f"launches legacy {got[0]}, policy {got[1]} on {smi}")
+        if not (gap <= LEGACY_POLICY_TOL and flags_l == flags_p
+                and old.version == new.version > 0 and got == want):
+            raise AssertionError(f"[legacy] {name}: gap {gap}, versions "
+                                 f"{old.version}/{new.version}, launches "
+                                 f"{got} (want {want})")
+        paths[f"legacy-{name}"], paths[f"policy-{name}"] = c_old, c_new
+        del old, new
+    del clients_params, deltas, metas
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t_phase
+    log(f"[legacy] the whole phase took {row['seconds']:.1f}s")
+    return row, paths
+
+
+# the examples' horizons on the card, cut for the script's time limit: the
+# quickstart's from its 30,000 (its two sweeps took 78.3-108.8 s there on
+# an H100 80GB HBM3 at 700 W; its main has no --horizon, so the phase sets
+# the module's HORIZON for the call), paper_protocol's from its 60,000
+# through its --horizon (69 receives a run, past the thermometer's 50)
+EXAMPLE_QUICKSTART_HORIZON = 6_000
+EXAMPLE_PROTOCOL_HORIZON = 1_500
+
+
+def _example_main(torch, what: str, main, argv: list) -> tuple:
+    """``main(argv)`` of an example with its standard output captured and
+    logged line by line: (its results, wall s, launch counts, the text)."""
+    import contextlib
+    import io
+    from repro_torch.kernels import ops
+    text = io.StringIO()
+    gc.collect()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        results = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for line in text.getvalue().splitlines():
+        if line.strip():
+            log(f"[examples] {what}: {line}")
+    return results, wall, ops.launch_counts(), text.getvalue()
+
+
+def _summed(wants) -> dict:
+    out = {"grouped_matmul": 0}
+    for want in wants:
+        for k, v in want.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_examples(torch, smi: str) -> tuple:
+    """[examples]: the two examples' entry points on the card.
+    ``repro_torch.examples.quickstart.main(["--device", "cuda"])`` with its
+    ``HORIZON`` set to ``EXAMPLE_QUICKSTART_HORIZON`` (FedBuff and FedPSA,
+    each one 3-lane ``run_sweep``) and ``repro_torch.examples.
+    paper_protocol.main(["--horizon", EXAMPLE_PROTOCOL_HORIZON, "--device",
+    "cuda"])`` (every algorithm of ``ALGORITHMS``, then the ordering,
+    thermometer and kappa lines): each call's printed lines, each run's
+    line among them, and its launches exact in total
+    (``_want_sweep_launches``, ``_want_launches``; no ``grouped_matmul`` on
+    the examples' default member kernel). Returns (the JSON row, launch
+    counts by path)."""
+    from repro_torch.examples import paper_protocol, quickstart
+    from repro_torch.federated import ALGORITHMS
+    t_phase = time.perf_counter()
+    row, paths = {}, {}
+    own = quickstart.HORIZON
+    quickstart.HORIZON = EXAMPLE_QUICKSTART_HORIZON
+    try:
+        log(f"[examples] quickstart.main(['--device', 'cuda']) at horizon "
+            f"{quickstart.HORIZON:,} (cut from {own:,})")
+        sweeps, wall, counts, text = _example_main(
+            torch, "quickstart", quickstart.main, ["--device", "cuda"])
+    finally:
+        quickstart.HORIZON = own
+    want = _summed(_want_sweep_launches(alg, "l2", sweeps[alg])
+                   for alg in quickstart.ALGS)
+    receives = sum(sweeps[alg].dispatches for alg in quickstart.ALGS)
+    missing = [alg for alg in quickstart.ALGS
+               if quickstart.line(alg, sweeps[alg]) not in text]
+    if {k: counts[k] for k in want} != want or missing:
+        raise AssertionError(f"[examples] quickstart: launches {counts} != "
+                             f"{want}, or lines missing for {missing}")
+    log(f"[examples] quickstart: {len(sweeps)} sweeps of 3 lanes, receives "
+        f"{receives} {wall:.2f}s ({wall / receives:.4f} s/receive) "
+        f"launches={counts} on {smi}")
+    paths["quickstart"] = counts
+    row["quickstart"] = {"horizon": EXAMPLE_QUICKSTART_HORIZON, "s": wall,
+                         "receives": receives, **{
+                             f"{alg}_final_accuracy": sweeps[alg].final_accuracy
+                             for alg in quickstart.ALGS}}
+    H = EXAMPLE_PROTOCOL_HORIZON
+    argv = ["--horizon", str(H), "--device", "cuda"]
+    log(f"[examples] paper_protocol.main({argv}) (cut from 60,000)")
+    results, wall, counts, text = _example_main(
+        torch, "paper_protocol", paper_protocol.main, argv)
+    want = _summed(_want_launches(alg, "l2", results[alg])
+                   for alg in ALGORITHMS)
+    receives = sum(results[alg].dispatches for alg in ALGORITHMS)
+    missing = [alg for alg in ALGORITHMS
+               if paper_protocol.line(alg, results[alg]) not in text]
+    if {k: counts[k] for k in want} != want or missing or \
+            "FedPSA thermometer" not in text:
+        raise AssertionError(f"[examples] paper_protocol: launches {counts} "
+                             f"!= {want}, or lines missing for {missing} or "
+                             f"the thermometer's")
+    log(f"[examples] paper_protocol: {len(results)} runs, receives "
+        f"{receives} {wall:.2f}s ({wall / receives:.4f} s/receive) "
+        f"launches={counts} on {smi}")
+    paths["paper_protocol"] = counts
+    row["paper_protocol"] = {"horizon": H, "s": wall, "receives": receives,
+                             "final_accuracy": {
+                                 alg: results[alg].final_accuracy
+                                 for alg in ALGORITHMS}}
+    row["seconds"] = time.perf_counter() - t_phase
+    log(f"[examples] the whole phase took {row['seconds']:.1f}s on {smi}")
+    return row, paths
+
+
 def _seconds(what: str, fn, *args):
     """``fn(*args)``, printing its seconds as a ``[fed-lm]`` sub-phase."""
     t0 = time.perf_counter()
@@ -5491,22 +5987,36 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch.federated.simulator  # noqa: F401  (fail before any output)
     import repro_torch.launch.serve  # noqa: F401
+    t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f}s")
+
     name, count, smi = phase_device(torch)
     dev = torch.device("cuda")
     # full float32 throughout (cuDNN's TF32 default would move the convs)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
+    mark("build")
     errs = phase_parity(torch, dev)
     timing = phase_timing(torch, dev)
+    mark("parity and timing")
     golden_ref = phase_golden(torch)
+    mark("golden")
     phase_sweeps_golden(torch)
     phase_resume_fedavg(torch)
+    mark("sweeps, resume, FedAvg")
     by_path = {"sequential": phase_main(torch),
-               "cohort": phase_main_cohort(torch), **phase_policies(torch)}
+               "cohort": phase_main_cohort(torch)}
+    policy_paths, full_ref = phase_policies(torch)
+    by_path.update(policy_paths)
+    mark("main paths and policies")
     full_width, mono, mono_wall = phase_full_width(torch, smi)
-    full_ref = {("fedpsa", "l2"): _run_ref(mono[0], mono[1], mono_wall)}
+    mark("full width")
+    full_ref["fedpsa", "l2"] = _run_ref(mono[0], mono[1], mono_wall)
     pop_cases, pop_paths = phase_population(torch, dev, smi, mono)
+    mark("population")
     del mono
     by_path.update(full_width, **pop_paths)
     # [fed-lm]'s small world first: its single-device runs are what [mesh]
@@ -5522,26 +6032,40 @@ def main() -> int:
     fedlm_paths.update(_seconds("policies", phase_fedlm_policies, torch,
                                 smi))
     log(f"[fed-lm] small-world phases {time.perf_counter() - t0:.1f}s")
+    mark("fed-lm small world")
+    fam_errs, fam_paths, fam_ref = phase_families_fedlm(torch, dev, smi)
+    mark("families small world")
     by_path["mesh-n2-cifar"], paths = phase_mesh(torch, smi, golden_ref,
-                                                 full_ref, fedlm_ref)
+                                                 full_ref, fedlm_ref, fam_ref)
+    mark("mesh")
     fedlm_paths.update(paths)
     # the timed serve runs come before any profiler session, so no profiler
     # state is live while they run
     serve_check = phase_serve_checks(torch, dev)
     serve_counts, serve_stats = phase_serve(torch, dev, smi)
     serve_paths, serve_more = phase_serve_more(torch, dev, smi)
+    mark("serve")
     t0 = time.perf_counter()
     _seconds("remat", phase_fedlm_remat, torch, smi)
     fedlm_full = _seconds("full width", phase_fedlm_full, torch, dev, smi)
     fedlm_paths["fed-lm-full-width"] = fedlm_full["launches"]
     by_path.update(fedlm_paths)
     log(f"[fed-lm] full-width phases {time.perf_counter() - t0:.1f}s")
-    fam_errs, fam_paths, fam_serve = phase_families(torch, dev, smi)
+    mark("fed-lm full width")
+    paths, fam_serve = phase_families(torch, dev, smi)
+    fam_paths.update(paths)
     by_path.update(fam_paths)
+    mark("families")
     front, front_paths, front_stats = phase_frontends(torch, dev, smi)
     by_path.update(front_paths)
+    mark("frontends")
+    legacy_row, legacy_paths = phase_legacy(torch, smi)
+    examples_row, examples_paths = phase_examples(torch, smi)
+    by_path.update(legacy_paths, **examples_paths)
+    mark("legacy and examples")
     phase_profile(torch)
     phase_profile_serve(torch, dev)
+    mark("profiles")
     sources = {"buffer_agg": ("src/repro_torch/csrc/buffer_agg.cu",
                               "src/repro/kernels/buffer_agg.py:38",
                               "1e-6 * (1 + max|plain|) * L"),
@@ -5624,6 +6148,7 @@ def main() -> int:
         "cuda_core_ms": r["cuda_core_ms"],
         "library_ms": r["library_ms"], "shape": r["shape"],
         "design": r["design"], "window": fedlm_kern["window_timing"],
+        "window_empty_rows": fedlm_kern["empty_rows_timing"],
         "frontends": {"max_abs_err": front["bwd_f32_err"],
                       "bf16_worst_share_of_limit": front["bwd_bf16_share"],
                       "timing": [t for t in front["timing"]
@@ -5632,6 +6157,7 @@ def main() -> int:
     log(json.dumps({"serve_more": serve_more}))
     log(json.dumps({"families": fam_serve}))
     log(json.dumps({"frontends": front_stats}))
+    log(json.dumps({"legacy": legacy_row, "examples": examples_row}))
     log(json.dumps({"fed_lm_full_width": {
         k: fedlm_full[k] for k in (
             "s_per_step", "peak_bytes", "busy_share", "tc_kernel_us",

@@ -15,8 +15,11 @@ siblings and the assigned configs, with a sliding window and ``remat`` none, ful
 engines, over streamed client populations, with checkpoint/resume;
 ``federated.run_sweep``'s lanes; the mesh-sharded server with
 data-parallel waves over ``torch.distributed`` (``SimConfig.mesh``); and
-the LMs' prefill and decode (``launch.serve``). The reference's four
-Pallas kernels and the attention backward are hand-written CUDA C++ for
-Hopper (``csrc/``). ROADMAP.md lists what is left (the frontends, and the
-moe, ssm and hybrid families on sweep lanes and the mesh).
+the LMs' prefill and decode (``launch.serve``), the vision and audio
+frontends; the legacy class-based servers (``federated.legacy``); and the
+reference's examples as ``python -m repro_torch.examples.<name>``
+(quickstart, paper_protocol, pretrain_lm). The reference's four Pallas
+kernels and the attention backward are hand-written CUDA C++ for Hopper
+(``csrc/``). ROADMAP.md lists what is left (the XLA dry-run and cost
+tooling).
 """

@@ -76,7 +76,10 @@
 //   holding such a row walks every tile from the first, and the padding
 //   past Sk scores -inf (p = 0) so that only the Sk keys count. Padding
 //   scores -inf in every case; a row with a key in its band gets the same
-//   bits as with -1e30 there (p = 0 either way).
+//   bits as with -1e30 there (p = 0 either way). Such a row's lse is
+//   -1e30 (-1e30 + log Sk rounds to it in f32); its gradient, the
+//   reference's (do_i / Sk to every key's dV, nothing to dQ or dK), is
+//   flash_attention_bwd.cu's empty_rows_dv.
 //
 // f32 (the parity mode): flash_attention_kernel, IEEE fp32 on the CUDA
 //   cores, as the reference's kernel computes; capped at about 3.1 ms at

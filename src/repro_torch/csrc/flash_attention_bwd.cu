@@ -111,6 +111,19 @@
 // skip the loaded tiles wholly outside their rows' band. A tile pair that
 // straddles the band's lower edge is masked, as the diagonal is. The GQA
 // sum keeps its order: head, then query tile.
+//
+// Rows that see no key (a window W > 0 and Sq >= Sk + W: queries i >=
+// Sk + W - 1 have no key in their band). The reference masks a score to the
+// constant -1e30, so such a row's output is the mean of v over the Sk keys
+// and its gradient is p = 1/Sk on every key with dS = 0: nothing to dQ or
+// dK, and do_i / Sk to every key's dV. Its lse cannot say so (in f32
+// -1e30 + log Sk rounds to -1e30, which would give p = 1), so every kernel
+// above masks these rows' pairs to P = 0, and a third kernel,
+// empty_rows_dv, runs between the two passes when the wrapper passes the
+// f32 scratch E (B, Hkv, hd): E[b, hk] = (sum over the group's heads, then
+// over the empty rows in order, of dO) / Sk, one thread a column, a fixed
+// order. The dK/dV kernels add E to each key's f32 dV before its one
+// rounding.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,6 +166,7 @@ struct Args {
   const T *q, *k, *v, *o, *dout;
   const float* lse;
   float* D;
+  float* E;  // the empty rows' dV share (B, Hkv, hd), or null: none
   T *dq, *dk, *dv;
   int Sq, Sk, H, Hkv, hd, causal, window;
   float scale;
@@ -386,11 +400,43 @@ dkdv_kernel(Args<T> A) {
     for (int c = 0; c < C::TC; ++c) {
       const int col = tx + 16 * c;
       if (col < A.hd) {
+        const float e =
+            A.E != nullptr
+                ? A.E[((long long)b * A.Hkv + hk) * A.hd + col]
+                : 0.0f;
         st(A.dk + off + col, dk[a][c] * A.scale);
-        st(A.dv + off + col, dv[a][c]);
+        st(A.dv + off + col, dv[a][c] + e);
       }
     }
   }
+}
+
+// E[b, hk, c] = (sum_g sum_{i >= i0} dO[b, i, hk G + g, c]) / Sk: the dV
+// every key gets from the rows i >= i0 = Sk + W - 1, which see no key. One
+// block per (kv head, b), one thread per column, the heads then the rows
+// in order (no atomics, the same bits on every run).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+empty_rows_dv(Args<T> A, int i0) {
+  const int hk = blockIdx.x, b = blockIdx.y, c = threadIdx.x;
+  if (c >= A.hd) return;
+  const int G = A.H / A.Hkv;
+  float acc = 0.0f;
+  for (int g = 0; g < G; ++g) {
+    const T* p = A.dout + (long long)b * A.sdo.b +
+                 (long long)(hk * G + g) * A.sdo.h + (long long)c * A.sdo.d;
+    for (int i = i0; i < A.Sq; ++i) acc += ld(p + (long long)i * A.sdo.s);
+  }
+  A.E[((long long)b * A.Hkv + hk) * A.hd + c] = acc / (float)A.Sk;
+}
+
+// empty_rows_dv on `stream` when the wrapper passed E (hd <= kThreads)
+template <typename T>
+cudaError_t launch_empty_rows(const Args<T>& a, int B, cudaStream_t stream) {
+  if (a.E == nullptr) return cudaSuccess;
+  empty_rows_dv<T><<<dim3(a.Hkv, B), kThreads, 0, stream>>>(
+      a, a.Sk + a.window - 1);
+  return cudaGetLastError();
 }
 
 template <int HD, typename T>
@@ -411,6 +457,7 @@ int launch(const Args<T>& a, int B, cudaStream_t stream) {
   dim3 gq((a.Sq + C::BT - 1) / C::BT, a.H, B);
   dq_kernel<HD, T><<<gq, kThreads, C::kDqBytes, stream>>>(a);
   cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) e = launch_empty_rows(a, B, stream);
   if (e != cudaSuccess) return (int)e;
   dim3 gk((a.Sk + C::BT - 1) / C::BT, a.Hkv, B);
   dkdv_kernel<HD, T><<<gk, kThreads, C::kDkdvBytes, stream>>>(a);
@@ -419,8 +466,8 @@ int launch(const Args<T>& a, int B, cudaStream_t stream) {
 
 template <typename T>
 int run(const void* q, const void* k, const void* v, const void* o,
-        const void* dout, const float* lse, float* D, void* dq, void* dk,
-        void* dv, int B, int Sq, int Sk, int H, int Hkv, int hd,
+        const void* dout, const float* lse, float* D, float* E, void* dq,
+        void* dk, void* dv, int B, int Sq, int Sk, int H, int Hkv, int hd,
         const long long* s, int causal, int window, float scale,
         cudaStream_t stream) {
   Args<T> a;
@@ -431,6 +478,7 @@ int run(const void* q, const void* k, const void* v, const void* o,
   a.dout = (const T*)dout;
   a.lse = lse;
   a.D = D;
+  a.E = E;
   a.dq = (T*)dq;
   a.dk = (T*)dk;
   a.dv = (T*)dv;
@@ -482,19 +530,25 @@ __device__ __forceinline__ float dot8(const uint4& a, const uint4& b,
   return acc;
 }
 
-// one row's dq/dk/dv fragment (f32, times mul) as bf16: register 4 j + 2
-// half + e holds column 64 n + 8 j + 2 (lane % 4) + e
+// one row's dq/dk/dv fragment (f32, times mul, plus add[column] if add is
+// not null) as bf16: register 4 j + 2 half + e holds column
+// 64 n + 8 j + 2 (lane % 4) + e
 template <int kNB>
 __device__ __forceinline__ void store_row(bf16* op, const float (&acc)[kNB][32],
                                           int half, int lane, int hd,
-                                          float mul) {
+                                          float mul,
+                                          const float* add = nullptr) {
 #pragma unroll
   for (int n = 0; n < kNB; ++n)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = 64 * n + 8 * j + 2 * (lane % 4);
-      const float x0 = acc[n][4 * j + 2 * half] * mul;
-      const float x1 = acc[n][4 * j + 2 * half + 1] * mul;
+      float x0 = acc[n][4 * j + 2 * half] * mul;
+      float x1 = acc[n][4 * j + 2 * half + 1] * mul;
+      if (add != nullptr) {
+        if (c < hd) x0 += add[c];
+        if (c + 1 < hd) x1 += add[c + 1];
+      }
       if (c + 1 < hd) {
         if (hd % 2 == 0) {
           *reinterpret_cast<__nv_bfloat162*>(op + c) =
@@ -892,7 +946,10 @@ bwd_dkdv_tc(Args<bf16> A, float scale_log2, int flags) {
     if (kj >= A.Sk) continue;
     const long long off = (((long long)b * A.Sk + kj) * A.Hkv + hk) * A.hd;
     store_row<kNB>(A.dk + off, dk, half, lane, A.hd, A.scale);
-    store_row<kNB>(A.dv + off, dv, half, lane, A.hd, 1.0f);
+    store_row<kNB>(A.dv + off, dv, half, lane, A.hd, 1.0f,
+                   A.E != nullptr
+                       ? A.E + ((long long)b * A.Hkv + hk) * A.hd
+                       : nullptr);
   }
 }
 
@@ -914,7 +971,8 @@ int launch(const Args<bf16>& a, int B, int flags, cudaStream_t stream) {
   const float scale_log2 = a.scale * kLog2e;
   dim3 gq(a.H, B, (a.Sq + kBQ - 1) / kBQ);
   bwd_dq_tc<HDB><<<gq, kThreads, dq_smem, stream>>>(a, scale_log2, flags);
-  const cudaError_t e = cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) e = launch_empty_rows(a, B, stream);
   if (e != cudaSuccess) return (int)e;
   dim3 gk(a.Hkv, B, (a.Sk + kBQ - 1) / kBQ);
   bwd_dkdv_tc<HDB><<<gk, kThreads, kv_smem, stream>>>(a, scale_log2, flags);
@@ -925,8 +983,8 @@ int launch(const Args<bf16>& a, int B, int flags, cudaStream_t stream) {
 int bucket(int hd) { return hd <= 64 ? 64 : 128; }
 
 int run(const void* q, const void* k, const void* v, const void* o,
-        const void* dout, const float* lse, float* D, void* dq, void* dk,
-        void* dv, int B, int Sq, int Sk, int H, int Hkv, int hd,
+        const void* dout, const float* lse, float* D, float* E, void* dq,
+        void* dk, void* dv, int B, int Sq, int Sk, int H, int Hkv, int hd,
         const long long* s, int causal, int window, float scale,
         cudaStream_t stream) {
   Args<bf16> a;
@@ -937,6 +995,7 @@ int run(const void* q, const void* k, const void* v, const void* o,
   a.dout = (const bf16*)dout;
   a.lse = lse;
   a.D = D;
+  a.E = E;
   a.dq = (bf16*)dq;
   a.dk = (bf16*)dk;
   a.dv = (bf16*)dv;
@@ -994,46 +1053,54 @@ int attributes(int hd, int* out) {
 // q, k, v, o, dout: device pointers read through their element strides,
 // (b, s, h, d) for each in that order (20 values in `strides`); lse: f32
 // (B, H, Sq) contiguous; D: f32 (B, H, Sq) scratch the first kernel writes
-// and the second reads; dq (B, Sq, H, hd), dk and dv (B, Sk, Hkv, hd):
-// contiguous outputs in the inputs' dtype (0 = f32, 1 = bf16); window >= 1
-// masks key j for query i unless j > i - window, 0 is none. Launches two
-// kernels on `stream`; returns the first non-zero cudaGetLastError().
+// and the second reads; E: null, or (when window >= 1 and Sq >= Sk +
+// window, so that rows see no key) f32 (B, Hkv, hd) scratch for their dV;
+// dq (B, Sq, H, hd), dk and dv (B, Sk, Hkv, hd): contiguous outputs in the
+// inputs' dtype (0 = f32, 1 = bf16); window >= 1 masks key j for query i
+// unless j > i - window, 0 is none. Launches two kernels (three with E) on
+// `stream`; returns the first non-zero cudaGetLastError().
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const float* lse,
-                                   float* D, void* dq, void* dk, void* dv,
+                                   float* D, float* E, void* dq, void* dk,
+                                   void* dv,
                                    int B, int Sq, int Sk, int H, int Hkv,
                                    int hd, const long long* strides,
                                    int causal, int window, float scale,
                                    int bf16, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv != 0 || hd < 1 ||
-      hd > 256 || H > 65535 || Hkv > 65535 || B > 65535 || window < 0)
+      hd > 256 || H > 65535 || Hkv > 65535 || B > 65535 || window < 0 ||
+      (E != nullptr && window < 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
-    return run<__nv_bfloat16>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Sk,
-                              H, Hkv, hd, strides, causal, window, scale, st);
-  return run<float>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Sk, H, Hkv,
-                    hd, strides, causal, window, scale, st);
+    return run<__nv_bfloat16>(q, k, v, o, dout, lse, D, E, dq, dk, dv, B, Sq,
+                              Sk, H, Hkv, hd, strides, causal, window, scale,
+                              st);
+  return run<float>(q, k, v, o, dout, lse, D, E, dq, dk, dv, B, Sq, Sk, H,
+                    Hkv, hd, strides, causal, window, scale, st);
 }
 
 // The bf16 tensor-core kernels, hd <= 128: arguments as flash_attention_bwd
-// less the dtype flag (all bf16). Launches bwd_dq_tc, then bwd_dkdv_tc, on
-// `stream`; returns the first non-zero cudaGetLastError().
+// less the dtype flag (all bf16). Launches bwd_dq_tc, then (with E)
+// empty_rows_dv, then bwd_dkdv_tc, on `stream`; returns the first non-zero
+// cudaGetLastError().
 extern "C" int flash_attention_bwd_tc(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const float* lse,
-                                      float* D, void* dq, void* dk, void* dv,
+                                      float* D, float* E, void* dq, void* dk,
+                                      void* dv,
                                       int B, int Sq, int Sk, int H, int Hkv,
                                       int hd, const long long* strides,
                                       int causal, int window, float scale,
                                       void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv != 0 || hd < 1 ||
       hd > 128 || B > 65535 || (Sq + 127) / 128 > 65535 ||
-      (Sk + 127) / 128 > 65535 || window < 0)
+      (Sk + 127) / 128 > 65535 || window < 0 ||
+      (E != nullptr && window < 1))
     return (int)cudaErrorInvalidValue;
-  return tc::run(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Sk, H, Hkv, hd,
-                 strides, causal, window, scale, (cudaStream_t)stream);
+  return tc::run(q, k, v, o, dout, lse, D, E, dq, dk, dv, B, Sq, Sk, H, Hkv,
+                 hd, strides, causal, window, scale, (cudaStream_t)stream);
 }
 
 // The tensor-core kernels' runtime attributes for head dim hd, into

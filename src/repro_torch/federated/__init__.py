@@ -38,6 +38,7 @@ from repro_torch.federated.scheduler import (SCHEDULERS, Dispatcher,
                                              UniformRefillScheduler,
                                              make_scheduler, make_streams)
 from repro_torch.federated.client import local_update
+from repro_torch.federated.legacy import make_legacy_server
 from repro_torch.federated.latency import (AvailabilityTrace,
                                            make_availability_trace,
                                            make_latency_sampler,

@@ -22,8 +22,11 @@ f32; output (B, Sq, H, hd) in q's dtype, float32 or bfloat16. A row whose
 band holds no key (i >= Sk + W - 1, which needs Sq > Sk + W - 1) is a
 softmax over Sk scores that are all -1e30: the mean of v over the Sk keys,
 as in the reference when Sk is a multiple of its ``kv_chunk`` (its chunks'
-zero padding would otherwise join the mean). Such a row has no gradient
-here: ``flash_attention`` raises when autograd would need one.
+zero padding would otherwise join the mean). Its gradient is the
+reference's autodiff of that constant: p = 1/Sk on every key and dS = 0,
+so nothing reaches dQ or dK and every key's dV gets do_i / Sk (the row's
+lse cannot say so: in f32 -1e30 + log Sk rounds to -1e30, which would give
+p = 1, so both backward versions treat these rows on their own).
 
 ``flash_attention`` runs the forward kernel alone when no input needs a
 gradient (the serve path: one launch, nothing saved). When autograd needs
@@ -31,8 +34,8 @@ one, it goes through ``FlashAttention``: the forward kernel also writes
 the row log-sum-exp, f32 (B, H, Sq), and the backward is
 ``flash_attention_bwd`` (dq, dk, dv from q, k, v, o, do and that lse).
 ``flash_attention.launches`` counts forward launches,
-``flash_attention_bwd.launches`` backward ones (two kernels, one count, on
-either route).
+``flash_attention_bwd.launches`` backward ones (two kernels, three with
+rows that see no key; one count, on either route).
 
 On a CUDA tensor the forward kernel is chosen by dtype (a dispatch, not a
 fallback; neither ever catches the other's failure):
@@ -101,9 +104,9 @@ _SIG = {"flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             *([_L] * 12), _I, _I, ctypes.c_float, _I, _P,
                             _P],
         "flash_attention_tc_attributes": [_I, ctypes.POINTER(_I)]}
-_BWD_SIG = {"flash_attention_bwd": [_P] * 10 + [_I] * 6
+_BWD_SIG = {"flash_attention_bwd": [_P] * 11 + [_I] * 6
             + [ctypes.POINTER(_L), _I, _I, ctypes.c_float, _I, _P],
-            "flash_attention_bwd_tc": [_P] * 10 + [_I] * 6
+            "flash_attention_bwd_tc": [_P] * 11 + [_I] * 6
             + [ctypes.POINTER(_L), _I, _I, ctypes.c_float, _P],
             "flash_attention_bwd_tc_attributes": [_I, ctypes.POINTER(_I)]}
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -164,6 +167,15 @@ def has_empty_rows(Sq: int, Sk: int, window: Optional[int]) -> bool:
     return window is not None and Sq >= Sk + window
 
 
+def _empty_rows(Sq: int, Sk: int, window: Optional[int],
+                device=None) -> Optional[torch.Tensor]:
+    """(Sq, 1) bool marking the queries whose band holds no key, or None
+    when there are none."""
+    if not has_empty_rows(Sq, Sk, window):
+        return None
+    return (torch.arange(Sq, device=device) >= Sk + window - 1)[:, None]
+
+
 def _scores(q, k, causal: bool, dtype=torch.float32, window=None):
     """Scaled scores (B, H, Sq, Sk) in ``dtype``, masked to -1e30 outside
     the band (``band_mask``), and k's heads repeated for the query heads'
@@ -204,20 +216,29 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, causal: bool = True,
     kernel's bf16 check) and returned in the inputs' dtype (in ``dtype``
     when ``dtype`` is float64). With ``absolute`` every product takes
     absolute values: the sums of |terms| that ``bwd_bf16_limit`` reads.
-    Pairs outside the band get p = 0 (the rows are never empty: see
-    ``has_empty_rows``)."""
+    Pairs outside the band get p = 0; a row whose band holds no key
+    (``has_empty_rows``) gets p = 1/Sk on every key and dS = 0, the
+    reference's gradient of a softmax over Sk constant scores."""
     B, Sq, H, hd = q.shape
-    Hkv = k.shape[2]
+    Sk, Hkv = k.shape[1], k.shape[2]
     group = H // Hkv
     scale = 1.0 / math.sqrt(hd)
+    window = _window(window)
     f = (lambda t: t.to(dtype).abs()) if absolute else (lambda t: t.to(dtype))
-    s = _scores(q, k, causal, dtype, _window(window))
+    s = _scores(q, k, causal, dtype, window)
     p = torch.exp(s - lse.to(dtype)[..., None])      # masked pairs: 0
+    empty = _empty_rows(Sq, Sk, window, q.device)
+    if empty is not None:
+        p = torch.where(empty, torch.full((), 1.0 / Sk, dtype=dtype,
+                                          device=q.device), p)
     rep = lambda t: torch.repeat_interleave(f(t), group, dim=2)  # noqa: E731
     dof, qf = f(do), f(q)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, rep(v))
     dsum = torch.einsum("bqhd,bqhd->bhq", dof, f(o))
     ds = p * (dp + dsum[..., None] if absolute else dp - dsum[..., None])
+    if empty is not None:
+        ds = torch.where(empty, torch.zeros((), dtype=dtype, device=q.device),
+                         ds)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, rep(k)) * scale
@@ -383,8 +404,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
 
 
 def _bwd_cuda(q, k, v, o, do, lse, causal: bool, route: str, window=None):
-    """One launch of the route's backward kernels (two kernels, one
-    count); ``window`` as ``_forward``'s."""
+    """One launch of the route's backward kernels (two kernels, three when
+    rows see no key: one count); ``window`` as ``_forward``'s."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     lse = lse.contiguous()
@@ -392,12 +413,16 @@ def _bwd_cuda(q, k, v, o, do, lse, causal: bool, route: str, window=None):
     dk = torch.empty((B, Sk, Hkv, hd), device=q.device, dtype=q.dtype)
     dv = torch.empty_like(dk)
     dsum = torch.empty((B, H, Sq), device=q.device, dtype=torch.float32)
+    empty_dv = (torch.empty((B, Hkv, hd), device=q.device,
+                            dtype=torch.float32)
+                if has_empty_rows(Sq, Sk, window) else None)
     strides = (_L * 20)(*q.stride(), *k.stride(), *v.stride(), *o.stride(),
                         *do.stride())
     lib = _build.load("flash_attention_bwd", _BWD_SIG)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            None if empty_dv is None else empty_dv.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, Hkv, hd, strides,
             int(causal), _c_window(window, Sq, Sk), 1.0 / math.sqrt(hd)]
     if route == "cuda_core":
@@ -441,12 +466,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window = _window(window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if has_empty_rows(q.shape[1], k.shape[1], window):
-            raise ValueError(
-                f"flash_attention: with window {window}, queries from "
-                f"{k.shape[1] + window - 1} on (Sq={q.shape[1]}, "
-                f"Sk={k.shape[1]}) see no key, and such rows have no "
-                f"gradient here")
         return FlashAttention.apply(q, k, v, causal, window)
     return _forward(q, k, v, causal, False, window)[0]
 

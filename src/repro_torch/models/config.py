@@ -141,7 +141,9 @@ class ModelConfig:
         if self.family in ("cnn", "mlp"):
             raise NotImplementedError(
                 f"{self.name}: the image models have no -smoke variant; "
-                f"reduced() is for the LM families (ROADMAP.md Queue 1 item 10)")
+                f"reduced() is for the LM families (ROADMAP.md, Reference "
+                f"caveats: the reference's reduced() divides by "
+                f"num_kv_heads = 0 here)")
         if len(self.block_pattern) > 1:
             bp = (self.block_pattern[0], self.block_pattern[-1])
             fp = (self.ffn_pattern[0], self.ffn_pattern[-1])

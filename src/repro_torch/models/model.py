@@ -202,7 +202,8 @@ def forward(params, x, cfg: ModelConfig, members: bool = False):
     if cfg.family == "mlp":
         return mlp_forward(params, x, cfg, members)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported (ROADMAP.md Queue 1 item 10)")
+        f"forward() is the image models' entry; family {cfg.family!r} runs "
+        f"through forward_logits (the token families) or encode (audio)")
 
 
 def loss_fn(params, batch, cfg: ModelConfig, members: bool = False):

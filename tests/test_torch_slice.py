@@ -529,7 +529,8 @@ def test_port_imports_neither_jax_nor_reference():
                 "configs/sched.py", "launch/steps.py", "optim/__init__.py",
                 "optim/base.py", "optim/sgd.py", "optim/adamw.py",
                 "optim/schedule.py", "examples/__init__.py",
-                "examples/pretrain_lm.py"):
+                "examples/pretrain_lm.py", "examples/quickstart.py",
+                "examples/paper_protocol.py", "federated/legacy.py"):
         assert f"src/repro_torch/{mod}" in scanned, mod
     for path in files:
         for mod in _imports(path):

@@ -59,8 +59,6 @@ NAMESPACES = ("federated", "core", "common", "kernels", "checkpoint", "data",
               "optim", "configs")
 LEFT_OUT = {
     "federated": {
-        "make_legacy_server": "federated/legacy.py is ROADMAP.md Queue 1 "
-                              "item 13, not ported",
         "StepInfo": "the reference's fixed-shape per-step diagnostics of a "
                     "jitted step; the port's Policy.step returns a host log "
                     "entry",
@@ -126,6 +124,20 @@ def test_federated_namespace_runs_a_sweep():
     assert run_algorithm is simulator.run_algorithm
     assert SimConfig is simulator.SimConfig
     assert SweepConfig is simulator.SweepConfig
+
+
+def test_federated_namespace_exports_the_legacy_servers():
+    from repro_torch.federated import legacy, make_legacy_server
+    assert make_legacy_server is legacy.make_legacy_server
+    params = {"w": torch.ones(3)}
+    for name, cls in (("fedasync", legacy.FedAsyncServer),
+                      ("fedbuff", legacy.FedBuffServer),
+                      ("ca2fl", legacy.CA2FLServer),
+                      ("fedfa", legacy.FedFaServer),
+                      ("fedpac", legacy.FedPACLiteServer)):
+        assert type(make_legacy_server(name, params)) is cls, name
+    with pytest.raises(ValueError, match="unknown legacy server"):
+        make_legacy_server("fedavg", params)
 
 
 def test_package_docstring_names_what_is_ported():

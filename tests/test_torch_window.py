@@ -109,29 +109,46 @@ def test_window_with_sq_not_sk_matches_chunked_attention():
             np.testing.assert_allclose(g.numpy(), w, rtol=RTOL, atol=ATOL)
 
 
-def test_rows_without_a_key_average_v_and_have_no_gradient():
+def test_rows_without_a_key_average_v_and_match_the_reference_gradient():
     """causal=False with Sq > Sk + W - 1: queries from Sk + W - 1 on see no
     key; their output is the softmax of Sk scores of -1e30, the mean of v,
     as the reference's (Sk a multiple of its kv chunk, so no padding joins
-    the mean). Autograd through such rows raises."""
-    W = 4
-    q, k, v, do = _inputs(4, 2, 11, Sq=40, Sk=24)
-    want = np.asarray(RL.chunked_attention(
-        *(jnp.asarray(a) for a in (q, k, v)), causal=False, window=W,
-        q_chunk=Q_CHUNK, kv_chunk=KV_CHUNK))
-    assert tfa.has_empty_rows(40, 24, W) and not tfa.has_empty_rows(26, 24, W)
-    got = tfa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
-                              causal=False, window=W)
+    the mean). The gradient is the reference's ``jax.grad``: such a row
+    sends nothing to dq and dk (its scores are constants) and do / Sk to
+    every key's dv."""
+    W, Sq, Sk = 4, 40, 24
+    q, k, v, do = _inputs(4, 2, 11, Sq=Sq, Sk=Sk)
+    assert tfa.has_empty_rows(Sq, Sk, W) and not tfa.has_empty_rows(26, Sk, W)
+    want, want_g = _reference(q, k, v, do, False, W)
+    got, got_g = _port(q, k, v, do, False, W)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
     mean = np.repeat(v.mean(axis=1), 2, axis=1)          # (B, H, hd)
-    np.testing.assert_allclose(got.numpy()[:, 24 + W - 1:],
+    np.testing.assert_allclose(got.numpy()[:, Sk + W - 1:],
                                np.broadcast_to(mean[:, None],
-                                               got.shape)[:, 24 + W - 1:],
+                                               got.shape)[:, Sk + W - 1:],
                                rtol=1e-5, atol=1e-6)
-    tq = torch.from_numpy(q).requires_grad_(True)
-    with pytest.raises(ValueError, match="no key"):
-        tfa.flash_attention(tq, torch.from_numpy(k), torch.from_numpy(v),
-                            causal=False, window=W)
+    for g, w in zip(got_g, want_g):
+        np.testing.assert_allclose(g.numpy(), w, rtol=RTOL, atol=ATOL)
+    dq = got_g[0].numpy()
+    assert np.all(dq[:, Sk + W - 1:] == 0.0)
+    assert np.abs(dq[:, :Sk + W - 1]).max() > 1e-3
+    # the empty rows' share of dv: the same for every key of a kv head
+    full = tfa.flash_attention_bwd_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), got,
+        torch.from_numpy(do), tfa._plain_forward(
+            *(torch.from_numpy(a) for a in (q, k, v)), False, W)[1],
+        causal=False, window=W)[2].numpy()
+    do_cut = do.copy()
+    do_cut[:, Sk + W - 1:] = 0.0
+    kept = tfa.flash_attention_bwd_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), got,
+        torch.from_numpy(do_cut), tfa._plain_forward(
+            *(torch.from_numpy(a) for a in (q, k, v)), False, W)[1],
+        causal=False, window=W)[2].numpy()
+    share = do[:, Sk + W - 1:].reshape(B, -1, 2, 2, HD).sum(axis=(1, 3)) / Sk
+    np.testing.assert_allclose(full - kept,
+                               np.broadcast_to(share[:, None], full.shape),
+                               rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("window", [0, -3, 2.5, True])

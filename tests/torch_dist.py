@@ -501,5 +501,40 @@ def fedlm_program(mesh, cases: list) -> dict:
     return out
 
 
+# tests/torch_fedlm_families.py's ssm and moe scenarios (the constants its
+# fixtures were made with), from the committed legacy-threefry inits
+FAMILY_MODELS = {"ssm": "fed-lm-ssm-smoke", "moe": "fed-lm-moe-smoke"}
+FAMILY_SIM = dict(num_clients=6, horizon=2_000.0, eval_every=1_000.0, seed=0,
+                  local_epochs=2, batch_size=8)
+
+
+def family_run(family: str, name: str, member_kernel: str, mesh=None) -> dict:
+    """``_summary`` of one fed-lm ``family`` run (cohort engine) on the
+    fed-lm world, with ``SimConfig(mesh=mesh)``."""
+    from repro_torch.convert import load_npz_params
+    from repro_torch.core.psa import PSAConfig
+    from repro_torch.federated import simulator as tsim
+    from repro_torch.launch.train import build_task
+    W = FEDLM_WORLD
+    cfg, clients, test, calib = build_task(
+        FAMILY_MODELS[family], W["samples"], W["alpha"], W["clients"],
+        W["seed"], seq_len=W["seq"])
+    init = load_npz_params(os.path.join(
+        HERE, "torch_fixtures", f"fed_lm_{family}_smoke_init_seed0.npz"))
+    kw = (dict(psa_cfg=PSAConfig(**FEDLM_PSA), calib_batch=calib)
+          if name == "fedpsa" else {})
+    return _summary(tsim.run_algorithm(
+        name, cfg, init, clients, test,
+        tsim.SimConfig(device="cpu", mesh=mesh, engine="cohort",
+                       member_kernel=member_kernel, record_trajectory=True,
+                       **FAMILY_SIM), **kw))
+
+
+def families_program(mesh, cases: list) -> dict:
+    """``family_run`` on the mesh for each ``(family, policy,
+    member_kernel)`` case."""
+    return {case: family_run(*case, mesh=mesh) for case in cases}
+
+
 if __name__ == "__main__":
     _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

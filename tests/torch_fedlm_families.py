@@ -62,9 +62,10 @@ def reference_init(family: str) -> dict:
     return jax.tree_util.tree_map(np.asarray, p)
 
 
-def reference_run(family: str, name: str, world=None) -> dict:
+def reference_run(family: str, name: str, world=None, **sim) -> dict:
     """The reference's run (sequential engine, legacy threefry init):
-    digests, accuracies and the counters."""
+    digests, accuracies and the counters; ``sim`` overrides ``SIM``'s
+    fields (a sweep lane's ``seed`` on the shared ``timeline_seed``)."""
     cfg, clients, test, calib = world or build_world(r_build_task, family)
     kw = (dict(psa_cfg=RPSA(**PSA), calib_batch=calib)
           if name == "fedpsa" else {})
@@ -72,7 +73,8 @@ def reference_run(family: str, name: str, world=None) -> dict:
         params = RM.init_params(jax.random.PRNGKey(WORLD["seed"]),
                                 rget(FAMILIES[family]))
         res = r_run(name, cfg, params, clients, test,
-                    RSim(engine="sequential", record_trajectory=True, **SIM),
+                    RSim(engine="sequential", record_trajectory=True,
+                         **{**SIM, **sim}),
                     **kw)
     return {"digests": np.asarray(res.digests, np.float64).tolist(),
             "accuracies": [float(a) for a in res.accuracies],
