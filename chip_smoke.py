@@ -265,6 +265,16 @@ from ``src/repro_torch/csrc`` and reads the golden digests under
    kappa lines), each with ``--device cuda``, their printed lines logged,
    launches exact in total; a ``{"legacy": ..., "examples": ...}`` JSON
    line before the kernels line.
+9g. ``[dryrun]`` (after ``[examples]``, before the profiles): the dry-run
+   CLI (``python -m repro_torch.launch.dryrun``, no card visible to it) in
+   four processes side by side, ``DRYRUN_CASES`` on the pod mesh, each
+   record ``ok`` with its flops, bytes and collectives printed; then the
+   phase-9 prefill of ``phi4-mini-3.8b`` (B = 8, 2,048 tokens) counted by
+   ``launch.op_cost`` on the card and on meta tensors: flops, bytes and
+   ``flash_attention``'s count and cost equal, its flops a launch over the
+   bf16 tensor-core peak PERF.md's 208.6 µs, and the measured prefill
+   seconds against ``max(flops / 989e12, bytes / 3.35e12)`` as a share of
+   that bound; its own ``[time]`` line.
 
 Then it prints one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without a card it exits non-zero
@@ -280,6 +290,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -346,6 +357,12 @@ FA_EDGE_SHAPES = ((2, 64, 64, 4, 2, 16, True), (1, 128, 128, 8, 8, 32, True),
 # exact in f32, so the matrix unit with f32 accumulation does the same work)
 BF16_TC_FLOPS_PER_S = 989e12
 SERVE = dict(arch="phi4-mini-3.8b", batch=8, prompt=2048, gen=32, seed=0)
+# [dryrun]: the dry run's combinations on the pod mesh (pure data
+# parallel; heads and mlp over model with embed over data; expert_mlp over
+# model; a sequence-sharded decode cache)
+DRYRUN_CASES = (("phi4-mini-3.8b", "train_4k"), ("codeqwen1.5-7b", "train_4k"),
+                ("qwen2-moe-a2.7b", "prefill_32k"),
+                ("phi4-mini-3.8b", "decode_32k"))
 # the serve path's other runs: phi4-mini-3.8b's long-context variant
 # (window 8,192; a prompt of twice the window, so prefill rolls the prompt's
 # tail into the ring, and 32 tokens decoded through the ring) and the two
@@ -1618,8 +1635,9 @@ def _main_world(torch):
 
 
 # phases 6-7: the main path's window, cut from the paper's 86,400 virtual
-# units to 3,000 (about 135 receives) for the script's time limit
-MAIN_SIM = dict(num_clients=50, concurrency=0.2, horizon=3_000,
+# units to 2,000 (about 93 receives; 3,000 and 140 receives until [dryrun]
+# joined the script) for the script's time limit
+MAIN_SIM = dict(num_clients=50, concurrency=0.2, horizon=2_000,
                 eval_every=2_000, seed=0, device="cuda")
 
 
@@ -5967,6 +5985,126 @@ def phase_examples(torch, smi: str) -> tuple:
     return row, paths
 
 
+def _dryrun_cases() -> list:
+    """``DRYRUN_CASES`` through the dry-run CLI, one process each, side by
+    side, with no card visible: their records."""
+    out = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+         "--shape", sh, "--mesh", "pod", "--out", out], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for a, sh in DRYRUN_CASES]
+    recs = []
+    for (a, sh), p in zip(DRYRUN_CASES, procs):
+        stdout, stderr = p.communicate(timeout=600)
+        if p.returncode != 0 or "1 ok, 0 skipped, 0 errors" not in stdout:
+            raise AssertionError(f"[dryrun] {a} x {sh}: exit {p.returncode}"
+                                 f"\n{stdout[-2000:]}\n{stderr[-3000:]}")
+        with open(os.path.join(out, f"{a}__{sh}__pod.json")) as fh:
+            rec = json.load(fh)
+        if rec["status"] != "ok" or rec["unparsed_loops"] != 0:
+            raise AssertionError(f"[dryrun] {a} x {sh}: {rec['status']}")
+        coll = {k: {"count": int(v["count"]), "ici_bytes": v["ici_bytes"]}
+                for k, v in rec["collectives"].items()}
+        log(f"[dryrun] {a} x {sh} x pod: flops/dev "
+            f"{rec['flops_per_device']:.4e}, bytes/dev "
+            f"{rec['bytes_per_device']:.4e}, ici {rec['collective_ici_bytes']:.4e} B, "
+            f"trace {rec['trace_s']}s, argument bytes "
+            f"{rec['memory_analysis']['argument_size_in_bytes']}, "
+            f"collectives {json.dumps(coll)}, kernels "
+            f"{json.dumps({k: int(v['count']) for k, v in rec['kernels'].items()})}")
+        recs.append(rec)
+    return recs
+
+
+def phase_dryrun(torch, dev, smi: str) -> dict:
+    """``[dryrun]``: the four dry runs (started first, in their own
+    processes), then phase 9's prefill counted by ``op_cost`` on the card
+    and on meta tensors, and timed on the card against the bound of its
+    count."""
+    from repro_torch.launch import op_cost
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    pending = {}
+
+    def cases():
+        pending["recs"] = _dryrun_cases()
+    worker = threading.Thread(target=cases)
+    worker.start()
+    _free_card(torch)
+    cfg, params, toks = _serve_world(torch, dev)
+    S = SERVE["prompt"]
+    batch = {"tokens": toks[:, :S]}
+
+    def prefill(p, b):
+        with torch.no_grad():
+            return M.prefill(p, b, cfg, max_len=S + SERVE["gen"])
+    prefill(params, batch)          # warm: cuBLAS's first calls
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    with op_cost.OpCounter() as card:
+        prefill(params, batch)
+        torch.cuda.synchronize()
+    del params
+    _free_card(torch)
+    meta_params = M.init_params(None, cfg, "meta")
+    with op_cost.OpCounter() as meta:
+        prefill(meta_params, {"tokens": torch.empty(
+            batch["tokens"].shape, dtype=batch["tokens"].dtype,
+            device="meta")})
+    a, b = card.result(), meta.result()
+    for key in ("flops_per_device", "bytes_per_device", "transcendentals",
+                "kernels"):
+        if a[key] != b[key]:
+            raise AssertionError(f"[dryrun] prefill on the card and on meta "
+                                 f"differ in {key}: {a[key]} vs {b[key]}")
+    fa = a["kernels"]["flash_attention"]
+    if fa["count"] != cfg.num_layers:
+        raise AssertionError(f"[dryrun] flash_attention counted "
+                             f"{fa['count']} times, not {cfg.num_layers}")
+    per_us = fa["flops"] / fa["count"] / BF16_TC_FLOPS_PER_S * 1e6
+    if abs(per_us - 208.6) > 0.05:
+        raise AssertionError(f"[dryrun] flash_attention's formula gives "
+                             f"{per_us:.3f}us a launch, not 208.6")
+    bound = max(a["flops_per_device"] / BF16_TC_FLOPS_PER_S,
+                a["bytes_per_device"] / HBM_BYTES_PER_S)
+    measured = min(times)
+    log(f"[dryrun] {cfg.name} prefill B={SERVE['batch']} S={S}: "
+        f"{a['flops_per_device']:.4e} flops ({fa['flops']:.4e} in "
+        f"{int(fa['count'])} flash_attention launches, {per_us:.2f}us each "
+        f"at 989 TFLOP/s), {a['bytes_per_device']:.4e} bytes, equal on the "
+        f"card and on meta; measured {measured:.4f}s (runs "
+        f"{', '.join(f'{t:.4f}' for t in times)}) against the bound "
+        f"{bound:.4f}s (flops {a['flops_per_device'] / BF16_TC_FLOPS_PER_S:.4f}s, "
+        f"bytes {a['bytes_per_device'] / HBM_BYTES_PER_S:.4f}s): "
+        f"{100 * bound / measured:.1f}% of it, on {smi}")
+    for row in meta.table(8):
+        log(f"[dryrun]   {row[0]}: {int(row[1])} ops, {row[2]:.4e} flops, "
+            f"{row[3]:.4e} bytes")
+    worker.join(timeout=900)
+    if "recs" not in pending:
+        raise AssertionError("[dryrun] the dry-run processes failed")
+    seconds = time.perf_counter() - t_phase
+    log(f"[dryrun] the whole phase took {seconds:.1f}s on {smi}")
+    return {"records": [{k: r[k] for k in (
+        "arch", "shape", "flops_per_device", "bytes_per_device",
+        "collective_ici_bytes", "n_collectives", "trace_s")}
+        for r in pending["recs"]],
+        "prefill": {"flops": a["flops_per_device"],
+                    "bytes": a["bytes_per_device"],
+                    "flash_attention_us_per_launch": per_us,
+                    "measured_s": measured, "bound_s": bound,
+                    "share_of_bound": bound / measured},
+        "seconds": seconds}
+
+
 def _seconds(what: str, fn, *args):
     """``fn(*args)``, printing its seconds as a ``[fed-lm]`` sub-phase."""
     t0 = time.perf_counter()
@@ -6063,6 +6201,8 @@ def main() -> int:
     examples_row, examples_paths = phase_examples(torch, smi)
     by_path.update(legacy_paths, **examples_paths)
     mark("legacy and examples")
+    dryrun_row = phase_dryrun(torch, dev, smi)
+    mark("dryrun")
     phase_profile(torch)
     phase_profile_serve(torch, dev)
     mark("profiles")
@@ -6158,6 +6298,7 @@ def main() -> int:
     log(json.dumps({"families": fam_serve}))
     log(json.dumps({"frontends": front_stats}))
     log(json.dumps({"legacy": legacy_row, "examples": examples_row}))
+    log(json.dumps({"dryrun": dryrun_row}))
     log(json.dumps({"fed_lm_full_width": {
         k: fedlm_full[k] for k in (
             "s_per_step", "peak_bytes", "busy_share", "tc_kernel_us",

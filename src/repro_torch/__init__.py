@@ -20,6 +20,10 @@ frontends; the legacy class-based servers (``federated.legacy``); and the
 reference's examples as ``python -m repro_torch.examples.<name>``
 (quickstart, paper_protocol, pretrain_lm). The reference's four Pallas
 kernels and the attention backward are hand-written CUDA C++ for Hopper
-(``csrc/``). ROADMAP.md lists what is left (the XLA dry-run and cost
-tooling).
+(``csrc/``). The dry-run and cost tooling runs on the CPU with no card:
+the production meshes and their per-architecture rules
+(``launch.mesh.rules_for``), the assigned input shapes
+(``configs.shapes``), and ``launch.dryrun``, which traces every step on
+meta tensors laid out on the mesh and counts its per-device cost op by op
+(``launch.op_cost``, in place of the reference's HLO cost analysis).
 """

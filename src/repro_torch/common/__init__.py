@@ -14,4 +14,6 @@ from repro_torch.common.tree import (
     tree_zeros_like,
     unflatten_from_vector,
 )
-from repro_torch.common.sharding import LogicalRules
+from repro_torch.common.sharding import (LogicalRules, logical_to_pspec,
+                                         shard_pytree_spec,
+                                         with_logical_constraint)

@@ -1,9 +1,25 @@
-"""Logical-axis rules and the flat-parameter collectives of the federated
-stack, over ``torch.distributed``.
+"""Logical-axis rules, the model's sharding constraints and the
+flat-parameter collectives of the federated stack, over
+``torch.distributed``: the port of the reference's
+``repro.common.sharding``.
 
-The port of the federated part of the reference's
-``repro.common.sharding``. A ``LogicalRules`` table maps logical axis
-names to mesh axes (``None``: replicated). The federated stack shards two
+A ``LogicalRules`` table maps logical axis names to mesh axes (``None``:
+replicated); a spec is the tuple ``mesh_axes`` returns, one entry per
+tensor axis. ``PRODUCTION_RULES`` and ``EXPERT_TP_RULES`` are the
+reference's tables for the production mesh (``launch/mesh.rules_for``
+resolves them per architecture); ``shard_pytree_spec`` maps a tree of
+logical-axis tuples to specs and ``placements`` a spec to DTensor
+placements.
+
+The model code has no ``rules`` argument. It reads them from a context,
+``logical_rules(rules)``, at the reference's ``with_logical_constraint``
+sites (``constrain``): empty rules, every run on one card, cost one
+context read a site and return the tensor unchanged; under non-empty
+rules (the dry run, ``launch/dryrun.py``) the site's DTensor is
+redistributed to the placements of its resolved spec, and a plain tensor
+raises.
+
+The federated stack shards two
 axes over its one-axis mesh (``launch.mesh.make_fed_mesh``):
 ``param_shard``, the flat ``(d,)`` parameter axis of the policy server's
 state, and ``cohort``, the client axis of a completion wave trained
@@ -66,8 +82,145 @@ class LogicalRules:
         return f"LogicalRules({self.rules})"
 
 
+# The reference's production rules. ``batch`` spans pod+data so that one
+# client step is synchronous data-parallel across the slice it owns.
+PRODUCTION_RULES = LogicalRules(
+    {
+        "batch": ("pod", "data"),
+        "tokens": ("pod", "data"),
+        "seq": None,
+        "embed": "data",          # FSDP: contraction/embed dim of weights
+        "embed_act": None,        # activations keep embed replicated
+        "seq_act": "model",       # residual-stream sequence sharding
+                                  # (only constrained when cfg.seq_shard)
+        "heads": "model",
+        "kv_heads": "model",
+        "head_dim": None,
+        "mlp": "model",
+        "vocab": "model",
+        "vocab_lookup": None,     # the lookup table keeps vocab replicated
+        "expert": "model",
+        "expert_mlp": None,
+        "expert_capacity": None,
+        "qkv_inner": "model",
+        "conv_kernel": None,
+        "ssm_inner": "model",
+        "ssm_state": None,
+        "layers": None,
+        "sketch": None,
+        "buffer": None,
+        "cache_seq": None,        # decode KV cache seq dim (rules_for upgrades)
+    }
+)
+
+# Architectures whose expert count does not divide the model axis
+# (qwen2-moe: 60 experts): experts replicated, each expert's d_ff sharded.
+EXPERT_TP_RULES = LogicalRules({**PRODUCTION_RULES.rules, "expert": None,
+                                "expert_mlp": "model"})
+
 FEDERATED_RULES = LogicalRules({"param_shard": "d", "cohort": "d"})
 SINGLE_DEVICE_RULES = LogicalRules({})
+
+
+def logical_to_pspec(rules: LogicalRules, logical_axes) -> tuple:
+    return rules.mesh_axes(logical_axes)
+
+
+def _is_axes(x) -> bool:
+    """Whether ``x`` is one tensor's logical-axis tuple (a leaf of an axes
+    tree)."""
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None)))
+                                        for a in x)
+
+
+def map_axes(fn, tree):
+    """``fn`` over the logical-axis tuples of a tree of dicts and lists."""
+    if _is_axes(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_axes(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_axes(fn, v) for v in tree)
+    raise TypeError(f"map_axes: not an axes tree node: {tree!r}")
+
+
+def shard_pytree_spec(rules: LogicalRules, logical_tree):
+    """Map a tree of logical-axis tuples to the tree of their specs."""
+    return map_axes(rules.mesh_axes, logical_tree)
+
+
+def placements(spec: tuple, mesh) -> list:
+    """The DTensor placements of ``spec`` on ``mesh``: ``Shard(i)`` on each
+    mesh axis that spec entry ``i`` names (a tuple entry shards its tensor
+    axis over several mesh axes, the first outermost, in mesh order, as
+    JAX orders them), ``Replicate()`` on the rest."""
+    from torch.distributed.tensor import Replicate, Shard
+    owner = {}
+    for i, entry in enumerate(spec):
+        for ax in ((entry,) if isinstance(entry, str) else (entry or ())):
+            owner[ax] = i
+    return [Shard(owner[name]) if name in owner else Replicate()
+            for name in mesh.mesh_dim_names]
+
+
+def distribute(tree, specs, mesh, requires_grad: bool = False):
+    """A tree of dicts of tensors as DTensors on ``mesh`` with the
+    placements of ``specs``, its matching tree of specs."""
+    from torch.distributed.tensor import distribute_tensor
+    if isinstance(tree, dict):
+        return {k: distribute(v, specs[k], mesh, requires_grad)
+                for k, v in tree.items()}
+    t = distribute_tensor(tree, mesh, placements(specs, mesh))
+    return t.requires_grad_(True) if requires_grad else t
+
+
+def with_logical_constraint(x, rules: LogicalRules, logical_axes):
+    """``x`` laid out by logical names: unchanged when the rules are empty;
+    else ``x``, a DTensor, redistributed to the placements of its resolved
+    spec (a ``Partial`` sum is reduced on the way). A plain tensor under
+    non-empty rules raises: there is no silent no-op."""
+    if not rules.rules:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        raise TypeError(f"with_logical_constraint: rules are set but x is a "
+                        f"plain {type(x).__name__}; lay the inputs out as "
+                        f"DTensors (launch/dryrun.py)")
+    want = placements(rules.mesh_axes(logical_axes), x.device_mesh)
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+# The rules the model's constraint sites read: None for empty rules, so an
+# unsharded run pays one context read a site.
+_RULES: contextvars.ContextVar = contextvars.ContextVar("logical_rules",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def logical_rules(rules: Optional[LogicalRules]):
+    """Run the code inside under ``rules`` (None or empty: none)."""
+    token = _RULES.set(rules if rules is not None and rules.rules else None)
+    try:
+        yield
+    finally:
+        _RULES.reset(token)
+
+
+def current_rules() -> Optional[LogicalRules]:
+    """The rules of the innermost ``logical_rules`` context, None when
+    there are none."""
+    return _RULES.get()
+
+
+def constrain(x, logical_axes):
+    """A model site's ``with_logical_constraint`` under the context's
+    rules: ``x`` itself when there are none."""
+    rules = _RULES.get()
+    if rules is None:
+        return x
+    return with_logical_constraint(x, rules, logical_axes)
 
 
 class AxisGroup:

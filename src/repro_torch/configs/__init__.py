@@ -9,7 +9,9 @@ reference, ``<id>-smoke`` is ``get_config(<id>).reduced()`` unless the id
 is registered itself, and ``cfg.for_long_context()`` is the sliding-window
 variant. The frontend models, vision (``internvl2-1b``) and audio
 (``hubert-xlarge``, encoder-only), are ported too. ``SCHED_PRESETS`` are
-the reference's scheduler-benchmark presets.
+the reference's scheduler-benchmark presets. ``ASSIGNED`` lists the ten
+token and frontend architectures in the reference's order: the dry run's
+matrix (``configs/shapes.py``, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,10 @@ CONFIGS = {**_PAPER,
                xlstm_350m, qwen2_moe_a27b, jamba_v01_52b, arctic_480b,
                internvl2_1b, hubert_xlarge)},
            **fed_lm.CONFIGS}
+
+ASSIGNED = ["xlstm-350m", "llama3-405b", "codeqwen1.5-7b", "jamba-v0.1-52b",
+            "hubert-xlarge", "minitron-8b", "phi4-mini-3.8b", "internvl2-1b",
+            "qwen2-moe-a2.7b", "arctic-480b"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -5,9 +5,8 @@ prediction classes); the reference's ``repro/configs/hubert_xlarge.py``.
 Encoder-only: bidirectional attention, layernorm, no decode step. The conv
 feature extractor is a stub, as in the reference: a batch carries
 precomputed frame embeddings (B, S, d_model), which ``in_proj`` maps in,
-and a ``cls`` head gives per-frame logits. The reference's
-``pure_data_parallel`` sharding field has no counterpart on one device
-(ROADMAP.md Queue 1 item 12).
+and a ``cls`` head gives per-frame logits. Pure data parallel on
+the production mesh (``pure_data_parallel``), as in the reference.
 """
 from repro_torch.models.config import ModelConfig
 
@@ -26,4 +25,5 @@ CONFIG = ModelConfig(
     ffn_act="gelu",
     frontend="audio",
     long_context_window=None,
+    pure_data_parallel=True,
 )

@@ -4,9 +4,8 @@
 ``repro/configs/internvl2_1b.py``. The vision encoder is a stub, as in the
 reference: a batch carries 256 precomputed patch embeddings (B, 256,
 d_model), which a learned projector (``proj``) maps into the LM space in
-front of the token embeddings. The reference's ``pure_data_parallel``
-sharding field has no counterpart on one device (ROADMAP.md Queue 1 item
-12).
+front of the token embeddings. Pure data parallel on the
+production mesh (``pure_data_parallel``), as in the reference.
 """
 from repro_torch.models.config import ModelConfig
 
@@ -24,4 +23,5 @@ CONFIG = ModelConfig(
     frontend="vision",
     num_prefix_tokens=256,
     long_context_window=8192,
+    pure_data_parallel=True,
 )

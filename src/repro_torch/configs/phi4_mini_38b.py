@@ -1,8 +1,8 @@
 """phi4-mini-3.8b [dense] — RoPE SwiGLU GQA [arXiv:2412.08905].
 
 32L d_model=3072 24H (GQA kv=8) d_ff=8192 vocab=200064; the reference's
-``repro/configs/phi4_mini_38b.py`` (its mesh-layout knob
-``pure_data_parallel`` has no counterpart on one card).
+``repro/configs/phi4_mini_38b.py``, pure data parallel on the production
+mesh as there.
 """
 from repro_torch.models.config import ModelConfig
 
@@ -18,4 +18,5 @@ CONFIG = ModelConfig(
     block_pattern=("attn",),
     ffn_pattern=("dense",),
     long_context_window=8192,
+    pure_data_parallel=True,
 )

@@ -2,10 +2,11 @@
 
 24L d_model=2048 16H (kv=16) per-expert d_ff=1408 vocab=151936, 60 experts
 top-4 with renormalized gates plus 4 always-on shared experts (shared path
-d_ff = 4*1408 = 5632); the reference's ``repro/configs/qwen2_moe_a27b.py``
-(its mesh-layout knob ``expert_tensor_parallel`` has no counterpart on one
-card). ``dispatch_groups=16`` is kept: the capacity is per group, so it
-decides which tokens drop.
+d_ff = 4*1408 = 5632); the reference's ``repro/configs/qwen2_moe_a27b.py``:
+60 experts do not divide the production mesh's model axis, so each
+expert's d_ff is tensor-parallel instead (``expert_tensor_parallel``).
+``dispatch_groups=16`` is kept: the capacity is per group, so it decides
+which tokens drop.
 """
 from repro_torch.models.config import ModelConfig
 
@@ -27,4 +28,5 @@ CONFIG = ModelConfig(
     shared_d_ff=5632,
     dispatch_groups=16,
     long_context_window=8192,
+    expert_tensor_parallel=True,
 )

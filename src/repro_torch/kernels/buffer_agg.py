@@ -3,7 +3,10 @@
 Replaces the Pallas TPU kernel ``repro/kernels/buffer_agg.py``
 (``buffer_agg_pallas``). On a CUDA tensor the wrapper launches the
 hand-written kernel ``csrc/buffer_agg.cu``; on a CPU tensor it runs the
-plain version below. It never falls back from one to the other.
+plain version below; on a ``meta`` tensor it returns an empty result and
+computes nothing. It never falls back from one to the other. On the card
+and on meta it reports the launch's cost (``cost``) to the op counter in
+use (``launch/op_cost.py``).
 
 Bound on the H100: HBM bandwidth — ``(L + 2) * d * 4`` bytes for ``2 L d``
 flops. The kernel streams the slab once with coalesced grid-stride loads,
@@ -17,10 +20,17 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import op_cost
 
 MAX_L = 256
 _P = ctypes.c_void_p
 _SIG = {"buffer_agg_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P]}
+
+
+def cost(L: int, d: int) -> dict:
+    """One launch's work: the bound's ``2 L d`` flops and ``(L + 2) d``
+    float32 words (U, g and w read once, the output written once)."""
+    return {"flops": 2.0 * L * d, "nbytes": 4.0 * (L * d + 2 * d + L)}
 
 
 def buffer_agg_plain(weights: torch.Tensor, global_vec: torch.Tensor,
@@ -53,10 +63,13 @@ def buffer_agg(weights: torch.Tensor, global_vec: torch.Tensor,
     u = _build.as_f32(updates, "buffer_agg", "updates")
     if dev.type == "cpu":
         return buffer_agg_plain(w, g, u)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"buffer_agg: unsupported device {dev}")
-    lib = _build.load("buffer_agg", _SIG)
     out = torch.empty(d, dtype=torch.float32, device=dev)
+    op_cost.report("buffer_agg", **cost(L, d))
+    if dev.type == "meta":
+        return out
+    lib = _build.load("buffer_agg", _SIG)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.buffer_agg_f32(w.data_ptr(), g.data_ptr(), u.data_ptr(),
                              out.data_ptr(), L, d, stream)

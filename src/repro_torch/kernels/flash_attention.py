@@ -7,8 +7,12 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 through it: prefill, evaluation and, with a gradient, training. On a CUDA
 tensor the wrapper launches the hand-written kernels
 ``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
-(backward); on a CPU tensor it runs the plain versions below. It never
-falls back from one to the other.
+(backward); on a CPU tensor it runs the plain versions below; on a
+``meta`` tensor it returns empty results and computes nothing. It never
+falls back from one to the other. On the card and on meta each launch
+reports its cost (``cost``, ``bwd_cost``: the band's pairs, 4 hd flops a
+pair and head forward, 2.5 times that backward) to the op counter in use
+(``launch/op_cost.py``).
 
 Contract (the reference's ``repro/models/layers.py`` ``chunked_attention``
 at query offset 0, and with a gradient JAX's autodiff of it; with no window
@@ -90,12 +94,15 @@ kernels). See the sources for the designs.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import op_cost
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -160,6 +167,37 @@ def band_mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
     if window is not None:
         mask = mask & (j > i - window)
     return mask
+
+
+@functools.lru_cache(maxsize=256)
+def band_pairs(Sq: int, Sk: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs inside the band (``band_mask``'s True entries)."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def cost(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int, causal: bool,
+         window: Optional[int], itemsize: int, with_lse: bool) -> dict:
+    """One forward launch's work, the bound of PERF.md's kernel table: 4 hd
+    flops (QK^T and PV) and one exp a pair of the band and head; q, k, v
+    read and the output (and the f32 lse) written once."""
+    pairs = B * H * band_pairs(Sq, Sk, causal, window)
+    nbytes = itemsize * (2 * B * Sq * H * hd + 2 * B * Sk * Hkv * hd)
+    return {"flops": 4.0 * hd * pairs, "transcendentals": float(pairs),
+            "nbytes": float(nbytes + (4 * B * H * Sq if with_lse else 0))}
+
+
+def bwd_cost(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int,
+             causal: bool, window: Optional[int], itemsize: int) -> dict:
+    """One backward launch's work: five products of 2 hd flops a pair and
+    head (2.5 times the forward's), the exp recomputed; q, o, dO and k, v
+    read, dq, dk, dv written and the lse read once."""
+    pairs = B * H * band_pairs(Sq, Sk, causal, window)
+    nbytes = itemsize * (4 * B * Sq * H * hd + 4 * B * Sk * Hkv * hd)
+    return {"flops": 10.0 * hd * pairs, "transcendentals": float(pairs),
+            "nbytes": float(nbytes + 4 * B * H * Sq)}
 
 
 def has_empty_rows(Sq: int, Sk: int, window: Optional[int]) -> bool:
@@ -331,10 +369,10 @@ def bwd_tc_attributes(hd: int) -> dict:
 
 
 def _device(q: torch.Tensor, what: str) -> str:
-    """"cpu" or "cuda" (the plain version or the kernel); raise otherwise,
-    and for shapes beyond the kernels' grids."""
+    """"cpu", "cuda" or "meta" (the plain version, the kernel or its cost
+    alone); raise otherwise, and for shapes beyond the kernels' grids."""
     dev = q.device
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what}: unsupported device {dev}")
     B, _, H, hd = q.shape
     if dev.type == "cuda" and (hd > MAX_HEAD_DIM or H > 65535 or B > 65535):
@@ -361,6 +399,10 @@ def _forward(q, k, v, causal: bool, with_lse: bool, window=None):
     out = torch.empty((B, Sq, H, hd), device=q.device, dtype=q.dtype)
     lse = (torch.empty((B, H, Sq), device=q.device, dtype=torch.float32)
            if with_lse else None)
+    op_cost.report("flash_attention", **cost(
+        B, Sq, Sk, H, Hkv, hd, causal, window, q.element_size(), with_lse))
+    if q.device.type == "meta":
+        return out, lse
     lib = _build.load("flash_attention", _SIG)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention(
@@ -416,6 +458,10 @@ def _bwd_cuda(q, k, v, o, do, lse, causal: bool, route: str, window=None):
     empty_dv = (torch.empty((B, Hkv, hd), device=q.device,
                             dtype=torch.float32)
                 if has_empty_rows(Sq, Sk, window) else None)
+    op_cost.report("flash_attention_bwd", **bwd_cost(
+        B, Sq, Sk, H, Hkv, hd, causal, window, q.element_size()))
+    if q.device.type == "meta":
+        return dq, dk, dv
     strides = (_L * 20)(*q.stride(), *k.stride(), *v.stride(), *o.stride(),
                         *do.stride())
     lib = _build.load("flash_attention_bwd", _BWD_SIG)

@@ -5,8 +5,10 @@ Replaces the Pallas TPU kernel ``repro/kernels/grouped_matmul.py``
 routes every member-batched dense product of a wave through it
 (``models/member_math.py``), forward and backward. On a CUDA tensor the
 wrapper launches the hand-written kernel ``csrc/grouped_matmul.cu``; on a
-CPU tensor it runs the plain version below. It never falls back from one
-to the other.
+CPU tensor it runs the plain version below; on a ``meta`` tensor it
+returns an empty result and computes nothing. It never falls back from one
+to the other. On the card and on meta it reports the launch's cost
+(``cost``) to the op counter in use (``launch/op_cost.py``).
 
 Contract (the reference's, oracle ``repro/kernels/ref.py``
 ``grouped_matmul_ref``): f32 accumulation; float32 or bfloat16 inputs,
@@ -33,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import op_cost
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +52,13 @@ SMS = 132          # streaming multiprocessors of the H100 SXM
 # groups that split_k sizes the split for: the smallest wave of the image
 # bucket grid (federated.cohort.bucket_size), the cohort main path's usual G
 FILL_GROUPS = 4
+
+
+def cost(G: int, M: int, K: int, N: int) -> dict:
+    """One call's work: ``2 G M N K`` flops, and the float32 operands read
+    and the output written once (the bound's bytes)."""
+    return {"flops": 2.0 * G * M * N * K,
+            "nbytes": 4.0 * G * (M * K + K * N + M * N)}
 
 
 def split_k(M: int, N: int, K: int) -> Tuple[int, int]:
@@ -121,7 +131,7 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
     dev = lhs.device
     if dev.type == "cpu":
         return grouped_matmul_plain(lhs, rhs, valid)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"grouped_matmul: unsupported device {dev}")
     G, M, K = lhs.shape
     N = rhs.shape[2]
@@ -135,6 +145,9 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
     a, b = lhs.float(), rhs.float()        # bf16 -> f32 is exact
     v = None if valid is None else valid.to(torch.float32).contiguous()
     ws = torch.empty((S, G, M, N), device=dev) if S > 1 else None
+    op_cost.report("grouped_matmul", **cost(G, M, K, N))
+    if dev.type == "meta":
+        return out
     lib = _build.load("grouped_matmul", _SIG)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.grouped_matmul(

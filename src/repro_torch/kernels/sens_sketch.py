@@ -3,8 +3,11 @@
 Replaces the Pallas TPU kernel ``repro/kernels/sens_sketch.py``
 (``sens_sketch_pallas``, hash ``_pcg``). On CUDA tensors the wrappers
 launch the hand-written kernel ``csrc/sens_sketch.cu``; on CPU tensors
-they run the plain versions below. They never fall back from one to the
-other. Two entries share the kernel and its launch count (one per call):
+they run the plain versions below; on ``meta`` tensors they return empty
+results and compute nothing. They never fall back from one to the other.
+On the card and on meta they report a launch's cost (``cost``) to the op
+counter in use (``launch/op_cost.py``). Two entries share the kernel and
+its launch count (one per call):
 
 - ``sens_sketch_rows(theta, g, f, table)``: (B, d) rows of one flat
   layout -> (B, k), every leaf of every member in one call. ``table``
@@ -35,8 +38,13 @@ import torch
 
 from repro_torch.core.sketch import leaf_seed_host, rademacher_row
 from repro_torch.kernels import _build
+from repro_torch.launch import op_cost
 
 KS = (1, 4, 16, 32)       # k values the kernel is instantiated for
+# integer operations per (element, projection row) on the INT32 pipe: the
+# inner PCG hash 5, the outer 3 (its dead shift and XOR dropped), the
+# sign's move onto s 1 (chip_smoke.py's SKETCH_INT_OPS_PER_ELEM_ROW)
+INT_OPS_PER_ELEM_ROW = 9
 TILE = 2048               # elements of a kernel item: a tile of one leaf
 _MUL_A, _ADD_C, _M = 747796405, 2891336453, 0xFFFFFFFF
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -47,6 +55,16 @@ _SIG = {
                               _I, _P, _P],
     "sens_sketch_grid": [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
 }
+
+
+def cost(members: int, n: int, k: int) -> dict:
+    """One launch's work on ``members`` rows of ``n`` elements: the bound's
+    12 bytes an element (theta, g, F read once) and 4k a member's output,
+    ``INT_OPS_PER_ELEM_ROW`` x k integer operations an element, and the
+    float work (s in 6 flops an element, k multiply-adds into the rows)."""
+    return {"flops": float(members * n * (6 + 2 * k)),
+            "nbytes": float(12 * members * n + 4 * k * members),
+            "int_ops": float(INT_OPS_PER_ELEM_ROW * k * members * n)}
 
 
 class SketchTable(NamedTuple):
@@ -140,7 +158,7 @@ def _inputs(theta, g, f, what: str):
         raise ValueError("sens_sketch: all inputs must be on one device")
     if theta.numel() < 1:
         raise ValueError("sens_sketch: empty input")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"sens_sketch: unsupported device {dev}")
     return tuple(_build.as_f32(x, "sens_sketch", n)
                  for x, n in ((theta, "theta"), (g, "g"), (f, "f")))
@@ -204,6 +222,10 @@ def sens_sketch_rows(theta: torch.Tensor, g: torch.Tensor, f: torch.Tensor,
                          f"the table's layout has {table.size}")
     if t.device.type == "cpu":
         return sens_sketch_rows_plain(t, gg, ff, table)
+    op_cost.report("sens_sketch", **cost(t.shape[0], t.shape[1], table.k))
+    if t.device.type == "meta":
+        return torch.empty((t.shape[0], table.k), dtype=torch.float32,
+                           device="meta")
     out = _launch(t, gg, ff, t.shape[0], table).view(t.shape[0], table.k)
     sens_sketch.launches += 1
     return out
@@ -224,6 +246,9 @@ def sens_sketch(theta: torch.Tensor, g: torch.Tensor, f: torch.Tensor, *,
     if t.device.type == "cpu":
         return sens_sketch_plain(t, gg, ff, k=k, seed=seed,
                                  index_offset=index_offset)
+    op_cost.report("sens_sketch", **cost(1, t.shape[0], k))
+    if t.device.type == "meta":
+        return torch.empty((k,), dtype=torch.float32, device="meta")
     table = vector_table(t.shape[0], seed, index_offset, k, t.device)
     out = _launch(t, gg, ff, 1, table)
     sens_sketch.launches += 1

@@ -5,9 +5,12 @@ family; the port carries the fields its ported paths read: the image models
 (cnn / mlp), the token LMs of the dense, moe, ssm and hybrid families
 (prefill, decode and training) and the frontends, vision (vlm: patch
 embeddings in front of the tokens) and audio (an encoder-only stack over
-frame embeddings). The reference's sharding fields (``pure_data_parallel``,
-``seq_shard``, ``expert_tensor_parallel``) come with ROADMAP.md Queue 1
-item 12. A model is described, as in the reference,
+frame embeddings). The reference's three sharding fields say how the
+production mesh (``launch/mesh.rules_for``) lays the model out and change
+no number: ``pure_data_parallel`` replicates every weight and shards the
+batch alone, ``seq_shard`` shards the residual stream over the sequence
+between blocks, ``expert_tensor_parallel`` shards each expert's d_ff in
+place of the expert axis. A model is described, as in the reference,
 by a *superblock pattern*: ``block_pattern`` gives the sequence mixer per
 layer inside one superblock (``"attn" | "mamba" | "mlstm" | "slstm"``) and
 ``ffn_pattern`` the feed-forward kind (``"dense" | "moe" | "moe+dense" |
@@ -58,7 +61,9 @@ class ModelConfig:
     shared_d_ff: int = 0
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01   # load-balance loss coefficient
+    expert_tensor_parallel: bool = False   # shard each expert's d_ff
     dispatch_groups: int = 1
+    pure_data_parallel: bool = False       # replicate weights, shard batch
     # SSM (mamba)
     ssm_expand: int = 2
     ssm_state_dim: int = 16
@@ -75,6 +80,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     remat: str = "full"                          # none | full | dots
     scan_groups: int = 0                         # 0 = one level of remat
+    seq_shard: bool = False                      # residual over "seq_act"
     grad_accum: int = 1
     num_prefix_tokens: int = 256                 # vlm patch tokens
     q_chunk: int = 512

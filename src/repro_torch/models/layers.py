@@ -20,8 +20,13 @@ a leading member axis B and so does x, ``(B, n, S, D)``: the products go
 through ``member_dot(..., x_members=True, w_members=True)`` and attention,
 which has no parameters, takes the members' rows folded into its batch
 axis. Decode attention is plain torch in f32, as the reference computes it
-in jnp outside any kernel. The reference's sharding ``rules`` have no
-counterpart on one device and are dropped.
+in jnp outside any kernel. The reference's ``rules`` argument is a context
+(``common.sharding.logical_rules``): its ``with_logical_constraint`` sites
+call ``sharding.constrain``, which returns the tensor itself without
+rules; under rules the attention kernel, decode attention, the cache
+writes and the token lookup run on each device's shards
+(``models/sharded.py``). The ``*_AXES`` tables are the reference's
+logical axes of each layer's parameters and caches.
 
 Initial weights come from a ``torch.Generator``: the reference's law
 (truncated normal at +-2 std, fan-in scale), not its threefry draws
@@ -36,7 +41,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import sharding
+from repro_torch.common.sharding import constrain
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import sharded
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.member_math import member_dot
 
@@ -134,6 +142,21 @@ def init_attention(gen, cfg: ModelConfig, device, lead=()) -> dict:
     }
 
 
+ATTN_AXES = {
+    "wq": ("embed", "heads", "head_dim"),
+    "wk": ("embed", "kv_heads", "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"),
+    "wo": ("heads", "head_dim", "embed"),
+}
+
+# decode KV caches shard over their own sequence axis when the kv heads
+# cannot (launch.mesh.rules_for)
+ATTN_CACHE_AXES = {
+    "k": ("batch", "cache_seq", "kv_heads", "head_dim"),
+    "v": ("batch", "cache_seq", "kv_heads", "head_dim"),
+}
+
+
 def _dot(members: bool):
     """member_dot with both operands member-batched, or neither."""
     return functools.partial(member_dot, x_members=members,
@@ -157,11 +180,16 @@ def attention_forward(params, x, cfg: ModelConfig, positions=None,
     q = dot(x, params["wq"].to(x.dtype))
     k = dot(x, params["wk"].to(x.dtype))
     v = dot(x, params["wv"].to(x.dtype))
+    q = constrain(q, ("batch", "seq", "heads", "head_dim"))
+    k = constrain(k, ("batch", "seq", "kv_heads", "head_dim"))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cache is not None:
         C = cache["k"].shape[1]
-        if C >= S:
+        if C >= S and sharding.current_rules() is not None:
+            sharded.write(cache["k"], 0, k)
+            sharded.write(cache["v"], 0, v)
+        elif C >= S:
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
         else:       # the trailing window, token S - C + i at its ring slot
@@ -175,9 +203,13 @@ def attention_forward(params, x, cfg: ModelConfig, positions=None,
                               v.flatten(0, 1), causal=cfg.causal,
                               window=window)
         out = out.unflatten(0, lead)
-    else:
+    elif sharding.current_rules() is None:
         out = flash_attention(q, k, v, causal=cfg.causal, window=window)
-    return dot(out, params["wo"].to(x.dtype), ncon=2)
+    else:
+        out = sharded.flash(q, k, v, cfg.causal, window)
+    out = constrain(out, ("batch", "seq", "heads", "head_dim"))
+    y = dot(out, params["wo"].to(x.dtype), ncon=2)
+    return constrain(y, ("batch", "seq", "embed_act"))
 
 
 def attention_cache_size(cfg: ModelConfig, max_len: int) -> int:
@@ -200,6 +232,9 @@ def decode_attention(q, k_cache, v_cache, valid: int):
     q (B, 1, H, hd); caches (B, C, Hkv, hd); the first ``valid`` slots are
     real tokens (softmax is permutation-invariant, so slot order does not
     matter)."""
+    if sharding.current_rules() is not None:
+        return sharded.decode_attention(q, k_cache, v_cache, valid,
+                                        ATTN_CACHE_AXES["k"])
     B, C, Hkv, hd = k_cache.shape
     H = q.shape[2]
     qr = q.reshape(B, Hkv, H // Hkv, hd).float()
@@ -226,8 +261,12 @@ def attention_decode(params, cache, x, pos: int, cfg: ModelConfig):
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
     slot = pos % C
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
+    if sharding.current_rules() is None:
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+    else:
+        sharded.write(cache["k"], slot, k)
+        sharded.write(cache["v"], slot, v)
     out = decode_attention(q, cache["k"], cache["v"], min(pos + 1, C))
     return cache, member_dot(out, params["wo"].to(x.dtype), ncon=2)
 
@@ -260,7 +299,16 @@ def ffn_forward(params, x, cfg: ModelConfig, members: bool = False):
         h = torch.square(torch.relu(h))
     else:
         h = torch.relu(h)
-    return dot(h, params["w_out"].to(x.dtype))
+    h = constrain(h, ("batch", "seq", "mlp"))
+    y = dot(h, params["w_out"].to(x.dtype))
+    return constrain(y, ("batch", "seq", "embed_act"))
+
+
+FFN_AXES = {
+    "w_in": ("embed", "mlp"),
+    "w_out": ("mlp", "embed"),
+    "w_gate": ("embed", "mlp"),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +329,11 @@ def init_embed(gen, cfg: ModelConfig, device) -> dict:
     return p
 
 
+# The lookup table keeps its vocab dim replicated ("vocab_lookup"); the
+# unembedding stays vocab-sharded.
+EMBED_AXES = {"tok": ("vocab_lookup", "embed"), "unembed": ("embed", "vocab")}
+
+
 def mask_vocab_pad(logits, cfg: ModelConfig):
     """-1e30 in the padded vocab columns."""
     if logits.shape[-1] == cfg.vocab_size:
@@ -296,10 +349,13 @@ def embed_tokens(params, tokens, cfg: ModelConfig, members: bool = False):
     the reference: the gradient adds repeated tokens in that dtype); with
     ``members``, member b's tokens (B, ...) index its own table (B, Vp, D)."""
     tok = params["tok"].to(dtype_of(cfg))
-    if not members:
+    if members:
+        rows = torch.arange(tok.shape[0], device=tokens.device)
+        return tok[rows.view((-1,) + (1,) * (tokens.dim() - 1)), tokens]
+    if sharding.current_rules() is None:
         return tok[tokens]
-    rows = torch.arange(tok.shape[0], device=tokens.device)
-    return tok[rows.view((-1,) + (1,) * (tokens.dim() - 1)), tokens]
+    return constrain(sharded.lookup(tok, tokens),
+                     ("batch", "seq", "embed_act"))
 
 
 def unembed_weight(params):
@@ -312,4 +368,4 @@ def unembed_weight(params):
 
 def unembed(params, x, cfg: ModelConfig):
     logits = member_dot(x, unembed_weight(params).to(x.dtype))
-    return mask_vocab_pad(logits, cfg)
+    return constrain(mask_vocab_pad(logits, cfg), ("batch", "seq", "vocab"))

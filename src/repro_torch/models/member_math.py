@@ -28,7 +28,10 @@ product (see ``MemberConv2d``).
 
 The mode is a context (``routing``) entered around the code that builds
 the products; it is held in a ``ContextVar``, so threads do not see each
-other's mode.
+other's mode. Under sharding rules (``common.sharding.logical_rules``: the
+dry run's DTensors) a product without the member axis runs on each
+device's shards (``models/sharded.dot``), laid out as GSPMD lays the
+reference's ``dot_general``.
 """
 from __future__ import annotations
 
@@ -39,7 +42,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import sharding
 from repro_torch.kernels.grouped_matmul import grouped_matmul
+from repro_torch.models import sharded
 
 MODES = ("vmap", "grouped")
 _MODE = contextvars.ContextVar("member_kernel", default="vmap")
@@ -91,6 +96,8 @@ def member_dot(x: torch.Tensor, w: torch.Tensor, ncon: int = 1, *,
     if w_members and not x_members:
         raise ValueError("member_dot: w carries the member axis but x does "
                          "not")
+    if not w_members and sharding.current_rules() is not None:
+        return sharded.dot(x, w, ncon, member_dot)
     if x.dtype != w.dtype:
         common = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(common), w.to(common)

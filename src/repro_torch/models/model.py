@@ -55,6 +55,13 @@ norm, bidirectional attention and per-frame logits through ``cls``
 (``encode``); it is encoder-only, so ``init_cache``, ``prefill`` and
 ``decode_step`` raise. The member-batched path is for the families the
 simulator registers, and the frontends are not among them.
+
+The reference's ``rules`` argument is a context here
+(``common.sharding.logical_rules``), read at its constraint sites
+(``sharding.constrain``: the tensor itself without rules), and
+``_checkpoint``'s recompute re-enters it. ``param_axes`` and
+``cache_axes`` give the reference's logical axes of every parameter and
+cache leaf, key for key with ``init_params`` and ``init_cache``.
 """
 from __future__ import annotations
 
@@ -66,8 +73,10 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.common import sharding
+from repro_torch.common.sharding import constrain
 from repro_torch.common.tree import tree_map
-from repro_torch.models import layers, member_math, moe, ssm
+from repro_torch.models import layers, member_math, moe, sharded, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.member_math import member_conv2d, member_dot
 
@@ -236,12 +245,16 @@ def loss_fn(params, batch, cfg: ModelConfig, members: bool = False):
 def _xent_from_logits(logits, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits (..., N, V) of any dtype, pad vocab columns masked; labels
     (..., N), < 0 masked. (sum of the rows' nll, count of rows) over N, f32
-    math."""
+    math. Under sharding rules the logits' vocab axis may be sharded
+    (``models/sharded.lse_gold``)."""
     logits = logits.float()
     mask = labels >= 0
     safe = torch.where(mask, labels, torch.zeros_like(labels))
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe.long()[..., None])[..., 0]
+    if sharding.current_rules() is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe.long()[..., None])[..., 0]
+    else:
+        lse, gold = sharded.lse_gold(logits, safe)
     return torch.sum((lse - gold) * mask, dim=-1), \
         torch.sum(mask, dim=-1, dtype=torch.float32)
 
@@ -256,7 +269,8 @@ def chunked_cross_entropy(hidden, unembed_w, labels, cfg: ModelConfig,
     S, D = hidden.shape[-2], hidden.shape[-1]
     chunk = min(chunk, S)
     n = -(-S // chunk)
-    if n * chunk != S:
+    if n * chunk != S and sharding.current_rules() is None:
+        # (DTensors go unpadded: their last chunk is the shorter one)
         hidden = F.pad(hidden, (0, 0, 0, n * chunk - S))
         labels = F.pad(labels, (0, n * chunk - S), value=-1)
     lead = hidden.shape[:1] if members else ()
@@ -266,6 +280,7 @@ def chunked_cross_entropy(hidden, unembed_w, labels, cfg: ModelConfig,
         h = hidden[..., c * chunk:(c + 1) * chunk, :].reshape(lead + (-1, D))
         logits = layers.mask_vocab_pad(
             member_dot(h, w, x_members=members, w_members=members), cfg)
+        logits = constrain(logits, ("tokens", "vocab"))
         t, k = _xent_from_logits(
             logits, labels[..., c * chunk:(c + 1) * chunk].reshape(lead + (-1,)))
         tot, cnt = tot + t, cnt + k
@@ -358,6 +373,14 @@ def check_lm(cfg: ModelConfig) -> None:
 
 _MIXER_INIT = {"attn": layers.init_attention, "mamba": ssm.init_mamba,
                "mlstm": ssm.init_mlstm, "slstm": ssm.init_slstm}
+_MIXER_AXES = {"attn": layers.ATTN_AXES, "mamba": ssm.MAMBA_AXES,
+               "mlstm": ssm.MLSTM_AXES, "slstm": ssm.SLSTM_AXES}
+_POS_CACHE_AXES = {"attn": layers.ATTN_CACHE_AXES,
+                   "mamba": ssm.MAMBA_STATE_AXES,
+                   "mlstm": ssm.MLSTM_STATE_AXES,
+                   "slstm": ssm.SLSTM_STATE_AXES}
+_NORM_AXES = {"scale": ("embed_act",)}
+_NORM_AXES_LN = {"scale": ("embed_act",), "bias": ("embed_act",)}
 _MIXER_STATE = {"mamba": ssm.init_mamba_state, "mlstm": ssm.init_mlstm_state,
                 "slstm": ssm.init_slstm_state}
 
@@ -407,6 +430,75 @@ def init_lm(gen, cfg: ModelConfig, device="cpu") -> dict:
     return params
 
 
+def superblock_axes(cfg: ModelConfig) -> dict:
+    """One superblock's logical axes, position by position."""
+    naxes = _NORM_AXES_LN if cfg.family == "audio" else _NORM_AXES
+    out = {}
+    for i, (mix, ffn) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
+        pos = {"norm1": naxes, "mixer": dict(_MIXER_AXES[mix])}
+        if ffn != "none":
+            pos["norm2"] = naxes
+            if ffn == "dense":
+                pos["ffn"] = dict(layers.FFN_AXES)
+            elif ffn == "moe":
+                pos["ffn"] = _moe_axes(cfg)
+            else:
+                pos["ffn"] = {"moe": _moe_axes(cfg),
+                              "dense": dict(layers.FFN_AXES)}
+        out[f"p{i}"] = pos
+    return out
+
+
+def _moe_axes(cfg: ModelConfig) -> dict:
+    ax = dict(moe.MOE_AXES)
+    if cfg.num_shared_experts == 0:
+        ax.pop("shared", None)
+    return ax
+
+
+def _prune_axes(axes, params):
+    """Drop axis entries whose key is absent from params (e.g. swiglu's
+    gate)."""
+    if isinstance(params, dict):
+        return {k: _prune_axes(axes[k], v) for k, v in params.items()}
+    return axes
+
+
+def param_axes(cfg: ModelConfig, params: Optional[dict] = None) -> dict:
+    """Tree of logical-axis tuples matching ``init_params``'s, key for key
+    (``params``, default ``init_params`` on the ``meta`` device). Stacked
+    superblock leaves get a leading ``layers`` axis; the image models'
+    leaves are replicated."""
+    if params is None:
+        params = init_params(torch.Generator().manual_seed(0)
+                             if cfg.family in ("cnn", "mlp") else None,
+                             cfg, "cpu" if cfg.family in ("cnn", "mlp")
+                             else "meta")
+    if cfg.family in ("cnn", "mlp"):
+        return tree_map(lambda x: (None,) * x.dim(), params)
+    sb = sharding.map_axes(lambda ax: ("layers",) + ax, superblock_axes(cfg))
+    naxes = _NORM_AXES_LN if cfg.family == "audio" else _NORM_AXES
+    axes = {"blocks": sb, "final_norm": naxes}
+    if cfg.frontend == "audio":
+        axes["in_proj"] = ("embed", "embed_act")
+        axes["cls"] = ("embed", "vocab")
+    else:
+        axes["embed"] = dict(layers.EMBED_AXES)
+        if cfg.tie_embeddings:
+            axes["embed"].pop("unembed")
+        if cfg.frontend == "vision":
+            axes["proj"] = ("embed", "embed_act")
+    return _prune_axes(axes, params)
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``init_cache``'s tree, with the stacked
+    superblock axis (``layers``) first."""
+    one = {f"p{i}": dict(_POS_CACHE_AXES[mix])
+           for i, mix in enumerate(cfg.block_pattern)}
+    return sharding.map_axes(lambda ax: ("layers",) + ax, one)
+
+
 def embed_inputs(params, batch: dict, cfg: ModelConfig,
                  members: bool = False):
     """The backbone's input x (B, S, D): the token embeddings; with a
@@ -421,13 +513,14 @@ def embed_inputs(params, batch: dict, cfg: ModelConfig,
                          f"{cfg.family!r} family)")
     if cfg.frontend == "audio":
         x = batch["features"].to(layers.dtype_of(cfg))
-        return member_dot(x, params["in_proj"].to(x.dtype))
+        x = member_dot(x, params["in_proj"].to(x.dtype))
+        return constrain(x, ("batch", "seq", "embed_act"))
     tok = layers.embed_tokens(params["embed"], batch["tokens"], cfg, members)
     if cfg.frontend == "vision" and "patches" in batch:
         p = member_dot(batch["patches"].to(tok.dtype),
                        params["proj"].to(tok.dtype))
         tok = torch.cat([p, tok], dim=1)
-    return tok
+    return constrain(tok, ("batch", "seq", "embed_act"))
 
 
 def _unembed_weight(params, cfg: ModelConfig):
@@ -440,7 +533,9 @@ def _unembed_weight(params, cfg: ModelConfig):
 
 def _unembed(params, x, cfg: ModelConfig):
     logits = member_dot(x, _unembed_weight(params, cfg).to(x.dtype))
-    return layers.mask_vocab_pad(logits, cfg)
+    logits = layers.mask_vocab_pad(logits, cfg)
+    return constrain(logits, ("batch", "vocab") if logits.dim() == 2
+                     else ("batch", "seq", "vocab"))
 
 
 def _superblock(stacked, i: int):
@@ -491,23 +586,35 @@ def _mixer_forward(mix: str, p, h, cfg: ModelConfig, positions, cache,
     return y
 
 
+def _residual_constraint(x, cfg: ModelConfig):
+    """The residual stream's layout between blocks: its sequence over
+    ``seq_act`` under ``cfg.seq_shard`` (Megatron-SP)."""
+    if cfg.seq_shard:
+        return constrain(x, ("batch", "seq_act", "embed_act"))
+    return constrain(x, ("batch", None, "embed_act"))
+
+
 def superblock_forward(params, x, cfg: ModelConfig, positions, cache=None,
                        members: bool = False):
     """One superblock over x (B, S, D) ((B, n, S, D) with ``members``) ->
     (x, the sum of its MoE aux losses or None). With ``cache`` (this
     superblock's views of the stacked cache), each mixer also fills it: the
-    KV cache of an attention layer, the final state of a recurrent one."""
+    KV cache of an attention layer, the final state of a recurrent one; the
+    residual stream is then left as it is, as in the reference's
+    prefill."""
     aux = None
+    res = ((lambda t: t) if cache is not None
+           else functools.partial(_residual_constraint, cfg=cfg))
     for i, (mix, ffn) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
         pp = params[f"p{i}"]
         h = _norm(pp["norm1"], x, cfg, members)
-        x = x + _mixer_forward(mix, pp["mixer"], h, cfg, positions,
-                               None if cache is None else cache[f"p{i}"],
-                               members)
+        x = res(x + _mixer_forward(mix, pp["mixer"], h, cfg, positions,
+                                   None if cache is None else cache[f"p{i}"],
+                                   members))
         if ffn != "none":
             h = _norm(pp["norm2"], x, cfg, members)
             y, a = _ffn_apply(pp, ffn, h, cfg, members)
-            x = x + y
+            x = res(x + y)
             aux = _add_aux(aux, a)
     return x, aux
 
@@ -534,19 +641,21 @@ def _checkpoint(fn, *args, cfg: ModelConfig):
     """``fn(*args)`` under ``torch.utils.checkpoint``: everything
     recomputed under ``remat == "full"``, the products of ``_dots_policy``
     kept under ``"dots"``. The recompute runs in the forward's member-math
-    mode: it runs inside the backward, which autograd runs on its own
-    thread for a CUDA device, where the caller's ``routing`` context is not
-    set (the products would go to ``torch.matmul`` instead of
-    ``grouped_matmul``)."""
+    mode and under its sharding rules: it runs inside the backward, which
+    autograd runs on its own thread for a CUDA device, where the caller's
+    ``routing`` and ``logical_rules`` contexts are not set (the products
+    would go to ``torch.matmul`` instead of ``grouped_matmul``, and the
+    constraint sites would see no rules)."""
     kw = {}
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(
             torch.utils.checkpoint.create_selective_checkpoint_contexts,
             _dots_policy)
     mode = member_math.current_mode()
+    rules = sharding.current_rules()
 
     def run(*a):
-        with member_math.routing(mode):
+        with member_math.routing(mode), sharding.logical_rules(rules):
             return fn(*a)
 
     return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
@@ -584,6 +693,8 @@ def backbone_forward(params, x, cfg: ModelConfig, cache=None,
     positions = torch.arange(x.shape[-2], device=x.device)[None, :]
     remat = (cfg.remat != "none" and cache is None
              and torch.is_grad_enabled())
+    if cache is None:
+        x = _residual_constraint(x, cfg)
     # one unbind a leaf, not a select a superblock: the backward of nsb
     # selects would write and add nsb zero-filled copies of every stacked
     # leaf; unbind's stacks the superblocks' gradients once
@@ -655,6 +766,11 @@ def prefill(params, batch: dict, cfg: ModelConfig,
     x = embed_inputs(params, batch, cfg)
     B, S = x.shape[:2]
     cache = init_cache(cfg, B, max(max_len or S, S), x.device)
+    rules = sharding.current_rules()
+    if rules is not None:       # laid out by cache_axes, as decode reads it
+        cache = sharding.distribute(
+            cache, sharding.shard_pytree_spec(rules, cache_axes(cfg)),
+            x.device_mesh)
     hidden, _ = backbone_forward(params, x, cfg, cache)
     return cache, _unembed(params, hidden[:, -1], cfg)
 

@@ -23,6 +23,10 @@ choices of each token in a fixed order; each gather's gradient is the
 gather through the other map (``_MapGather``), and a token's gradient adds
 its k choices' in the expand's sum. With ``members=True`` the parameters
 and x carry a leading member axis, and each member routes its own tokens.
+Under the context's rules (``common.sharding.logical_rules``) the group
+axis carries the batch sharding and the buffers the expert sharding, at the
+reference's constraint sites; the dispatch plan and the gathers then run
+on each device's groups (``models/sharded.group_local``).
 """
 from __future__ import annotations
 
@@ -31,7 +35,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.common import sharding
+from repro_torch.common.sharding import constrain
+from repro_torch.models import layers, sharded
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.member_math import member_dot
 
@@ -52,6 +58,15 @@ def init_moe(gen, cfg: ModelConfig, device, lead=()) -> dict:
         sf = cfg.shared_d_ff or cfg.num_shared_experts * Fd
         p["shared"] = layers.init_ffn(gen, cfg, device, lead, d_ff=sf)
     return p
+
+
+MOE_AXES = {
+    "router": ("embed", None),
+    "w_in": ("expert", "embed", "expert_mlp"),
+    "w_gate": ("expert", "embed", "expert_mlp"),
+    "w_out": ("expert", "expert_mlp", "embed"),
+    "shared": layers.FFN_AXES,
+}
 
 
 def moe_capacity(cfg: ModelConfig, num_tokens: int) -> int:
@@ -122,10 +137,14 @@ def _gather_rows(src, idx):
         idx.shape + (src.shape[-1],)))
 
 
-def _experts(params, buf, members: bool):
+def _experts(params, buf, members: bool, g_ax=None):
     """SwiGLU experts over the capacity buffer (..., G, E, C, D). A plain
     batched product over (member,) expert: the reference keeps these on
-    XLA's einsum, not ``member_dot``."""
+    XLA's einsum, not ``member_dot``. Under the context's rules, on each
+    device's shards (``models/sharded.experts``)."""
+    if not members and sharding.current_rules() is not None:
+        return sharded.experts(params, buf, g_ax,
+                               lambda p, b: _experts(p, b, False))
     dt = buf.dtype
     pre = "bgecd,bedf->bgecf" if members else "gecd,edf->gecf"
     post = "bgecf,befd->bgecd" if members else "gecf,efd->gecd"
@@ -133,6 +152,20 @@ def _experts(params, buf, members: bool):
     h_gate = torch.einsum(pre, buf, params["w_gate"].to(dt))
     h = F.silu(h_gate) * h_in
     return torch.einsum(post, h, params["w_out"].to(dt))
+
+
+_PLAN_KEYS = ("expert", "pos", "keep", "w", "fwd", "inv")
+
+
+def _plan(top_p, top_e, cfg: ModelConfig, C: int, g_ax):
+    """``dispatch_plan``, group-local under rules."""
+    if sharding.current_rules() is None:
+        return dispatch_plan(top_p, top_e, cfg, C)
+    outs = sharded.group_local(
+        lambda p, e: tuple(dispatch_plan(p, e, cfg, C)[k]
+                           for k in _PLAN_KEYS),
+        (top_p, top_e), (2,) * len(_PLAN_KEYS), g_ax)
+    return dict(zip(_PLAN_KEYS, outs))
 
 
 def _groups(cfg: ModelConfig, T: int):
@@ -178,23 +211,46 @@ def moe_forward(params, x, cfg: ModelConfig, members: bool = False):
     D = x.shape[-1]
     E, K = cfg.num_experts, cfg.top_k
     G, Tg, C = _groups(cfg, math.prod(x.shape[len(lead):-1]))
-    xt = x.reshape(lead + (G, Tg, D))
+    g_ax = "batch" if G > 1 else None   # never shard a size-1 group axis
+    tok_ax = (g_ax, "tokens" if G == 1 else None, "embed_act")
+    rules = sharding.current_rules()
+    if rules is not None and G > 1:
+        fitted = sharded.fit_groups(rules, G, x.device_mesh)
+        if fitted is not rules:     # back to the caller's batch layout
+            with sharding.logical_rules(fitted):
+                y, aux = moe_forward(params, x, cfg, members)
+            return constrain(y, ("batch", None, "embed_act")), aux
+        x = constrain(x, ("batch", None, "embed_act"))
+    xt = constrain(x.reshape(lead + (G, Tg, D)), tok_ax)
     probs, top_p, top_e = _route(params, xt, cfg, members)    # (.., G, Tg, K)
     aux = _aux(probs, top_e, cfg, (-3, -2))
-    plan = dispatch_plan(top_p, top_e, cfg, C)
+    plan = _plan(top_p, top_e, cfg, C, g_ax)
     fwd, inv = plan["fwd"], plan["inv"]
     # each choice's row, token-major
     xk = xt[..., None, :].expand(lead + (G, Tg, K, D)).reshape(
         lead + (G, Tg * K, D))
-    buf = _MapGather.apply(xk, inv, fwd).reshape(lead + (G, E, C, D))
-    out_buf = _experts(params, buf, members).reshape(lead + (G, E * C, D))
-    gathered = _MapGather.apply(out_buf, fwd, inv).float() \
-        * plan["w"][..., None]
+    # the buffers' (expert, slot) axes fold into one row axis for the maps;
+    # under rules each device does so on its own groups
+    if rules is None:
+        buf = _MapGather.apply(xk, inv, fwd).reshape(lead + (G, E, C, D))
+    else:
+        buf = sharded.group_local(lambda a, i, j: _MapGather.apply(
+            a, i, j).reshape(-1, E, C, D), (xk, inv, fwd), 4, g_ax)
+    buf = constrain(buf, (g_ax, "expert", "expert_capacity", "embed_act"))
+    out_buf = constrain(_experts(params, buf, members, g_ax),
+                        (g_ax, "expert", "expert_capacity", "embed_act"))
+    if rules is None:
+        gathered = _MapGather.apply(out_buf.reshape(lead + (G, E * C, D)),
+                                    fwd, inv)
+    else:
+        gathered = sharded.group_local(lambda a, i, j: _MapGather.apply(
+            a.reshape(-1, E * C, D), i, j), (out_buf, fwd, inv), 3, g_ax)
+    gathered = gathered.float() * plan["w"][..., None]
     y = torch.sum(gathered.reshape(lead + (G, Tg, K, D)), dim=-2).to(x.dtype)
     if "shared" in params:
         y = y + layers.ffn_forward(params["shared"], x, cfg, members).reshape(
             y.shape)
-    return y.reshape(x.shape), aux
+    return constrain(y, tok_ax).reshape(x.shape), aux
 
 
 def moe_forward_dense(params, x, cfg: ModelConfig, members: bool = False):

@@ -23,6 +23,13 @@ leading member axis B and so does x, ``(B, n, S, D)``: the reference's
 ``member_dot`` sites go through ``member_dot(..., x_members=True,
 w_members=True)`` (the grouped kernel under ``"grouped"``), and its plain
 einsums become batched torch products over the member axis.
+
+Under the context's rules (``common.sharding.logical_rules``) the
+reference's constraint sites lay the projections out. Under the op
+counter on meta tensors (the dry run), a time loop is counted from two
+steps (``launch/op_cost.fold``, ``_time_loop``); every other run takes the
+loop as it is. The ``*_AXES`` tables are the reference's logical
+axes of each mixer's parameters and states.
 """
 from __future__ import annotations
 
@@ -31,6 +38,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import sharding
+from repro_torch.common.sharding import constrain
+from repro_torch.launch import op_cost
+from repro_torch.models import sharded
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, dtype_of, param_dtype_of
 from repro_torch.models.member_math import member_dot
@@ -49,6 +60,19 @@ def _bc(p: torch.Tensor, like: torch.Tensor, members: bool) -> torch.Tensor:
     if not members:
         return p
     return p.reshape(p.shape[:1] + (1,) * (like.dim() - p.dim()) + p.shape[1:])
+
+
+def _time_loop(step, carry, per_step, S: int, dim: int):
+    """``carry, out = step(carry, per_step(t))`` for t = 0 .. S-1 -> (the
+    last carry, the outs stacked along ``dim``); under the op counter on
+    meta tensors, counted from two steps (``op_cost.fold``)."""
+    if op_cost.folding(carry):
+        return op_cost.fold(step, carry, per_step, S, dim)
+    outs = []
+    for t in range(S):
+        carry, out = step(carry, per_step(t))
+        outs.append(out)
+    return carry, torch.stack(outs, dim=dim)
 
 
 def _log_sigmoid(x):
@@ -92,10 +116,30 @@ def init_mamba(gen, cfg: ModelConfig, device, lead=()) -> dict:
     }
 
 
+MAMBA_AXES = {
+    "in_proj": ("embed", "ssm_inner"),
+    "conv_w": ("conv_kernel", "ssm_inner"),
+    "conv_b": ("ssm_inner",),
+    "x_proj": ("ssm_inner", None),
+    "dt_proj_w": (None, "ssm_inner"),
+    "dt_proj_b": ("ssm_inner",),
+    "a_log": ("ssm_inner", "ssm_state"),
+    "d_skip": ("ssm_inner",),
+    "out_proj": ("ssm_inner", "embed"),
+}
+
+MAMBA_STATE_AXES = {
+    "h": ("batch", "ssm_inner", "ssm_state"),
+    "conv": ("batch", None, "ssm_inner"),
+}
+
+
 def _mm(x: torch.Tensor, w: torch.Tensor, members: bool) -> torch.Tensor:
     """x (..., in) @ w (in, out), a plain torch product where the reference
     has a plain einsum; with ``members``, x (B, ..., in) and w (B, in,
     out), one batched product over the member axis."""
+    if not members and sharding.current_rules() is not None:
+        return member_dot(x, w)         # laid out on the shards
     if not members:
         return torch.matmul(x, w)
     out = torch.matmul(x.reshape(x.shape[0], -1, x.shape[-1]), w)
@@ -136,10 +180,15 @@ def _mamba_scan(params, x, cfg: ModelConfig, members: bool):
     S = x.shape[-2]
     E, N, K = cfg.ssm_inner, cfg.ssm_state_dim, cfg.conv_kernel
     xz = _dot(x, params["in_proj"].to(x.dtype), members)
+    xz = constrain(xz, ("batch", "seq", "ssm_inner"))
     xi, z = torch.split(xz, E, dim=-1)
     # depthwise causal conv over time: K shifted products, in the order
     # i = 0 .. K-1
-    xpad = F.pad(xi, (0, 0, K - 1, 0))
+    if sharding.current_rules() is None:
+        xpad = F.pad(xi, (0, 0, K - 1, 0))
+    else:       # DTensor's pad is missing or broken on some versions
+        xpad = torch.cat([xi.new_zeros(xi.shape[:-2] + (K - 1, E)), xi],
+                         dim=-2)
     conv_w = params["conv_w"].to(x.dtype)
     conv = 0
     for i in range(K):
@@ -151,15 +200,14 @@ def _mamba_scan(params, x, cfg: ModelConfig, members: bool):
     h = torch.zeros(x.shape[:-2] + (E, N), dtype=torch.float32,
                     device=x.device)
     A, d_skip = _mamba_consts(params, h, xc[..., 0, :], members)
-    ys = []
-    for t in range(S):
-        h, y = _mamba_step(h, xc[..., t, :],
-                           (dt[..., t, :], Bm[..., t, :], Cm[..., t, :]),
-                           A, d_skip)
-        ys.append(y)
-    y = torch.stack(ys, dim=-2).to(x.dtype)
-    y = y * F.silu(z)
-    out = _dot(y, params["out_proj"].to(x.dtype), members)
+    xc, dt, Bm, Cm = sharded.settled(xc, dt, Bm, Cm)
+    h, y = _time_loop(
+        lambda h_, g: _mamba_step(h_, g[0], g[1:], A, d_skip), h,
+        lambda t: (xc[..., t, :], dt[..., t, :], Bm[..., t, :],
+                   Cm[..., t, :]), S, -2)
+    y = y.to(x.dtype) * F.silu(z)
+    out = constrain(_dot(y, params["out_proj"].to(x.dtype), members),
+                    ("batch", "seq", "embed_act"))
     # final conv state = the last K-1 raw (pre-conv) inner activations
     return {"h": h, "conv": xpad[..., S:, :]}, out
 
@@ -206,6 +254,24 @@ def _mlstm_dims(cfg: ModelConfig):
     inner = int(cfg.d_model * cfg.mlstm_proj_factor)
     H = cfg.num_heads
     return inner, H, inner // H
+
+
+MLSTM_AXES = {
+    "up_proj": ("embed", "ssm_inner"),
+    "wq": ("ssm_inner", "heads", "head_dim"),
+    "wk": ("ssm_inner", "heads", "head_dim"),
+    "wv": ("ssm_inner", "heads", "head_dim"),
+    "w_if": ("ssm_inner", "heads"),
+    "b_if": ("heads",),
+    "gn_scale": ("heads", "head_dim"),
+    "down_proj": ("ssm_inner", "embed"),
+}
+
+MLSTM_STATE_AXES = {
+    "C": ("batch", "heads", "head_dim", None),
+    "n": ("batch", "heads", "head_dim"),
+    "m": ("batch", "heads"),
+}
 
 
 def init_mlstm(gen, cfg: ModelConfig, device, lead=()) -> dict:
@@ -275,23 +341,24 @@ def _mlstm_scan(params, x, cfg: ModelConfig, members: bool):
     lead = x.shape[:-2]
     inner, H, hd = _mlstm_dims(cfg)
     up = _dot(x, params["up_proj"].to(x.dtype), members)
+    up = constrain(up, ("batch", "seq", "ssm_inner"))
     xs, z = torch.split(up, inner, dim=-1)
-    q, k, v, i_pre, log_f = _mlstm_qkvif(params, xs, cfg, members)
+    q, k, v, i_pre, log_f = sharded.settled(
+        *_mlstm_qkvif(params, xs, cfg, members))
     state = (torch.zeros(lead + (H, hd, hd), dtype=torch.float32,
                          device=x.device),
              torch.zeros(lead + (H, hd), dtype=torch.float32, device=x.device),
              torch.full(lead + (H,), NEG_INIT, dtype=torch.float32,
                         device=x.device))
-    hs = []
-    for t in range(S):
-        state, h = _mlstm_step(state, (q[..., t, :, :], k[..., t, :, :],
-                                       v[..., t, :, :], i_pre[..., t, :],
-                                       log_f[..., t, :]))
-        hs.append(h)
-    h = torch.stack(hs, dim=-3)                             # (..., S, H, hd)
-    h = _groupnorm(params, h, members).reshape(lead + (S, inner)).to(x.dtype)
+    state, h = _time_loop(                                 # (..., S, H, hd)
+        _mlstm_step, state,
+        lambda t: (q[..., t, :, :], k[..., t, :, :], v[..., t, :, :],
+                   i_pre[..., t, :], log_f[..., t, :]), S, -3)
+    h = sharded.merge_ready(_groupnorm(params, h, members), -2)
+    h = h.reshape(lead + (S, inner)).to(x.dtype)
     y = h * F.silu(z)
-    out = _dot(y, params["down_proj"].to(x.dtype), members)
+    out = constrain(_dot(y, params["down_proj"].to(x.dtype), members),
+                    ("batch", "seq", "embed_act"))
     return {"C": state[0], "n": state[1], "m": state[2]}, out
 
 
@@ -324,7 +391,8 @@ def mlstm_decode(params, state, x, cfg: ModelConfig, members: bool = False):
     st, h = _mlstm_step((state["C"], state["n"], state["m"]),
                         (q[..., 0, :, :], k[..., 0, :, :], v[..., 0, :, :],
                          i_pre[..., 0, :], log_f[..., 0, :]))
-    h = _groupnorm(params, h, members).reshape(lead + (1, inner)).to(x.dtype)
+    h = sharded.merge_ready(_groupnorm(params, h, members), -2)
+    h = h.reshape(lead + (1, inner)).to(x.dtype)
     y = h * F.silu(z)
     out = _dot(y, params["down_proj"].to(x.dtype), members)
     return {"C": st[0], "n": st[1], "m": st[2]}, out
@@ -333,6 +401,24 @@ def mlstm_decode(params, state, x, cfg: ModelConfig, members: bool = False):
 # ---------------------------------------------------------------------------
 # sLSTM (xLSTM scalar-memory cell with exponential gating)
 # ---------------------------------------------------------------------------
+
+SLSTM_AXES = {
+    "w_x": ("embed", None, "heads", "head_dim"),
+    # the second head_dim stays unsharded: a spec names a mesh axis once
+    "w_h": (None, "heads", "head_dim", None),
+    "bias": (None, "heads", "head_dim"),
+    "gn_scale": ("heads", "head_dim"),
+    "ffn_in": ("embed", "mlp"),
+    "ffn_out": ("mlp", "embed"),
+}
+
+SLSTM_STATE_AXES = {
+    "c": ("batch", "heads", "head_dim"),
+    "n": ("batch", "heads", "head_dim"),
+    "m": ("batch", "heads", "head_dim"),
+    "h": ("batch", "heads", "head_dim"),
+}
+
 
 def init_slstm(gen, cfg: ModelConfig, device, lead=()) -> dict:
     pd = param_dtype_of(cfg)
@@ -365,7 +451,7 @@ def _slstm_step(params, state, x_t, members: bool):
                          f"{tuple(h_prev.shape)}")
     rec = torch.einsum(eq, h_prev, w_h)
     pre = x_t.float() + rec + _bc(params["bias"].float(), x_t, members)
-    z_pre, i_pre, f_pre, o_pre = torch.unbind(pre, dim=-3)
+    z_pre, i_pre, f_pre, o_pre = torch.unbind(sharded.whole(pre, -3), dim=-3)
     z = torch.tanh(z_pre)
     o = torch.sigmoid(o_pre)
     log_f = _log_sigmoid(f_pre)
@@ -383,7 +469,8 @@ def _slstm_out(params, h, x, cfg: ModelConfig, members: bool):
     var = torch.mean(torch.square(h), dim=-1, keepdim=True)
     h = h * torch.rsqrt(var + 1e-5) * _bc(params["gn_scale"].float(), h,
                                           members)
-    y = h.reshape(h.shape[:-2] + (cfg.d_model,)).to(x.dtype)
+    y = sharded.merge_ready(h, -2)
+    y = y.reshape(h.shape[:-2] + (cfg.d_model,)).to(x.dtype)
     ff = _dot(y, params["ffn_in"].to(x.dtype), members)
     a, g = torch.split(ff, cfg.slstm_ffn_dim, dim=-1)
     ff = a * torch.sigmoid(g)       # GeGLU-style gate
@@ -394,16 +481,16 @@ def _slstm_apply(params, x, cfg: ModelConfig, members: bool):
     S = x.shape[-2]
     H = cfg.num_heads
     hd = cfg.d_model // H
-    xp = _dot(x, params["w_x"].to(x.dtype), members)       # (..., S, 4, H, hd)
+    # (..., S, 4, H, hd)
+    xp, = sharded.settled(_dot(x, params["w_x"].to(x.dtype), members))
     zeros = torch.zeros(x.shape[:-2] + (H, hd), dtype=torch.float32,
                         device=x.device)
     state = (zeros, zeros, torch.full_like(zeros, NEG_INIT), zeros)
-    hs = []
-    for t in range(S):
-        state, h = _slstm_step(params, state, xp[..., t, :, :, :], members)
-        hs.append(h)
-    return state, _slstm_out(params, torch.stack(hs, dim=-3), x, cfg,
-                             members)
+    state, h = _time_loop(
+        lambda st, x_t: _slstm_step(params, st, x_t, members), state,
+        lambda t: xp[..., t, :, :, :], S, -3)
+    return state, constrain(_slstm_out(params, h, x, cfg, members),
+                            ("batch", "seq", "embed_act"))
 
 
 def slstm_forward(params, x, cfg: ModelConfig, members: bool = False):

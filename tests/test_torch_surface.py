@@ -63,11 +63,7 @@ LEFT_OUT = {
                     "jitted step; the port's Policy.step returns a host log "
                     "entry",
     },
-    "common": {
-        "logical_to_pspec": "XLA partition specs (item 12)",
-        "shard_pytree_spec": "XLA partition specs (item 12)",
-        "with_logical_constraint": "XLA sharding constraints (item 12)",
-    },
+    "common": {},
     "kernels": {
         "ref": "the pure-jnp oracles; each port kernel keeps its plain "
                "version beside it (``*_plain``)",

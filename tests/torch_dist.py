@@ -536,5 +536,59 @@ def families_program(mesh, cases: list) -> dict:
     return {case: family_run(*case, mesh=mesh) for case in cases}
 
 
+def sharded_lm_program(mesh, arch: str, over: dict) -> dict:
+    """``arch`` (with the config fields ``over``) on a (2, 2) ``data x
+    model`` DTensor mesh over the 4 ranks, under ``rules_for``'s rules at
+    batch 4, against the same model on one device: the loss and every
+    gradient of a remat "full" step, a prefill's logits and one decode
+    step's, as max |difference| / max |one device's|."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.common import sharding
+    from repro_torch.common.tree import tree_leaves, value_and_grad
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import model as M
+    mesh2 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    desc = SimpleNamespace(axis_names=("data", "model"),
+                           devices=SimpleNamespace(shape=(2, 2)))
+    cfg = dataclasses.replace(get_config(arch), remat="full", **over)
+    B, S = 4, 8
+    rules = rules_for(cfg, desc, B)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    tok = torch.randint(0, cfg.vocab_size, (B, S),
+                        generator=torch.Generator().manual_seed(1))
+    spec = sharding.shard_pytree_spec(rules, M.param_axes(cfg, params))
+    tspec = rules.mesh_axes(("batch", "seq"))
+
+    def rel(a, b):
+        return float((a - b.full_tensor()).abs().max() / a.abs().max())
+    out = {"rules": {k: v for k, v in rules.rules.items() if v}}
+    loss_fn = lambda p, b: M.loss_fn(p, b, cfg)  # noqa: E731
+    l0, g0 = value_and_grad(loss_fn, params, {"tokens": tok, "labels": tok})
+    pd = sharding.distribute(params, spec, mesh2, True)
+    bd = sharding.distribute({"tokens": tok, "labels": tok},
+                             {"tokens": tspec, "labels": tspec}, mesh2)
+    with implicit_replication(), sharding.logical_rules(rules):
+        l1, g1 = value_and_grad(loss_fn, pd, bd)
+    out["loss"] = rel(l0, l1)
+    out["grads"] = max(rel(a, b) for a, b in zip(tree_leaves(g0),
+                                                  tree_leaves(g1)))
+    pd = sharding.distribute(params, spec, mesh2)
+    with torch.no_grad():
+        c0, p0 = M.prefill(params, {"tokens": tok}, cfg, max_len=S + 2)
+        _, d0 = M.decode_step(params, c0, tok[:, :1], S, cfg)
+        with implicit_replication(), sharding.logical_rules(rules):
+            c1, p1 = M.prefill(pd, {"tokens": bd["tokens"]}, cfg,
+                               max_len=S + 2)
+            _, d1 = M.decode_step(pd, c1, bd["tokens"][:, :1], S, cfg)
+    out["prefill"], out["decode"] = rel(p0, p1), rel(d0, d1)
+    return out
+
+
 if __name__ == "__main__":
     _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
