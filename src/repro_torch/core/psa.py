@@ -36,7 +36,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.common import sharding
+from repro_torch.common import sharding, trace
 from repro_torch.common.tree import FlatSpec, ring_update
 from repro_torch.core import aggregation, sketch, thermometer
 from repro_torch.core.sensitivity import grad_and_fisher
@@ -183,15 +183,17 @@ def server_aggregate(state: PSAState, global_vec: torch.Tensor,
     """Algorithm 1 lines 17-31: weight the buffered updates and apply them
     to the flat global vector. Returns ``(state, new_global_vec, PSAInfo)``;
     call only when ``buffer_full``."""
-    weights, temp, temp_valid = _weights_and_temp(
-        state, cfg.gamma if gamma is None else gamma,
-        cfg.delta if delta is None else delta,
-        cfg.use_thermometer if thermo_on is None else thermo_on)
-    new_global = aggregation.aggregate_flat(
-        global_vec, state.buffer, weights,
-        cfg.server_lr if server_lr is None else server_lr)
-    info = PSAInfo(updated=True, weights=weights, kappas=state.kappas.clone(),
-                   temp=temp, temp_valid=temp_valid)
+    with trace.span("aggregate"):
+        weights, temp, temp_valid = _weights_and_temp(
+            state, cfg.gamma if gamma is None else gamma,
+            cfg.delta if delta is None else delta,
+            cfg.use_thermometer if thermo_on is None else thermo_on)
+        new_global = aggregation.aggregate_flat(
+            global_vec, state.buffer, weights,
+            cfg.server_lr if server_lr is None else server_lr)
+        info = PSAInfo(updated=True, weights=weights,
+                       kappas=state.kappas.clone(), temp=temp,
+                       temp_valid=temp_valid)
     state.count = 0
     return state, new_global, info
 
@@ -211,7 +213,8 @@ def server_step(state: PSAState, global_vec: torch.Tensor,
         state, global_vec, cfg, gamma=gamma, delta=delta,
         server_lr=server_lr, thermo_on=thermo_on)
     if refresh_fn is not None:
-        state.global_sketch = refresh_fn(new_global)
+        with trace.span("refresh"):
+            state.global_sketch = refresh_fn(new_global)
     return state, new_global, info
 
 

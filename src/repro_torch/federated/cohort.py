@@ -47,7 +47,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common import sharding
+from repro_torch.common import sharding, trace
 from repro_torch.common.tree import (FlatSpec, tree_leaves, tree_sq_norm,
                                      tree_sub, tree_unflatten_like)
 from repro_torch.data.loader import (ClientSlabStore, StackedClients,
@@ -78,6 +78,11 @@ class CohortEngine:
     align, member kernel, mesh); ``cohort_update`` then trains one wave.
     ``steps_run`` counts the local steps the engine executed, over all
     waves, and ``split_waves`` the waves it trained split over a mesh.
+    ``member_steps_run`` counts the member slots of those steps, padded
+    wave width times steps (a split wave's whole width), and
+    ``member_steps_live`` the slots in which a real member trained on a
+    real batch: the rest is padding. While a profiler records, both also
+    go to ``common.trace``'s counters.
     """
     # the mesh axis a wave's members split over (None: single device, or
     # rules that map ``cohort`` onto no mesh axis)
@@ -144,6 +149,8 @@ class CohortEngine:
         self.bs_pad = int(bs_c.max())
         self.steps_run = 0
         self.split_waves = 0
+        self.member_steps_run = 0
+        self.member_steps_live = 0
 
     def _schedules(self, cids: np.ndarray, seeds: np.ndarray):
         """Batch schedules for a cohort, padded to the engine's fixed
@@ -229,6 +236,14 @@ class CohortEngine:
             counts = padded(counts, 1)
         live = np.flatnonzero((lr_steps > 0.0).any(axis=0))
         n_steps = int(live[-1]) + 1 if live.size else 0
+        # member-steps of the padded wave, and of real members on real
+        # batches
+        wave_run = (n + pad) * n_steps
+        wave_live = int(np.count_nonzero(nvalid[:, :n_steps]))
+        self.member_steps_run += wave_run
+        self.member_steps_live += wave_live
+        trace.count("member_steps_run", wave_run)
+        trace.count("member_steps_live", wave_live)
         x, y, rows = self._wave_rows(cids, lanes, pad)
         share = self._share(n + pad)
         if share is None:

@@ -36,6 +36,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.common import trace
 from repro_torch.common.tree import FlatSpec, ring_update
 from repro_torch.core import aggregation, psa as psa_lib
 from repro_torch.kernels.sens_sketch import KS
@@ -294,7 +295,9 @@ def fedpsa_policy(spec: FlatSpec, cfg: psa_lib.PSAConfig,
 
     def init(params, h: PolicyParams) -> ServerState:
         st = base_state(spec, params, h)
-        st.psa = psa_lib.init_state(cfg, spec.size, sketch_refresh(st.params),
+        with trace.span("refresh"):
+            global_sketch = sketch_refresh(st.params)
+        st.psa = psa_lib.init_state(cfg, spec.size, global_sketch,
                                     device=st.params.device)
         return st
 

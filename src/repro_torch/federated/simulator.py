@@ -65,7 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import store
-from repro_torch.common import sharding
+from repro_torch.common import sharding, trace
 from repro_torch.common.device import setup_device
 from repro_torch.common.tree import FlatSpec, tree_leaves, tree_map
 from repro_torch.core import psa as psa_lib
@@ -168,6 +168,9 @@ class SimResult:
     cohorts: int = 0                  # device batches the cohort engine ran
     local_steps: int = 0              # local SGD steps this process ran (a
     #                                   cohort wave's step counts once)
+    member_steps_run: int = 0         # the cohort engine's member-steps,
+    member_steps_live: int = 0        # and those of real members on real
+    #                                   batches (CohortEngine's counters)
     engine: str = ""
     server_log: List[dict] = field(default_factory=list)  # host values
     receive_log: List[dict] = field(default_factory=list)
@@ -218,10 +221,10 @@ def _build_eval(cfg: ModelConfig, test_ds, sim: SimConfig, device):
     fam, batches = _eval_batches(cfg, test_ds, sim, device)
 
     def evaluate(params) -> float:
-        with torch.no_grad():
+        with trace.span("eval"), torch.no_grad():
             accs = torch.stack([fam.eval_accuracy(params, b, cfg)
                                 for b in batches])
-        return float(np.mean(accs.cpu().numpy().astype(np.float64)))
+            return float(np.mean(accs.cpu().numpy().astype(np.float64)))
 
     return evaluate
 
@@ -233,11 +236,11 @@ def _build_eval_lanes(cfg: ModelConfig, test_ds, sim: SimConfig,
     fam, batches = _eval_batches(cfg, test_ds, sim, device)
 
     def evaluate(flat_stack) -> np.ndarray:
-        with torch.no_grad():
+        with trace.span("eval"), torch.no_grad():
             accs = torch.stack([torch.stack([
                 fam.eval_accuracy(spec.unflatten(row), b, cfg)
                 for b in batches]) for row in flat_stack])
-        return np.mean(accs.cpu().numpy().astype(np.float64), axis=1)
+            return np.mean(accs.cpu().numpy().astype(np.float64), axis=1)
 
     return evaluate
 
@@ -506,68 +509,71 @@ def run_async(server_name: str, cfg: ModelConfig, init_params,
               server_kwargs: Optional[dict] = None,
               receive_hook: Optional[Callable] = None) -> SimResult:
     """Run one asynchronous algorithm to the virtual-time horizon."""
-    engine = _resolve_engine(sim, cfg)
-    batched = engine == "cohort"
-    streams = make_streams(sim)
-    scheduler = make_scheduler(sim)
-    if sim.checkpoint_dir and not scheduler.checkpointable:
-        raise ValueError(
-            f"scheduler {scheduler.name!r} keeps host-side state beyond its "
-            f"RNG and does not implement the state_arrays checkpoint "
-            f"round-trip; drop checkpoint_dir or use a checkpointable "
-            f"scheduler")
-    device = setup_device(sim.device)
-    params = tree_map(lambda x: torch.as_tensor(x, dtype=torch.float32,
-                                                device=device), init_params)
-    psa_cfg, sketch_fn = _fedpsa_sketch(server_name, cfg, calib_batch,
-                                        psa_cfg, device)
-    server = servers_lib.make_server(
-        server_name, params, num_clients=sim.num_clients, psa_cfg=psa_cfg,
-        sketch_fn=sketch_fn, mesh=sim.mesh, rules=sim.rules,
-        **(server_kwargs or {}))
-    digest_fn = (make_digest_fn(server.policy.spec.size)
-                 if sim.record_trajectory else None)
-    evaluate = _build_eval(cfg, test_ds, sim, device)
-    result = SimResult(engine=engine)
-    timeline, data_sizes, dispatcher = _dispatcher(
-        sim, streams, scheduler, server, result, client_datasets, batched)
-    t0 = next_eval0 = 0.0
-    resumed = None
-    if sim.checkpoint_dir and sim.resume:
-        resumed = _ckpt_restore(sim, server, streams, timeline, scheduler,
-                                result, batched, device)
-    if resumed is None:
-        dispatcher.dispatch_many(np.zeros(_concurrency(sim)))
-    else:
-        t0, next_eval0, dispatcher.seq = resumed
+    with trace.span("setup"):
+        engine = _resolve_engine(sim, cfg)
+        batched = engine == "cohort"
+        streams = make_streams(sim)
+        scheduler = make_scheduler(sim)
+        if sim.checkpoint_dir and not scheduler.checkpointable:
+            raise ValueError(
+                f"scheduler {scheduler.name!r} keeps host-side state beyond "
+                f"its RNG and does not implement the state_arrays checkpoint "
+                f"round-trip; drop checkpoint_dir or use a checkpointable "
+                f"scheduler")
+        device = setup_device(sim.device)
+        params = tree_map(lambda x: torch.as_tensor(
+            x, dtype=torch.float32, device=device), init_params)
+        psa_cfg, sketch_fn = _fedpsa_sketch(server_name, cfg, calib_batch,
+                                            psa_cfg, device)
+        server = servers_lib.make_server(
+            server_name, params, num_clients=sim.num_clients,
+            psa_cfg=psa_cfg, sketch_fn=sketch_fn, mesh=sim.mesh,
+            rules=sim.rules, **(server_kwargs or {}))
+        digest_fn = (make_digest_fn(server.policy.spec.size)
+                     if sim.record_trajectory else None)
+        evaluate = _build_eval(cfg, test_ds, sim, device)
+        result = SimResult(engine=engine)
+        timeline, data_sizes, dispatcher = _dispatcher(
+            sim, streams, scheduler, server, result, client_datasets,
+            batched)
+        t0 = next_eval0 = 0.0
+        resumed = None
+        if sim.checkpoint_dir and sim.resume:
+            resumed = _ckpt_restore(sim, server, streams, timeline,
+                                    scheduler, result, batched, device)
+        if resumed is None:
+            dispatcher.dispatch_many(np.zeros(_concurrency(sim)))
+        else:
+            t0, next_eval0, dispatcher.seq = resumed
 
-    ckpt = None
-    if sim.checkpoint_dir and sim.checkpoint_every > 0:
-        nxt = [(np.floor(t0 / sim.checkpoint_every) + 1)
-               * sim.checkpoint_every]
+        ckpt = None
+        if sim.checkpoint_dir and sim.checkpoint_every > 0:
+            nxt = [(np.floor(t0 / sim.checkpoint_every) + 1)
+                   * sim.checkpoint_every]
 
-        def ckpt(timeline_, t_, next_eval_):
-            if t_ < nxt[0]:
-                return
-            _ckpt_save(sim, server, streams, timeline_, scheduler, result,
-                       t_, next_eval_, dispatcher.seq)
-            while nxt[0] <= t_:
-                nxt[0] += sim.checkpoint_every
+            def ckpt(timeline_, t_, next_eval_):
+                if t_ < nxt[0]:
+                    return
+                _ckpt_save(sim, server, streams, timeline_, scheduler,
+                           result, t_, next_eval_, dispatcher.seq)
+                while nxt[0] <= t_:
+                    nxt[0] += sim.checkpoint_every
 
-    start = dict(t0=t0, next_eval0=next_eval0, ckpt=ckpt)
-    if batched:
+        start = dict(t0=t0, next_eval0=next_eval0, ckpt=ckpt)
         sketch_rows = (make_sketch_fn_flat(cfg, calib_batch, psa_cfg,
                                            server.policy.spec, device)
-                       if server.needs_sketch else None)
-        t = _drain_cohort(server, cfg, client_datasets, sim,
-                          dispatcher.dispatch_many, timeline, evaluate, result,
-                          data_sizes, sketch_rows, digest_fn, device,
-                          receive_hook=receive_hook, **start)
-    else:
-        t = _drain_sequential(server, cfg, client_datasets, sim,
-                              dispatcher.dispatch, timeline, evaluate, result,
-                              data_sizes, server.client_align, sketch_fn,
-                              receive_hook, digest_fn, **start)
+                       if batched and server.needs_sketch else None)
+    with trace.span("loop"):
+        if batched:
+            t = _drain_cohort(server, cfg, client_datasets, sim,
+                              dispatcher.dispatch_many, timeline, evaluate,
+                              result, data_sizes, sketch_rows, digest_fn,
+                              device, receive_hook=receive_hook, **start)
+        else:
+            t = _drain_sequential(server, cfg, client_datasets, sim,
+                                  dispatcher.dispatch, timeline, evaluate,
+                                  result, data_sizes, server.client_align,
+                                  sketch_fn, receive_hook, digest_fn, **start)
     result.final_accuracy = evaluate(server.params)
     result.times.append(min(t, sim.horizon))
     result.accuracies.append(result.final_accuracy)
@@ -598,13 +604,15 @@ def _drain_sequential(server, cfg, client_datasets, sim: SimConfig, dispatch,
             next_eval += sim.eval_every
         if not ev.ok:
             result.dropped += 1
-            dispatch(t)
+            with trace.span("redispatch"):
+                dispatch(t)
             continue
         lr = sim.lr * (sim.lr_decay ** result.dispatches)
-        delta, w_client = client_lib.local_update(
-            ev.snapshot, cfg, client_datasets[ev.cid],
-            epochs=sim.local_epochs, batch_size=sim.batch_size, lr=lr,
-            seed=sim.seed * 100003 + result.dispatches, align=align)
+        with trace.span("train"):
+            delta, w_client = client_lib.local_update(
+                ev.snapshot, cfg, client_datasets[ev.cid],
+                epochs=sim.local_epochs, batch_size=sim.batch_size, lr=lr,
+                seed=sim.seed * 100003 + result.dispatches, align=align)
         n = int(data_sizes[ev.cid])
         result.local_steps += sim.local_epochs * (n // min(sim.batch_size, n))
         meta = {
@@ -613,16 +621,19 @@ def _drain_sequential(server, cfg, client_datasets, sim: SimConfig, dispatch,
             "data_size": float(data_sizes[ev.cid]),
         }
         if server.needs_sketch:
-            meta["sketch"] = sketch_fn(w_client)
+            with trace.span("sketch"):
+                meta["sketch"] = sketch_fn(w_client)
         if receive_hook is not None:
             receive_hook(server, w_client, delta, meta, t)
-        server.receive(delta, w_client, meta)
+        with trace.span("receive"):
+            server.receive(delta, w_client, meta)
         if digest_fn is not None:
             row = server.flat_params.cpu().numpy()[None, :]
             result.digests.append(digest_fn(row)[0].tolist())
         result.dispatches += 1
         result.receive_log.append({"t": t, "tau": meta["tau"], "client": ev.cid})
-        dispatch(t)
+        with trace.span("redispatch"):
+            dispatch(t)
     return t
 
 
@@ -718,7 +729,8 @@ def _redispatch(pending, cur, snaps, upd, version: int, result,
         ts_.append(ev.t_done)
         snaps_.append(cur)
         vers_.append(vcur)
-    dispatch_many(ts_, snaps_, vers_)
+    with trace.span("redispatch"):
+        dispatch_many(ts_, snaps_, vers_)
     pending.clear()
 
 
@@ -748,8 +760,9 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
     (``make_sketch_fn_flat``).
     """
     spec = server.policy.spec
-    engine = _make_cohort_engine(cfg, client_datasets, spec, sim, device,
-                                 align=server.client_align)
+    with trace.span("setup"):
+        engine = _make_cohort_engine(cfg, client_datasets, spec, sim, device,
+                                     align=server.client_align)
     # prefetch has a target on the streaming engine only (the monolithic
     # slab is device-resident already)
     store = getattr(engine, "store", None)
@@ -782,11 +795,13 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
                 d0, B = result.dispatches, len(ok_events)
                 lrs = [sim.lr * (sim.lr_decay ** (d0 + r)) for r in range(B)]
                 seeds = seed_base + (d0 + np.arange(B, dtype=np.int64))
-                deltas, w_stack = train(
-                    gather([ev.snapshot for ev in ok_events]),
-                    [ev.cid for ev in ok_events], lrs, seeds)
+                with trace.span("train"):
+                    deltas, w_stack = train(
+                        gather([ev.snapshot for ev in ok_events]),
+                        [ev.cid for ev in ok_events], lrs, seeds)
                 if sketch_rows is not None:
-                    sketches = engine.map_members(sketch_rows, w_stack)
+                    with trace.span("sketch"):
+                        sketches = engine.map_members(sketch_rows, w_stack)
                 result.cohorts += 1
 
             # Receives are deferred into ``pending`` and flushed as one
@@ -820,12 +835,14 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
                         receive_hook(server, spec.unflatten(w_stack[r0]),
                                      spec.unflatten(deltas[r0]), meta,
                                      ev.t_done)
-                    upd, taus, snaps = server.receive_many(
-                        deltas[..., r0:r1, :], w_stack[..., r0:r1, :],
-                        [ev.cid for ev in ok],
-                        [float(data_sizes[ev.cid]) for ev in ok],
-                        [ev.version for ev in ok],
-                        None if sketches is None else sketches[..., r0:r1, :])
+                    with trace.span("receive"):
+                        upd, taus, snaps = server.receive_many(
+                            deltas[..., r0:r1, :], w_stack[..., r0:r1, :],
+                            [ev.cid for ev in ok],
+                            [float(data_sizes[ev.cid]) for ev in ok],
+                            [ev.version for ev in ok],
+                            None if sketches is None
+                            else sketches[..., r0:r1, :])
                     if digest_fn is not None:
                         rows = (snaps if lanes else torch.stack(snaps)).cpu()
                         for out, r in zip(lane_digests,
@@ -867,6 +884,8 @@ def _drain_cohort(server, cfg, client_datasets, sim: SimConfig,
                 t = t_over
                 break
         result.local_steps += engine.steps_run
+        result.member_steps_run += engine.member_steps_run
+        result.member_steps_live += engine.member_steps_live
         return t
     finally:
         if store is not None:
@@ -944,6 +963,8 @@ class SweepResult:
     cohorts: int = 0
     local_steps: int = 0              # local SGD steps of the lanes' waves
     #                                   (a wave's step counts once)
+    member_steps_run: int = 0         # as SimResult's
+    member_steps_live: int = 0
     engine: str = "cohort"
     receive_log: List[dict] = field(default_factory=list)
     digests: List[List[List[float]]] = field(default_factory=list)
@@ -954,7 +975,9 @@ class SweepResult:
             final_accuracy=self.final_accuracy[s], versions=self.versions,
             dispatches=self.dispatches, launched=self.launched,
             dropped=self.dropped, cohorts=self.cohorts,
-            local_steps=self.local_steps, engine=self.engine,
+            local_steps=self.local_steps,
+            member_steps_run=self.member_steps_run,
+            member_steps_live=self.member_steps_live, engine=self.engine,
             receive_log=list(self.receive_log),
             digests=[list(d) for d in self.digests[s]])
 
@@ -1000,37 +1023,43 @@ def run_sweep(server_name: str, cfg: ModelConfig, init_params,
             "run_sweep requires the batched cohort engine (engine='cohort' "
             "and a registered model family)")
     S, model_seeds, data_seeds, lane_hypers = sweep.resolve(sim.seed)
-    device = setup_device(sim.device)
-    if model_seeds is not None:
-        inits = [model_lib.init_params(torch.Generator().manual_seed(int(s)),
-                                       cfg) for s in model_seeds]
-    else:
-        inits = [init_params] * S
-    params_lanes = [tree_map(lambda x: torch.as_tensor(
-        x, dtype=torch.float32, device=device), p) for p in inits]
+    with trace.span("setup"):
+        device = setup_device(sim.device)
+        if model_seeds is not None:
+            inits = [model_lib.init_params(
+                torch.Generator().manual_seed(int(s)), cfg)
+                for s in model_seeds]
+        else:
+            inits = [init_params] * S
+        params_lanes = [tree_map(lambda x: torch.as_tensor(
+            x, dtype=torch.float32, device=device), p) for p in inits]
 
-    streams = make_streams(sim)
-    scheduler = make_scheduler(sim)
-    psa_cfg, sketch_fn = _fedpsa_sketch(server_name, cfg, calib_batch,
-                                        psa_cfg, device)
-    server = servers_lib.make_lane_server(
-        server_name, params_lanes, lane_hypers, num_clients=sim.num_clients,
-        psa_cfg=psa_cfg, sketch_fn=sketch_fn, **(server_kwargs or {}))
-    spec = server.policy.spec
-    digest_fn = make_digest_fn(spec.size) if sim.record_trajectory else None
-    evaluate = _build_eval_lanes(cfg, test_ds, sim, spec, device)
-    result = SweepResult(num_lanes=S, lane_accuracies=[[] for _ in range(S)],
-                         digests=[[] for _ in range(S)])
-    timeline, data_sizes, dispatcher = _dispatcher(
-        sim, streams, scheduler, server, result, client_datasets, True)
-    dispatcher.dispatch_many(np.zeros(_concurrency(sim)))
-    sketch_lanes = (make_sketch_fn_lanes(cfg, calib_batch, psa_cfg, spec,
-                                         device)
-                    if server.needs_sketch else None)
-    t = _drain_cohort(server, cfg, client_datasets, sim,
-                      dispatcher.dispatch_many, timeline, evaluate, result,
-                      data_sizes, sketch_lanes, digest_fn, device,
-                      data_seeds=data_seeds)
+        streams = make_streams(sim)
+        scheduler = make_scheduler(sim)
+        psa_cfg, sketch_fn = _fedpsa_sketch(server_name, cfg, calib_batch,
+                                            psa_cfg, device)
+        server = servers_lib.make_lane_server(
+            server_name, params_lanes, lane_hypers,
+            num_clients=sim.num_clients, psa_cfg=psa_cfg, sketch_fn=sketch_fn,
+            **(server_kwargs or {}))
+        spec = server.policy.spec
+        digest_fn = (make_digest_fn(spec.size) if sim.record_trajectory
+                     else None)
+        evaluate = _build_eval_lanes(cfg, test_ds, sim, spec, device)
+        result = SweepResult(num_lanes=S,
+                             lane_accuracies=[[] for _ in range(S)],
+                             digests=[[] for _ in range(S)])
+        timeline, data_sizes, dispatcher = _dispatcher(
+            sim, streams, scheduler, server, result, client_datasets, True)
+        dispatcher.dispatch_many(np.zeros(_concurrency(sim)))
+        sketch_lanes = (make_sketch_fn_lanes(cfg, calib_batch, psa_cfg, spec,
+                                             device)
+                        if server.needs_sketch else None)
+    with trace.span("loop"):
+        t = _drain_cohort(server, cfg, client_datasets, sim,
+                          dispatcher.dispatch_many, timeline, evaluate,
+                          result, data_sizes, sketch_lanes, digest_fn, device,
+                          data_seeds=data_seeds)
     result.final_accuracy = [float(a) for a in evaluate(server.flat_params)]
     result.times.append(min(t, sim.horizon))
     for s in range(S):

@@ -6,7 +6,8 @@ hand-written kernel ``csrc/buffer_agg.cu``; on a CPU tensor it runs the
 plain version below; on a ``meta`` tensor it returns an empty result and
 computes nothing. It never falls back from one to the other. On the card
 and on meta it reports the launch's cost (``cost``) to the op counter in
-use (``launch/op_cost.py``).
+use (``launch/op_cost.py``), or without one, while a profiler records, to
+``common.trace``'s kernel tally.
 
 Bound on the H100: HBM bandwidth — ``(L + 2) * d * 4`` bytes for ``2 L d``
 flops. The kernel streams the slab once with coalesced grid-stride loads,

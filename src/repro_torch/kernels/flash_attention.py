@@ -12,7 +12,8 @@ tensor the wrapper launches the hand-written kernels
 falls back from one to the other. On the card and on meta each launch
 reports its cost (``cost``, ``bwd_cost``: the band's pairs, 4 hd flops a
 pair and head forward, 2.5 times that backward) to the op counter in use
-(``launch/op_cost.py``).
+(``launch/op_cost.py``), or without one, while a profiler records, to
+``common.trace``'s kernel tally.
 
 Contract (the reference's ``repro/models/layers.py`` ``chunked_attention``
 at query offset 0, and with a gradient JAX's autodiff of it; with no window

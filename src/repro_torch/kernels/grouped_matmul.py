@@ -8,7 +8,8 @@ wrapper launches the hand-written kernel ``csrc/grouped_matmul.cu``; on a
 CPU tensor it runs the plain version below; on a ``meta`` tensor it
 returns an empty result and computes nothing. It never falls back from one
 to the other. On the card and on meta it reports the launch's cost
-(``cost``) to the op counter in use (``launch/op_cost.py``).
+(``cost``) to the op counter in use (``launch/op_cost.py``), or without
+one, while a profiler records, to ``common.trace``'s kernel tally.
 
 Contract (the reference's, oracle ``repro/kernels/ref.py``
 ``grouped_matmul_ref``): f32 accumulation; float32 or bfloat16 inputs,

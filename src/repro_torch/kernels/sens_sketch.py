@@ -6,7 +6,8 @@ launch the hand-written kernel ``csrc/sens_sketch.cu``; on CPU tensors
 they run the plain versions below; on ``meta`` tensors they return empty
 results and compute nothing. They never fall back from one to the other.
 On the card and on meta they report a launch's cost (``cost``) to the op
-counter in use (``launch/op_cost.py``). Two entries share the kernel and
+counter in use (``launch/op_cost.py``), or without one, while a profiler
+records, to ``common.trace``'s kernel tally. Two entries share the kernel and
 its launch count (one per call):
 
 - ``sens_sketch_rows(theta, g, f, table)``: (B, d) rows of one flat

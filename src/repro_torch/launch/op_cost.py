@@ -29,7 +29,9 @@ Accounting model, per device:
 * the port's kernels — the mode cannot see a ctypes launch, so each
   kernel wrapper reports its launch's cost (``report``) from the formula
   beside the kernel: the work the bound column of PERF.md's kernel table
-  counts. ``kernels`` holds their counts and costs by name.
+  counts. ``kernels`` holds their counts and costs by name. Without a
+  counter, while a profiler records, ``report`` tallies the launch in
+  ``common.trace`` instead (``trace.kernel_tally``).
 
 Under DTensor (the dry run, ``launch/dryrun.py``) the mode sees the global
 op, of global shapes: its flops are its global flops divided by the
@@ -47,6 +49,8 @@ from typing import Callable, Dict
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+
+from repro_torch.common import trace
 
 # what the reference counts as transcendental (hlo_cost._TRANSCENDENTAL),
 # by aten name, with the transcendentals an element of each op needs
@@ -384,9 +388,12 @@ def _split_of(out, dt) -> int:
 def report(name: str, flops: float, nbytes: float,
            transcendentals: float = 0.0, int_ops: float = 0.0) -> None:
     """A kernel launch's cost, from the formula beside the kernel, to the
-    counter in use (nothing without one)."""
+    counter in use; without one, to ``common.trace``'s tally while a
+    profiler records (``trace.kernel_tally``), and nowhere otherwise."""
     if _ACTIVE:
         _ACTIVE[-1].add_kernel(name, flops, nbytes, transcendentals, int_ops)
+    elif trace.recording():
+        trace.tally_kernel(name, flops, nbytes, transcendentals, int_ops)
 
 
 def folding(tree) -> bool:
